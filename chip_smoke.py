@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's keys-only sort on one CUDA GPU and check it.
+"""Drive the PyTorch port's sorts on one CUDA GPU and check them.
 
 Run from the repository root:  python3 chip_smoke.py [--n N] [--seed S]
 (defaults: 40,000,000 keys, the reference benchmark's size).
 
 Phases, one line each (numpy is the only oracle; nothing here imports JAX):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from csrc/ and print the build time;
+  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
+     and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, bit for
      bit, at n keys: hist_pext (K2) at masks 0xF0F00000, 0xFF and 0xFFFF;
      regen_pdep at 256 bins (K5 contract) and 65,536 bins (K8 contract);
-  4. sort n keys per case through radix_sorting_tpu_torch.sort on CUDA
-     tensors and compare with a numpy oracle: full-entropy u32 (sorter),
-     presorted u32 (guard), masked u32, u8, u16, bf16 and f32 with signed
-     zeros, infinities and NaNs, descending u16;
+     hist_pext2 (K3) at the 64-bit masks 0xF000000000000F00,
+     0x00FF00000000FF00 and 0x0000000000FFFF00; regen_pdep2 at 256 bins (K6
+     contract) and 65,536 bins (K9 contract), with dead bits in both planes;
+  4. run each case through the public entry points on CUDA tensors (byte
+     strings: numpy) and compare with a numpy oracle: sort of full-entropy
+     u32 (sorter), presorted u32 (guard), masked u32, u8, u16, bf16 and f32
+     with signed zeros, infinities and NaNs, descending u16; sort of u64
+     (sorter), i64, f64 with specials, masked u64 (K3+K6, K3+K9, descending),
+     u64 with 24 live bits (one compacted operand), float8_e4m3fn, S12 byte
+     strings (n/10 keys); argsort and sort_pairs of u32 keys with duplicates;
+     counting_sort of u16 with a payload; sort_u64_multipass;
   5. require every kernel's launch count from phase 4 to be non-zero;
   6. time each case and each kernel beside its plain version (CUDA events,
-     steady-state loops).
+     steady-state loops), and torch.sort of int32 and int64 keys.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
@@ -38,18 +46,18 @@ def fail(msg: str):
 def float_order_np(bits: np.ndarray, width: int) -> np.ndarray:
     """Sort raw float bit patterns by the reference's float KDF, in numpy:
     -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN."""
-    ut = np.uint16 if width == 16 else np.uint32
+    ut = {8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}[width]
     b = bits.astype(ut)
-    sign = (b >> ut(width - 1)).astype(ut)
-    live = ut((1 << width) - 1)
-    key = b ^ (((ut(0) - sign) & live) | ut(1 << (width - 1)))
-    return b[np.argsort(key, kind="stable")]
+    top = ut(1) << ut(width - 1)
+    key = np.sort(np.where(b & top, ~b, b | top))
+    return np.where(key & top, key ^ top, ~key)
 
 
 def gpu_bits(t, np_dtype) -> np.ndarray:
     """A CUDA tensor's raw bits as a host numpy array of ``np_dtype``."""
     import torch
-    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[np.dtype(np_dtype).itemsize]
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[np.dtype(np_dtype).itemsize]
     return t.contiguous().view(width).cpu().numpy().view(np_dtype)
 
 
@@ -66,6 +74,11 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def max_err(got, ref) -> int:
+    """Largest difference of two int32 tensors read as u32 bit patterns."""
+    return int(((got.long() & 0xFFFFFFFF) - (ref.long() & 0xFFFFFFFF)).abs().max())
 
 
 def main() -> None:
@@ -101,9 +114,12 @@ def main() -> None:
     rng = np.random.Generator(np.random.PCG64(args.seed))
     keys = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
     w = torch.from_numpy(keys.view(np.int32)).to(dev)
+    keys64 = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    hi64 = torch.from_numpy((keys64 >> np.uint64(32)).astype(np.uint32).view(np.int32)).to(dev)
+    lo64 = torch.from_numpy(keys64.astype(np.uint32).view(np.int32)).to(dev)
 
     # -- phase 3: kernels against their plain versions ----------------------
-    errs = {"hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0}
+    errs = {name: 0 for name in ck.LAUNCHES}
     for mask in (0xF0F00000, 0xFF, 0xFFFF):
         got, ref = ck.hist_pext(w, mask), ck.hist_pext_plain(w, mask)
         torch.cuda.synchronize()
@@ -120,17 +136,51 @@ def main() -> None:
         cum = torch.cumsum(ck.hist_pext(plane, mask), 0, dtype=torch.int32)
         got, ref = ck.regen_pdep(cum, n, mask, plane), ck.regen_pdep_plain(cum, n, mask, plane)
         torch.cuda.synchronize()
-        err = int(((got.long() & 0xFFFFFFFF) - (ref.long() & 0xFFFFFFFF)).abs().max())
+        err = max_err(got, ref)
         errs[name] = err
         if err:
             fail(f"{name} bins={cum.numel()}: max |err| {err}")
         regen_inputs[name] = (cum, mask, plane)
         print(f"[3 kernel] {name} bins={cum.numel()} dead=0x{dead:X} equal to "
               "plain (max |err| 0)", flush=True)
+    for m64 in (0xF000000000000F00, 0x00FF00000000FF00, 0x0000000000FFFF00):
+        mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
+        got, ref = ck.hist_pext2(hi64, lo64, mh, ml), ck.hist_pext2_plain(hi64, lo64, mh, ml)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        errs["hist_pext2"] = max(errs["hist_pext2"], err)
+        if err or int(got.long().sum()) != n:
+            fail(f"hist_pext2 mask 0x{m64:016X}: max |err| {err}")
+        print(f"[3 kernel] hist_pext2 mask=0x{m64:016X} bins={got.numel()} "
+              f"equal to plain (max |err| 0)", flush=True)
+    regen2_inputs = {}
+    for m64, dead, name in ((0xF000000000000F00, 0x0001000300000005, "regen_pdep2"),
+                            (0x00FF00000000FF00, 0x8000000100000003,
+                             "regen_pdep2_windowed")):
+        mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
+        phi = (hi64 & i32(mh)) | i32(dead >> 32)
+        plo = (lo64 & i32(ml)) | i32(dead & 0xFFFFFFFF)
+        cum = torch.cumsum(ck.hist_pext2(phi, plo, mh, ml), 0, dtype=torch.int32)
+        ghi, glo = ck.regen_pdep2(cum, n, mh, ml, phi, plo)
+        rhi, rlo = ck.regen_pdep2_plain(cum, n, mh, ml, phi, plo)
+        torch.cuda.synchronize()
+        err = max(max_err(ghi, rhi), max_err(glo, rlo))
+        errs[name] = err
+        if err:
+            fail(f"{name} bins={cum.numel()}: max |err| {err}")
+        regen2_inputs[name] = (cum, mh, ml, phi, plo)
+        print(f"[3 kernel] {name} bins={cum.numel()} dead=0x{dead:016X} equal "
+              "to plain (max |err| 0)", flush=True)
 
-    # -- phase 4: the slice through the public entry point ------------------
+    # -- phase 4: the slice through the public entry points -----------------
     def u32_tensor(a):
         return torch.from_numpy(a.view(np.int32)).to(dev).view(torch.uint32)
+
+    def u64_tensor(a, dtype=torch.uint64):
+        return torch.from_numpy(a.view(np.int64)).to(dev).view(dtype)
+
+    def bits_of(np_dtype):
+        return lambda out: gpu_bits(out, np_dtype)
 
     bf16 = rng.integers(0, 1 << 16, size=n, dtype=np.uint16)
     f32 = rng.standard_normal(n).astype(np.float32)
@@ -142,47 +192,128 @@ def main() -> None:
     f32b[idx[64:128]] = np.uint32(0x7F800123)     # signalling NaN payload
     bf16[idx] = np.array([0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC1, 0xFFC3],
                          np.uint16)[np.arange(idx.size) % 6]
+    f64b = rng.standard_normal(n).view(np.uint64).copy()
+    f64b[idx] = np.array([0x0, 0x8000000000000000, 0x7FF0000000000000,
+                          0xFFF0000000000000, 0x7FF8000000000000,
+                          0xFFF8000000000007, 0x7FF0000000000123],
+                         np.uint64)[np.arange(idx.size) % 7]
+    f8 = rng.integers(0, 256, size=n, dtype=np.uint8)
+    nb = n // 10
+    s12 = rng.integers(0, 4, size=(nb, 12), dtype=np.uint8) * np.uint8(60)
+    s12 = np.ascontiguousarray(s12).view("S12").reshape(-1)
     mask = 0xF0F00000
+    m_k6, m_k9, m_24 = 0xF000000000000F00, 0x00FF00000000FF00, 0x0FFF00000000FFF0
     u16 = (keys & np.uint32(0xFFFF)).astype(np.uint16)
+    dups = keys & np.uint32(0xFFFF)
+    pay_i64 = rng.integers(-2**62, 2**62, size=n, dtype=np.int64)
+    pay_f32 = rng.standard_normal(n).astype(np.float32)
+    payload = {"i64": torch.from_numpy(pay_i64).to(dev),
+               "f32": torch.from_numpy(pay_f32).to(dev)}
     sorted_keys = np.sort(keys)
+    sorted64 = np.sort(keys64)
+    desc = rt.SortConfig(descending=True)
+
+    def stable_perm(a):
+        return np.argsort(a, kind="stable")
+
+    def pairs_host(out):
+        k, v = out
+        return (gpu_bits(k, np.uint32), v["i64"].cpu().numpy(), v["f32"].cpu().numpy())
+
+    def pairs_oracle(a):
+        p = stable_perm(a)
+        return (a[p], pay_i64[p], pay_f32[p])
+
     cases = [
-        # name, input tensor, sort kwargs, expected raw bits, numpy bits dtype
-        ("u32 full entropy (sorter)", lambda: u32_tensor(keys), {},
-         lambda: sorted_keys, np.uint32),
-        ("u32 presorted (guard)", lambda: u32_tensor(sorted_keys), {},
-         lambda: sorted_keys, np.uint32),
+        # name, input maker, entry point, host result, numpy oracle
+        ("u32 full entropy (sorter)", lambda: u32_tensor(keys), rt.sort,
+         bits_of(np.uint32), lambda: sorted_keys),
+        ("u32 presorted (guard)", lambda: u32_tensor(sorted_keys), rt.sort,
+         bits_of(np.uint32), lambda: sorted_keys),
         ("u32 value_mask=0xF0F00000 (K2+K5)",
-         lambda: u32_tensor(keys & np.uint32(mask)), {"value_mask": mask},
-         lambda: np.sort(keys & np.uint32(mask)), np.uint32),
-        ("u8 (K2+K5)", lambda: torch.from_numpy(keys.astype(np.uint8)).to(dev), {},
-         lambda: np.sort(keys.astype(np.uint8)), np.uint8),
+         lambda: u32_tensor(keys & np.uint32(mask)),
+         lambda x: rt.sort(x, value_mask=mask), bits_of(np.uint32),
+         lambda: np.sort(keys & np.uint32(mask))),
+        ("u8 (K2+K5)", lambda: torch.from_numpy(keys.astype(np.uint8)).to(dev),
+         rt.sort, bits_of(np.uint8), lambda: np.sort(keys.astype(np.uint8))),
         ("u16 (K2+K8)", lambda: torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16),
-         {}, lambda: np.sort(u16), np.uint16),
+         rt.sort, bits_of(np.uint16), lambda: np.sort(u16)),
         ("bf16 +-0 +-inf NaN (K2+K8)",
          lambda: torch.from_numpy(bf16.view(np.int16)).to(dev).view(torch.bfloat16),
-         {}, lambda: float_order_np(bf16, 16), np.uint16),
+         rt.sort, bits_of(np.uint16), lambda: float_order_np(bf16, 16)),
         ("f32 +-0 +-inf NaN (sorter)",
-         lambda: torch.from_numpy(f32b.view(np.float32)).to(dev), {},
-         lambda: float_order_np(f32b, 32), np.uint32),
+         lambda: torch.from_numpy(f32b.view(np.float32)).to(dev), rt.sort,
+         bits_of(np.uint32), lambda: float_order_np(f32b, 32)),
         ("u16 descending (K2+K8)",
          lambda: torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16),
-         {"config": rt.SortConfig(descending=True)},
-         lambda: np.sort(u16)[::-1], np.uint16),
+         lambda x: rt.sort(x, config=desc), bits_of(np.uint16),
+         lambda: np.sort(u16)[::-1]),
+        ("u64 full entropy (sorter)", lambda: u64_tensor(keys64), rt.sort,
+         bits_of(np.uint64), lambda: sorted64),
+        ("i64 (sorter)", lambda: u64_tensor(keys64, torch.int64), rt.sort,
+         bits_of(np.int64), lambda: np.sort(keys64.view(np.int64))),
+        ("f64 +-0 +-inf NaN payloads (sorter)",
+         lambda: u64_tensor(f64b, torch.float64), rt.sort, bits_of(np.uint64),
+         lambda: float_order_np(f64b, 64)),
+        ("u64 value_mask=0xF000000000000F00 (K3+K6)",
+         lambda: u64_tensor(keys64 & np.uint64(m_k6)),
+         lambda x: rt.sort(x, value_mask=m_k6), bits_of(np.uint64),
+         lambda: np.sort(keys64 & np.uint64(m_k6))),
+        ("u64 value_mask=0x00FF00000000FF00 (K3+K9)",
+         lambda: u64_tensor(keys64 & np.uint64(m_k9)),
+         lambda x: rt.sort(x, value_mask=m_k9), bits_of(np.uint64),
+         lambda: np.sort(keys64 & np.uint64(m_k9))),
+        ("u64 descending value_mask=0xF000000000000F00 (K3+K6)",
+         lambda: u64_tensor(keys64 & np.uint64(m_k6)),
+         lambda x: rt.sort(x, value_mask=m_k6, config=desc), bits_of(np.uint64),
+         lambda: np.sort(keys64 & np.uint64(m_k6))[::-1]),
+        ("u64 24 live bits 0x0FFF00000000FFF0 (compacted sorter)",
+         lambda: u64_tensor(keys64 & np.uint64(m_24)),
+         lambda x: rt.sort(x, value_mask=m_24), bits_of(np.uint64),
+         lambda: np.sort(keys64 & np.uint64(m_24))),
+        ("float8_e4m3fn (K2+K5)",
+         lambda: torch.from_numpy(f8).to(dev).view(torch.float8_e4m3fn), rt.sort,
+         bits_of(np.uint8), lambda: float_order_np(f8, 8)),
+        (f"S12 byte strings, {nb} keys (sorter)", lambda: s12,
+         lambda x: rt.sort(x, device=dev), lambda out: out, lambda: np.sort(s12)),
+        ("argsort u32 with duplicates", lambda: u32_tensor(dups), rt.argsort,
+         bits_of(np.uint32), lambda: stable_perm(dups).astype(np.uint32)),
+        ("sort_pairs u32 with duplicates, {i64, f32}", lambda: u32_tensor(dups),
+         lambda x: rt.sort_pairs(x, payload),
+         pairs_host, lambda: pairs_oracle(dups)),
+        ("counting_sort u16 with a payload",
+         lambda: torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16),
+         lambda x: rt.counting_sort(x, payload),
+         lambda out: (gpu_bits(out[0], np.uint16), out[1]["i64"].cpu().numpy(),
+                      out[1]["f32"].cpu().numpy()),
+         lambda: pairs_oracle(u16)),
+        ("sort_u64_multipass", lambda: u64_tensor(keys64), rt.sort_u64_multipass,
+         bits_of(np.uint64), lambda: sorted64),
     ]
-    inputs = [(name, make(), kw, expect, bits) for name, make, kw, expect, bits in cases]
+    inputs = [(name, make(), run, host, oracle)
+              for name, make, run, host, oracle in cases]
     torch.cuda.synchronize()
     rt.reset_launch_counts()
-    outputs = [rt.sort(x, **kw) for _, x, kw, _, _ in inputs]
+    outputs = [run(x) for _, x, run, _, _ in inputs]
     torch.cuda.synchronize()
     launches = rt.launch_counts()
-    for (name, x, kw, expect, bits), out in zip(inputs, outputs):
-        if out.dtype != x.dtype or out.device != x.device or out.shape != x.shape:
-            fail(f"{name}: got {out.dtype} {out.device} {tuple(out.shape)}")
-        got, want = gpu_bits(out, bits), expect().astype(bits)
-        if not np.array_equal(got, want):
-            bad = int(np.flatnonzero(got != want)[0])
-            fail(f"{name}: differs from the numpy oracle first at {bad}")
-        print(f"[4 sort] {name}: n={n} equal to the numpy oracle", flush=True)
+    for (name, x, run, host, oracle), out in zip(inputs, outputs):
+        first = out[0] if isinstance(out, tuple) else out
+        if torch.is_tensor(x) and (first.device != x.device or first.shape != x.shape):
+            fail(f"{name}: got {first.dtype} {first.device} {tuple(first.shape)}")
+        if run is rt.sort and first.dtype != x.dtype:
+            fail(f"{name}: got dtype {first.dtype}, keys are {x.dtype}")
+        got, want = host(out), oracle()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, wv in zip(got, want):
+            if g.dtype != wv.dtype and g.dtype.itemsize == wv.dtype.itemsize:
+                wv = wv.view(g.dtype)
+            if not np.array_equal(g, wv):
+                bad = int(np.flatnonzero(g != wv)[0])
+                fail(f"{name}: differs from the numpy oracle first at {bad}")
+        print(f"[4 sort] {name}: n={len(first)} equal to the numpy oracle",
+              flush=True)
 
     # -- phase 5: the main path went through every kernel -------------------
     print(f"[5 launches] {json.dumps(launches)}", flush=True)
@@ -192,40 +323,57 @@ def main() -> None:
 
     # -- phase 6: times ----------------------------------------------------
     reps = 10
-    for name, x, kw, _, _ in inputs:
-        ms = time_ms(lambda: rt.sort(x, **kw), reps)
-        print(f"[6 time] sort {name}: {ms:.3f} ms, {n / ms / 1e3:.1f} Mkeys/s",
+    for name, x, run, _, _ in inputs:
+        ms = time_ms(lambda: run(x), reps)
+        m = len(x)
+        print(f"[6 time] {name}: {ms:.3f} ms, {m / ms / 1e3:.1f} Mkeys/s",
               flush=True)
-    ms = time_ms(lambda: torch.sort(w), reps)
-    print(f"[6 time] torch.sort int32 (reference point): {ms:.3f} ms, "
-          f"{n / ms / 1e3:.1f} Mkeys/s", flush=True)
+    w64 = torch.from_numpy(keys64.view(np.int64)).to(dev)
+    for label, t in (("int32", w), ("int64", w64)):
+        ms = time_ms(lambda: torch.sort(t), reps)
+        print(f"[6 time] torch.sort {label} (reference point): {ms:.3f} ms, "
+              f"{n / ms / 1e3:.1f} Mkeys/s", flush=True)
 
     def turns(kernel, plain):
         """Kernel and plain version in turns (plain, kernel, kernel, plain)."""
         p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
         return (k1 + k2) / 2, (p1 + p2) / 2
 
-    shapes = {"hist_pext": [], "regen_pdep": [], "regen_pdep_windowed": []}
+    shapes = {name: [] for name in ck.LAUNCHES}
     for mask in (0xF0F00000, 0xFFFF):
         k, p = turns(lambda: ck.hist_pext(w, mask), lambda: ck.hist_pext_plain(w, mask))
-        shapes["hist_pext"].append({"bins": 1 << bin(mask).count("1"), "ms": k, "plain_ms": p})
+        shapes["hist_pext"].append({"bins": 1 << bin(mask).count("1"), "ms": k,
+                                    "plain_ms": p, "bytes": n * 4})
     for name, (cum, mask, plane) in regen_inputs.items():
         k, p = turns(lambda: ck.regen_pdep(cum, n, mask, plane),
                      lambda: ck.regen_pdep_plain(cum, n, mask, plane))
-        shapes[name].append({"bins": cum.numel(), "ms": k, "plain_ms": p})
+        shapes[name].append({"bins": cum.numel(), "ms": k, "plain_ms": p,
+                             "bytes": n * 4})
+    for m64 in (0xF000000000000F00, 0x00FF00000000FF00):
+        mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
+        k, p = turns(lambda: ck.hist_pext2(hi64, lo64, mh, ml),
+                     lambda: ck.hist_pext2_plain(hi64, lo64, mh, ml))
+        shapes["hist_pext2"].append({"bins": 1 << bin(m64).count("1"), "ms": k,
+                                     "plain_ms": p, "bytes": n * 8})
+    for name, (cum, mh, ml, phi, plo) in regen2_inputs.items():
+        k, p = turns(lambda: ck.regen_pdep2(cum, n, mh, ml, phi, plo),
+                     lambda: ck.regen_pdep2_plain(cum, n, mh, ml, phi, plo))
+        shapes[name].append({"bins": cum.numel(), "ms": k, "plain_ms": p,
+                             "bytes": n * 8})
     for name, rows in shapes.items():
         for r in rows:
             print(f"[6 time] {name} n={n} bins={r['bins']}: kernel {r['ms']:.4f} ms "
-                  f"({n * 4 / r['ms'] / 1e6:.0f} GB/s of keys), plain "
+                  f"({r['bytes'] / r['ms'] / 1e6:.0f} GB/s of keys), plain "
                   f"{r['plain_ms']:.4f} ms", flush=True)
 
+    pk = "radix_sorting_tpu/ops/pallas_kernels.py"
     replaces = {
-        "hist_pext": ("radix_sorting_tpu_torch/csrc/hist_pext.cu",
-                      "radix_sorting_tpu/ops/pallas_kernels.py:299"),
-        "regen_pdep": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu",
-                       "radix_sorting_tpu/ops/pallas_kernels.py:475"),
-        "regen_pdep_windowed": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu",
-                                "radix_sorting_tpu/ops/pallas_kernels.py:714"),
+        "hist_pext": ("radix_sorting_tpu_torch/csrc/hist_pext.cu", f"{pk}:299"),
+        "regen_pdep": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:475"),
+        "regen_pdep_windowed": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:714"),
+        "hist_pext2": ("radix_sorting_tpu_torch/csrc/hist_pext.cu", f"{pk}:355"),
+        "regen_pdep2": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:414"),
+        "regen_pdep2_windowed": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:775"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],

@@ -2,16 +2,19 @@
 
 A second package beside the JAX one, for one NVIDIA Hopper GPU (sm_90a). It
 imports torch and numpy, never JAX; the JAX package is the reference it is
-tested against. So far it holds the keys-only ``sort`` of 1-D keys of up to
-32 bits, with the counting tier's kernels (K2 PEXT histogram, K5/K8 PDEP
-regeneration) written in CUDA under ``csrc/``.
+tested against. So far it holds ``sort``, ``argsort`` / ``rank_sort``,
+``sort_pairs``, ``counting_sort`` and ``sort_u64_multipass`` of 1-D keys of
+8 to 64 bits, byte strings, float8 and int4/uint4, with the counting tier's
+kernels (K2/K3 PEXT histogram, K5/K6/K8/K9 PDEP regeneration) written in
+CUDA under ``csrc/``.
 
-Public API: ``sort``, ``SortConfig`` / ``Strategy``, the kernel launch
-counters (``LAUNCHES``, ``launch_counts``, ``reset_launch_counts``) and the
-numpy codec (``as_tensor``, ``to_numpy``).
+Public API: the entry points above, ``SortConfig`` / ``Strategy``, the
+kernel launch counters (``LAUNCHES``, ``launch_counts``,
+``reset_launch_counts``) and the numpy codec (``as_tensor``, ``to_numpy``).
 """
 
-from .api import sort
+from .api import (argsort, counting_sort, rank_sort, sort, sort_pairs,
+                  sort_u64_multipass)
 from .config import DEFAULT_CONFIG, SortConfig, Strategy
 from .ops import cuda_kernels as _ck
 from .ops.kdf import as_tensor, to_numpy
@@ -20,5 +23,6 @@ LAUNCHES = _ck.LAUNCHES
 launch_counts = _ck.launch_counts
 reset_launch_counts = _ck.reset_launch_counts
 
-__all__ = ["sort", "SortConfig", "Strategy", "DEFAULT_CONFIG", "LAUNCHES",
+__all__ = ["sort", "argsort", "rank_sort", "sort_pairs", "counting_sort",
+           "sort_u64_multipass", "SortConfig", "Strategy", "DEFAULT_CONFIG", "LAUNCHES",
            "launch_counts", "reset_launch_counts", "as_tensor", "to_numpy"]

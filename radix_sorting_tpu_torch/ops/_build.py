@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds). The library lands in the package's ``build/``
+Each source under ``csrc/`` is compiled by its own ``nvcc``, all at once, and
+the objects are linked into one shared library with a plain C interface,
+loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds). The
+library lands in the package's ``build/``
 directory under a name that carries a hash of the sources and flags, so an
 edited source is rebuilt on first use and an unchanged one is reused. A
 failed build raises with the compiler's output.
@@ -29,14 +30,21 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # keys, n, mask, hist, stream
     "rst_hist_pext": (_P, ctypes.c_longlong, ctypes.c_uint, _P, _P),
+    # hi, lo, n, mask_hi, mask_lo, hist, stream
+    "rst_hist_pext2": (_P, _P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+                       _P, _P),
     # cum, bins, n, mask, plane, out, stream
     "rst_regen_pdep": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint, _P, _P, _P),
+    # cum, bins, n, mask_hi, mask_lo, plane_hi, plane_lo, out_hi, out_lo, stream
+    "rst_regen_pdep2": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                        ctypes.c_uint, _P, _P, _P, _P, _P),
 }
 
 
@@ -60,26 +68,47 @@ def _sources():
 def build() -> Tuple[Path, str]:
     """Compile ``csrc/*.cu`` unless a library of the same sources exists.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     Returns the library's path and the compiler's log (``-Xptxas -v``:
     registers and shared memory of every kernel; empty when reused).
     """
     cu, cuh = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in cu + cuh:
         digest.update(p.name.encode() + b"\0" + p.read_bytes())
     lib = _BUILD / f"librst_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""
     _BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in cu]
+    procs = []
+    try:
+        for p, o in zip(cu, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(proc.args)}\n{log}")
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}): "
+                               f"{' '.join(cmd)}\n{link.stdout}{link.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for proc in procs:      # none is left running, whatever failed
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)      # atomic: a concurrent loader sees all or nothing
-    return lib, proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return lib, "".join(logs) + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,11 @@
 """COUNTING engine: histogram + regeneration for small live domains.
 
-The counterpart of ``radix_sorting_tpu.ops.counting_engine`` for single-word
-keys. A keys-only sort over a live domain of B = 2^k bit patterns is fully
-determined by its histogram (`counting_sort_8.c:5-21`): PEXT the live bits,
-count them, scan, and rewrite ``out[j] = #{b : cum[b] <= j}`` with the live
-bits PDEP-ed back and the constant dead bits restored.
+The counterpart of ``radix_sorting_tpu.ops.counting_engine`` for one- and
+two-plane (64-bit) keys. A keys-only sort over a live domain of B = 2^k bit
+patterns is fully determined by its histogram (`counting_sort_8.c:5-21`):
+PEXT the live bits, count them, scan, and rewrite
+``out[j] = #{b : cum[b] <= j}`` with the live bits PDEP-ed back and the
+constant dead bits restored.
 
 Routing keeps the JAX package's gates (``counting_max_bits``,
 ``_REGEN_MAX_BINS``, ``_REGEN_WIN_MAX_BINS``, ``_WIDE_MIN_KEYS_PER_BIN``,
@@ -79,9 +80,10 @@ def sort_words_counting(words: Sequence[torch.Tensor], masks: Sequence[int],
                         descending: bool = False) -> Tuple[torch.Tensor, ...]:
     """Keys-only counting sort of derived keys with static live masks.
 
-    ``sum(popcount(m))`` must be <= 32. Past the regeneration budget, where
-    the windowed gate rejects (n, bins), the raw plane is sorted instead
-    (dead bits are constant under the mask promise, so raw order is
+    ``words`` are one plane or two (``(hi, lo)``), ``masks`` their live-bit
+    masks; ``sum(popcount(m))`` must be <= 32. Past the regeneration budget,
+    where the windowed gate rejects (n, bins), the raw planes are sorted
+    instead (dead bits are constant under the mask promise, so raw order is
     compacted order).
     """
     words = tuple(words)
@@ -89,25 +91,28 @@ def sort_words_counting(words: Sequence[torch.Tensor], masks: Sequence[int],
     nbits = sum(bin(m).count("1") for m in masks)
     if nbits > 32:
         raise ValueError("compacted live bits must fit one 32-bit word")
-    if len(words) != 1:
-        raise NotImplementedError(
-            "two-plane (64-bit) counting sorts are not ported yet "
-            "(ROADMAP.md, port queue item 1)")
     bins = 1 << nbits
     n = int(words[0].shape[0])
     if bins > _REGEN_MAX_BINS and not _windowed_bins_ok(n, bins):
-        (s,), _ = hw_engine.sort_words(words, stable=False)
-        return (s.flip(0),) if descending else (s,)
+        s, _ = hw_engine.sort_words(words, stable=False)
+        return tuple(p.flip(0) for p in s) if descending else s
 
     # Fused tier: PEXT inside the histogram read, PDEP and the dead bits
-    # inside the regeneration write; two full-array streams in all. Both
-    # the plain (<= 2^10 bins) and the windowed tier run the same kernels.
-    # nbits >= 2 mirrors the JAX gate (2-bin domains take the plain path).
-    if not descending and nbits >= 2 and masks[0]:
-        (w,) = words
-        hist = cuda_kernels.hist_pext(w, masks[0])
-        cum = torch.cumsum(hist, 0, dtype=torch.int32)
-        return (cuda_kernels.regen_pdep(cum, n, masks[0], w),)
+    # inside the regeneration write; two (three for two planes) full-array
+    # streams in all. Both the plain (<= 2^10 bins) and the windowed tier
+    # run the same kernels. nbits >= 2 mirrors the JAX gate (2-bin domains
+    # take the plain path).
+    if not descending and nbits >= 2:
+        if len(words) == 1 and masks[0]:
+            (w,) = words
+            hist = cuda_kernels.hist_pext(w, masks[0])
+            cum = torch.cumsum(hist, 0, dtype=torch.int32)
+            return (cuda_kernels.regen_pdep(cum, n, masks[0], w),)
+        if len(words) == 2:
+            hi, lo = words
+            hist = cuda_kernels.hist_pext2(hi, lo, masks[0], masks[1])
+            cum = torch.cumsum(hist, 0, dtype=torch.int32)
+            return cuda_kernels.regen_pdep2(cum, n, masks[0], masks[1], hi, lo)
 
     c = probes.compact_word_planes(words, masks)
     if descending:

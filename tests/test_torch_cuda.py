@@ -149,3 +149,119 @@ def test_masked_sort_on_card(cuda):
     want = np.sort(x.view(torch.int32).cpu().numpy().view(np.uint32))
     assert np.array_equal(out.view(torch.int32).cpu().numpy().view(np.uint32), want)
     assert rt.launch_counts()["hist_pext"] == 1 and rt.launch_counts()["regen_pdep"] == 1
+
+
+# ---------------------------------------------------------------------------
+# two-plane kernels: hist_pext2 (K3), regen_pdep2 (K6 / K9)
+
+
+def rand_pair(n, seed, device, mask=2**64 - 1, dead=0):
+    x = np.random.Generator(np.random.PCG64(seed)).integers(
+        0, 1 << 64, size=n, dtype=np.uint64)
+    x = (x & np.uint64(mask)) | np.uint64(dead & ~mask & (2**64 - 1))
+    hi = (x >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = x.astype(np.uint32).view(np.int32)
+    return torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device)
+
+
+def mask64(nbits):
+    """A 64-bit mask of nbits live bits split across the planes (hi gets
+    nbits // 2 of them, at bit 52 and up; lo the rest, from bit 4)."""
+    h = nbits // 2
+    return (((1 << h) - 1) << 52) | (((1 << (nbits - h)) - 1) << 4)
+
+
+# every bin count from 4 to 2^17, plus a 0 hi mask and a 0 lo mask
+PAIR_MASKS = [mask64(b) for b in range(2, 18)] + [0x00000000FFFF0000,
+                                                 0x0001FFFF00000000]
+
+
+@pytest.mark.parametrize("mask", PAIR_MASKS, ids=hex)
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_hist_pext2_matches_plain(cuda, mask, n):
+    hi, lo = rand_pair(n, n ^ mask, cuda)
+    mh, ml = mask >> 32, mask & 0xFFFFFFFF
+    before = ck.launch_counts()["hist_pext2"]
+    got = ck.hist_pext2(hi, lo, mh, ml)
+    assert ck.launch_counts()["hist_pext2"] == before + 1
+    assert torch.equal(got, ck.hist_pext2_plain(hi, lo, mh, ml))
+
+
+def test_hist_pext2_unaligned_and_skewed(cuda):
+    hi, lo = rand_pair(100_001, 5, cuda)
+    hi, lo = hi[1:], lo[1:]                       # no 16-byte loads
+    for mh, ml in ((0xFF, 0xFF00), (0, 0xFFFF), (0x1FFFF, 0)):
+        assert torch.equal(ck.hist_pext2(hi, lo, mh, ml),
+                           ck.hist_pext2_plain(hi, lo, mh, ml))
+    same = torch.full((300_000,), 0x1234, dtype=torch.int32, device=cuda)
+    assert torch.equal(ck.hist_pext2(same, same, 0xFF, 0xFF00),
+                       ck.hist_pext2_plain(same, same, 0xFF, 0xFF00))
+
+
+def _cum2(hi, lo, mh, ml):
+    return torch.cumsum(ck.hist_pext2_plain(hi, lo, mh, ml), 0, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("mask", PAIR_MASKS, ids=hex)
+@pytest.mark.parametrize("n", [1, 1025, 999_999])
+def test_regen_pdep2_matches_plain(cuda, mask, n):
+    hi, lo = rand_pair(n, n + mask, cuda, mask, dead=0x8000100000020003)
+    mh, ml = mask >> 32, mask & 0xFFFFFFFF
+    cum = _cum2(hi, lo, mh, ml)
+    name = "regen_pdep2" if cum.numel() <= 1 << 10 else "regen_pdep2_windowed"
+    before = ck.launch_counts()[name]
+    ghi, glo = ck.regen_pdep2(cum, n, mh, ml, hi, lo)
+    assert ck.launch_counts()[name] == before + 1
+    phi, plo = ck.regen_pdep2_plain(cum, n, mh, ml, hi, lo)
+    assert torch.equal(ghi, phi) and torch.equal(glo, plo)
+
+
+@pytest.mark.parametrize("nbits", [8, 16, 17])
+def test_regen_pdep2_skewed_and_sparse(cuda, nbits):
+    n, mask = 2_000_003, mask64(nbits)
+    mh, ml = mask >> 32, mask & 0xFFFFFFFF
+    hi, lo = rand_pair(n, nbits, cuda, mask, dead=0x0000000100000001)
+    k = min(1500, 1 << nbits)
+    hi[k:] = hi[k].item()                         # one bin holds nearly all
+    lo[k:] = lo[k].item()
+    cum = _cum2(hi, lo, mh, ml)
+    ghi, glo = ck.regen_pdep2(cum, n, mh, ml, hi, lo)
+    phi, plo = ck.regen_pdep2_plain(cum, n, mh, ml, hi, lo)
+    assert torch.equal(ghi, phi) and torch.equal(glo, plo)
+
+
+def _u64(t):
+    return t.cpu().numpy().view(np.uint64)
+
+
+@pytest.mark.parametrize("mask,descending,counter", [
+    (0xF000000000000F00, True, "regen_pdep2"),   # complemented: dead bits set
+    (0x00FF00000000FF00, False, "regen_pdep2_windowed"),
+])
+def test_masked_u64_sort_on_card(cuda, mask, descending, counter):
+    n = 9_000_001           # 2^16 bins reach the windowed tier from ~8.4M
+    hi, lo = rand_pair(n, 23, cuda, mask)
+    x = torch.stack([lo, hi], 1).view(torch.int64).view(-1).view(torch.uint64)
+    rt.reset_launch_counts()
+    out = rt.sort(x, value_mask=mask, config=rt.SortConfig(descending=descending))
+    want = np.sort(_u64(x))
+    assert np.array_equal(_u64(out), want[::-1] if descending else want)
+    counts = rt.launch_counts()
+    assert counts["hist_pext2"] == 1 and counts[counter] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.uint64, torch.int64, torch.float64],
+                         ids=str)
+def test_wide_sort_and_argsort_on_card(cuda, dtype):
+    bits = np.random.Generator(np.random.PCG64(3)).integers(
+        0, 1 << 64, size=3_000_001, dtype=np.uint64)
+    bits[:4] = [0x7FF8000000000000, 0xFFF8000000000001, 0x0, 0x8000000000000000]
+    x = torch.from_numpy(bits.view(np.int64)).to(cuda).view(dtype)
+    if dtype == torch.float64:
+        key = np.where(bits >> np.uint64(63), ~bits, bits | np.uint64(1 << 63))
+    else:
+        key = bits ^ np.uint64(1 << 63) if dtype == torch.int64 else bits
+    perm = np.argsort(key, kind="stable")
+    assert np.array_equal(_u64(rt.sort(x)), bits[perm])
+    assert np.array_equal(rt.argsort(x).view(torch.int32).cpu().numpy(),
+                          perm.astype(np.int32))

@@ -5,9 +5,12 @@ run their plain PyTorch versions; these are held, bit for bit, against the
 Pallas kernels run in interpret mode and called directly, as
 ``tests/test_pallas_kernels.py`` calls them:
 
-  hist_pext   vs  pk.histogram_pext_tpu            (K2)
-  regen_pdep  vs  pk.regenerate_pdep_tpu           (K5, <= 2^10 bins)
-  regen_pdep  vs  pk.regenerate_pdep_windowed_tpu  (K8, 2^11 bins)
+  hist_pext    vs  pk.histogram_pext_tpu             (K2)
+  hist_pext2   vs  pk.histogram_pext2_tpu            (K3)
+  regen_pdep   vs  pk.regenerate_pdep_tpu            (K5, <= 2^10 bins)
+  regen_pdep2  vs  pk.regenerate_pdep2_tpu           (K6, <= 2^10 bins)
+  regen_pdep   vs  pk.regenerate_pdep_windowed_tpu   (K8, 2^11 bins)
+  regen_pdep2  vs  pk.regenerate_pdep2_windowed_tpu  (K9, 2^11 bins)
 
 Tolerance: exact equality (integer outputs). The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_cuda.py and
@@ -133,6 +136,9 @@ def test_plain_versions_count_no_launches():
     x = masked_keys(3, 1000, 0xFF, 0)
     cum = torch.cumsum(ck.hist_pext(plane(x), 0xFF), 0, dtype=torch.int32)
     ck.regen_pdep(cum, 1000, 0xFF, plane(x))
+    cum2 = torch.cumsum(ck.hist_pext2(plane(x), plane(x), 0xF, 0xF0), 0,
+                        dtype=torch.int32)
+    ck.regen_pdep2(cum2, 1000, 0xF, 0xF0, plane(x), plane(x))
     assert ck.launch_counts() == before
 
 
@@ -146,6 +152,22 @@ def test_plain_versions_count_no_launches():
                            torch.zeros(4, dtype=torch.int32)), ValueError),
     (lambda: ck.regen_pdep(torch.zeros(256, dtype=torch.int32), 4, 0xFF,
                            torch.zeros(0, dtype=torch.int32)), ValueError),
+    (lambda: ck.hist_pext2(torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(7, dtype=torch.int32), 0xF, 0xF), ValueError),
+    (lambda: ck.hist_pext2(torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(8, dtype=torch.int64), 0xF, 0xF), TypeError),
+    (lambda: ck.hist_pext2(torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(8, dtype=torch.int32), 0, 0), ValueError),
+    (lambda: ck.hist_pext2(torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(8, dtype=torch.int32), 0x3FF, 0xFF), ValueError),
+    (lambda: ck.hist_pext2(torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(8, dtype=torch.int32), 1 << 32, 1), ValueError),
+    (lambda: ck.regen_pdep2(torch.zeros(512, dtype=torch.int32), 4, 0xF, 0xF,
+                            torch.zeros(4, dtype=torch.int32),
+                            torch.zeros(4, dtype=torch.int32)), ValueError),
+    (lambda: ck.regen_pdep2(torch.zeros(256, dtype=torch.int32), 4, 0xF, 0xF,
+                            torch.zeros(0, dtype=torch.int32),
+                            torch.zeros(0, dtype=torch.int32)), ValueError),
 ])
 def test_wrappers_reject_bad_inputs(bad, exc):
     with pytest.raises(exc):
@@ -210,3 +232,117 @@ def test_word_lt_and_live_bit_mask_match_jax():
     for w in (a[0], np.sort(a[0]), np.zeros(1, np.uint32)):
         assert bool(tprobes.is_sorted_words((plane(w),))) == bool(
             jprobes.is_sorted_words((jnp.asarray(w),)))
+
+
+# ---------------------------------------------------------------------------
+# two-plane (64-bit) kernels: K3, K6, K9
+
+
+def masked_pair(seed, n, mask64, dead64):
+    """(hi, lo) u32 planes of n 64-bit keys under ``mask64`` with the dead
+    bits ``dead64`` outside it."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    x = rng.integers(0, 1 << 64, size=n, dtype=np.uint64) & np.uint64(mask64)
+    x |= np.uint64(dead64 & ~mask64 & (2**64 - 1))
+    return ((x >> np.uint64(32)).astype(np.uint32), x.astype(np.uint32))
+
+
+# (64-bit mask, dead bits, n): masks split across the planes with dead bits
+# in both, a 0 hi mask and a 0 lo mask
+PAIR_CASES = [(0xF000000000000F00, 0x0001000300000001, 150_007),
+              (0x00FF00000000000F, 0x8000000080000000, 131_072),
+              (0x0000000000FF0F00, 0x4000000100000001, 100_003),
+              (0x0F0F000000000000, 0x0000000200000007, 120_001)]
+
+
+@pytest.mark.parametrize("mask,dead,n", PAIR_CASES)
+def test_hist_pext2_matches_pallas(mask, dead, n):
+    hi, lo = masked_pair(n, n, mask, dead)
+    mh, ml = mask >> 32, mask & 0xFFFFFFFF
+    want = np.asarray(pk.histogram_pext2_tpu(jnp.asarray(hi), jnp.asarray(lo),
+                                             mh, ml))
+    got = ck.hist_pext2(plane(hi), plane(lo), mh, ml)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert int(got.sum()) == n
+
+
+@pytest.mark.parametrize("mask,dead,n", PAIR_CASES)
+def test_regen_pdep2_matches_pallas(mask, dead, n):
+    hi, lo = masked_pair(n + 1, n, mask, dead)
+    mh, ml = mask >> 32, mask & 0xFFFFFFFF
+    hist = pk.histogram_pext2_tpu(jnp.asarray(hi), jnp.asarray(lo), mh, ml)
+    whi, wlo = pk.regenerate_pdep2_tpu(hist, n, mh, ml, jnp.asarray(hi)[0],
+                                       jnp.asarray(lo)[0])
+    cum = torch.cumsum(torch.from_numpy(np.asarray(hist).copy()), 0,
+                       dtype=torch.int32)
+    ghi, glo = ck.regen_pdep2(cum, n, mh, ml, plane(hi), plane(lo))
+    assert np.array_equal(u32(ghi), np.asarray(whi))
+    assert np.array_equal(u32(glo), np.asarray(wlo))
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    s = np.sort(key)
+    assert np.array_equal(np.asarray(whi), (s >> np.uint64(32)).astype(np.uint32))
+    assert np.array_equal(np.asarray(wlo), s.astype(np.uint32))
+
+
+def test_regen_pdep2_windowed_matches_pallas():
+    # 11 live bits (2^11 bins) across both planes at n = 300K: the window
+    # fits, so the JAX package takes its windowed kernel, not its fallback
+    mask, dead, n = 0x0000000700FF0000, 0x8000000180000002, 300_000
+    mh, ml = mask >> 32, mask & 0xFFFFFFFF
+    bins = 1 << 11
+    assert ck.pick_window(n, bins) == pk.pick_window(n, bins) == 1024
+    hi, lo = masked_pair(9, n, mask, dead)
+    hist = pk.histogram_pext2_tpu(jnp.asarray(hi), jnp.asarray(lo), mh, ml)
+    jcum = jnp.cumsum(hist, dtype=jnp.int32)
+    assert bool(pk.regen_windows_fit(jcum, n, 1024))
+    whi, wlo = pk.regenerate_pdep2_windowed_tpu(
+        jcum, n, bins, mh, ml, jnp.asarray(hi)[0], jnp.asarray(lo)[0], 1024)
+    cum = torch.from_numpy(np.asarray(jcum).copy())
+    ghi, glo = ck.regen_pdep2(cum, n, mh, ml, plane(hi), plane(lo))
+    assert np.array_equal(u32(ghi), np.asarray(whi))
+    assert np.array_equal(u32(glo), np.asarray(wlo))
+    key = np.sort((hi.astype(np.uint64) << np.uint64(32)) | lo)
+    assert np.array_equal(u32(glo), key.astype(np.uint32))
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("mask,n", [(0x0000000100000000, 5000),
+                                    (0xF000000000000F00, 40_009),
+                                    (0x00FF00000000FF00, 40_009),
+                                    (0x0000000000FFF000, 40_009)])
+def test_sort_words_counting_two_planes_matches_jax(mask, n, descending):
+    hi, lo = masked_pair(mask & 0xFFFF, n, mask, 0x0000F0F00000000F)
+    masks = (mask >> 32, mask & 0xFFFFFFFF)
+    want = jce.sort_words_counting((jnp.asarray(hi), jnp.asarray(lo)), masks,
+                                   descending)
+    got = tce.sort_words_counting((plane(hi), plane(lo)), masks, descending)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert np.array_equal(u32(g), np.asarray(w))
+
+
+# plane masks of 2 and 3 planes, one of them 0
+PLANE_MASKS = [(0xF0000000, 0x0000FF00), (0, 0x0003FF80), (0x00FF0000, 0),
+               (0x3, 0, 0xC0000001), (0x80000000, 0x1, 0x0000F000)]
+
+
+@pytest.mark.parametrize("masks", PLANE_MASKS)
+def test_word_plane_compaction_matches_jax(masks):
+    rng = np.random.Generator(np.random.PCG64(sum(masks)))
+    planes = [(rng.integers(0, 1 << 32, size=3001, dtype=np.uint32)
+               & np.uint32(m)) | np.uint32(0x10000 * i + 1 & ~m & 0xFFFFFFFF)
+              for i, m in enumerate(masks)]
+    jw = tuple(jnp.asarray(p) for p in planes)
+    tw = tuple(plane(p) for p in planes)
+    jc = np.asarray(jprobes.compact_word_planes(jw, masks))
+    tc = tprobes.compact_word_planes(tw, masks)
+    assert np.array_equal(u32(tc), jc)
+    jc_sorted = jnp.sort(jnp.asarray(jc))
+    want = jprobes.expand_word_planes(jc_sorted, jw, masks)
+    got = tprobes.expand_word_planes(plane(np.asarray(jc_sorted)), tw, masks)
+    for g, w in zip(got, want):
+        assert np.array_equal(u32(g), np.asarray(w))
+    for ws in (planes, [np.sort(p) for p in planes], [p[:1] for p in planes]):
+        assert bool(tprobes.is_sorted_words(tuple(plane(p) for p in ws))) == bool(
+            jprobes.is_sorted_words(tuple(jnp.asarray(p) for p in ws)))

@@ -29,14 +29,20 @@ from radix_sorting_tpu_torch.ops import counting_engine as tce
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
 from radix_sorting_tpu_torch.ops import kdf as tkdf
 
-from test_torch_kdf import DTYPES, make_keys, np_dtype, raw
+from test_torch_kdf import BYTE_DTYPES, DTYPES, WIDE_DTYPES, make_keys, raw
+
+
+def jax_in(x):
+    """The JAX package's input for numpy keys: 64-bit and byte-string keys
+    stay numpy (its host codec; x64 is off), the rest become jax arrays."""
+    return x if x.dtype.kind == "S" or x.dtype.itemsize == 8 else jnp.asarray(x)
 
 
 def both(x, descending=False, **kw):
     """(port output, JAX output) as numpy arrays for the same keys."""
     jcfg = rst.SortConfig(descending=descending)
     tcfg = rt.SortConfig.from_dict(dataclasses.asdict(jcfg))
-    want = np.asarray(rst.sort(jnp.asarray(x), config=jcfg, **kw))
+    want = np.asarray(rst.sort(jax_in(x), config=jcfg, **kw))
     got = rt.sort(x, config=tcfg, device="cpu", **kw)
     assert isinstance(got, np.ndarray) and got.dtype == x.dtype
     return got, want
@@ -50,6 +56,11 @@ def keys(name, n, seed):
 MASKS = [("uint32", 0xF0F00000), ("uint32", 0x0003FF80), ("int32", 0x00FF0F00),
          ("uint16", 0x0FF0), ("uint8", 0x3C), ("float32", 0x7F800000),
          ("bfloat16", 0x00FF)]
+WIDE_MASKS = [("uint64", 0xF000000000000F00), ("uint64", 0x00FF00000000FF00),
+              ("uint64", 0x0FFF00000000FFF0), ("uint64", 0x0000000000FF0000),
+              ("int64", 0x8000000F00000003), ("float64", 0x7FF0000000000000),
+              ("float64", 0x800000000000000F), ("float8_e4m3fn", 0x7F),
+              ("float8_e5m2", 0x0C), ("int4", 0x3), ("uint4", 0xA)]
 
 
 def masked(name, mask, n, seed):
@@ -109,9 +120,9 @@ def test_violated_mask_raises_like_jax():
     (lambda: rt.sort(np.zeros((4, 4), np.uint32), device="cpu"), ValueError),
     (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
                      config=rt.SortConfig(strategy=rt.Strategy.COUNTING)), ValueError),
-    (lambda: rt.sort(np.arange(8, dtype=np.uint64), device="cpu"), NotImplementedError),
-    (lambda: rt.sort(np.arange(8, dtype=np.float64), device="cpu"), NotImplementedError),
-    (lambda: rt.sort(np.array([b"b", b"a"]), device="cpu"), NotImplementedError),
+    (lambda: rt.sort(np.array([b"b", b"a"]), device="cpu", value_mask=0xFF), ValueError),
+    (lambda: rt.sort(np.zeros(4, dtype="S300"), device="cpu"), ValueError),
+    (lambda: rt.sort(np.zeros((2, 2), dtype="S3"), device="cpu"), ValueError),
     (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
                      config=rt.SortConfig(strategy=rt.Strategy.LSD)), NotImplementedError),
     (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
@@ -129,6 +140,12 @@ def test_typed_errors(call, exc):
 def test_jax_raises_the_same_for_shared_errors():
     with pytest.raises(ValueError):
         rst.sort(jnp.zeros((4, 4), jnp.uint32))
+    with pytest.raises(ValueError):
+        rst.sort(np.array([b"b", b"a"]), value_mask=0xFF)
+    with pytest.raises(ValueError):
+        rst.sort(np.zeros(4, dtype="S300"))
+    with pytest.raises(ValueError):
+        rst.sort(np.zeros((2, 2), dtype="S3"))
     with pytest.raises(ValueError):
         rst.sort(jnp.arange(8, dtype=jnp.uint32),
                  config=rst.SortConfig(strategy=rst.Strategy.COUNTING))
@@ -170,6 +187,45 @@ def test_presorted_input_skips_the_sorter(monkeypatch):
     assert calls == [1]
 
 
+@pytest.mark.parametrize("n", [1, 2, 30_011])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name", WIDE_DTYPES + BYTE_DTYPES[:6])
+def test_new_dtypes_sort_matches_jax(name, descending, n):
+    x = keys(name, n, len(name) + n)
+    got, want = both(x, descending)
+    assert np.array_equal(raw(got), raw(want))
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name,mask", WIDE_MASKS)
+def test_new_dtypes_value_mask_matches_jax(name, mask, descending):
+    x = masked(name, mask, 40_009, mask & 0xFFFF)
+    got, want = both(x, descending, value_mask=mask, validate_mask=True)
+    assert np.array_equal(raw(got), raw(want))
+
+
+@pytest.mark.parametrize("name", ["uint64", "int64", "float64",
+                                  "float8_e4m3fn", "float8_e5m2"])
+def test_new_dtypes_tensor_in_tensor_out(name):
+    x = keys(name, 4099, 6)
+    t = tkdf.as_tensor(x, "cpu")
+    assert t.dtype == getattr(torch, name)
+    out = rt.sort(t, config=rt.SortConfig(descending=True))
+    assert torch.is_tensor(out) and out.dtype == t.dtype
+    want = rst.sort(jax_in(x), config=rst.SortConfig(descending=True))
+    assert np.array_equal(raw(tkdf.to_numpy(out)), raw(np.asarray(want)))
+
+
+def test_violated_wide_mask_raises_like_jax():
+    x = keys("uint64", 1000, 3)
+    t = tkdf.as_tensor(x, "cpu")
+    for call in (lambda: rst.sort(x, value_mask=0xFF, validate_mask=True),
+                 lambda: rt.sort(x, value_mask=0xFF, validate_mask=True, device="cpu"),
+                 lambda: rt.sort(t, value_mask=0xFF, validate_mask=True)):
+        with pytest.raises(ValueError, match="value_mask violated"):
+            call()
+
+
 # ---------------------------------------------------------------------------
 # forced TPU routes: both packages take the counting kernels' routes
 
@@ -204,10 +260,16 @@ def routes(monkeypatch):
     spy(pk, "histogram_pext_tpu", "jax", "hist")
     spy(pk, "regenerate_pdep_tpu", "jax", "regen")
     spy(pk, "regenerate_pdep_windowed_tpu", "jax", "regen_win")
+    spy(pk, "histogram_pext2_tpu", "jax", "hist2")
+    spy(pk, "regenerate_pdep2_tpu", "jax", "regen2")
+    spy(pk, "regenerate_pdep2_windowed_tpu", "jax", "regen2_win")
     spy(tce, "sort_words_counting", "port", "counting")
     spy(ck, "hist_pext", "port", "hist")
     spy(ck, "regen_pdep", "port",
         lambda cum, *a: "regen" if cum.shape[0] <= 1 << 10 else "regen_win")
+    spy(ck, "hist_pext2", "port", "hist2")
+    spy(ck, "regen_pdep2", "port",
+        lambda cum, *a: "regen2" if cum.shape[0] <= 1 << 10 else "regen2_win")
     return seen
 
 
@@ -233,6 +295,34 @@ class TestForcedTpuRoutes:
     ])
     def test_masked_u32(self, routes, mask, n, route, descending):
         x = masked("uint32", mask, n, mask & 0xFFFF)
+        got, want = both(x, descending, value_mask=mask)
+        assert np.array_equal(raw(got), raw(want))
+        assert routes["port"] == routes["jax"] == route
+
+    @pytest.mark.parametrize("descending", [False, True])
+    @pytest.mark.parametrize("name,route", [
+        ("float8_e4m3fn", ["counting", "hist", "regen"]),
+        ("float8_e5m2", ["counting", "hist", "regen"]),
+        ("int4", ["counting", "hist", "regen"]),
+        ("uint4", ["counting", "hist", "regen"]),
+        ("uint64", []), ("int64", []), ("float64", []), ("S5", []),
+    ])
+    def test_new_dtypes(self, routes, name, route, descending):
+        x = keys(name, 70_003, 200 + len(name))
+        got, want = both(x, descending)
+        assert np.array_equal(raw(got), raw(want))
+        assert routes["port"] == routes["jax"] == route
+
+    @pytest.mark.parametrize("descending", [False, True])
+    @pytest.mark.parametrize("mask,n,route", [
+        (0xF000000000000F00, 150_007, ["counting", "hist2", "regen2"]),
+        (0x00000000000FF000, 100_003, ["counting", "hist2", "regen2"]),
+        (0x0000000700FF0000, 300_000, ["counting", "hist2", "regen2_win"]),
+        (0x00FF00000000FF00, 70_003, ["counting"]),   # 2^16 bins: sorter
+        (0x0FFF00000000FFF0, 70_003, []),  # 24 bits: one compacted operand
+    ])
+    def test_masked_u64(self, routes, mask, n, route, descending):
+        x = masked("uint64", mask, n, mask & 0xFFFF)
         got, want = both(x, descending, value_mask=mask)
         assert np.array_equal(raw(got), raw(want))
         assert routes["port"] == routes["jax"] == route
