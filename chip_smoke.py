@@ -22,10 +22,25 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      u64 with 24 live bits (one compacted operand), float8_e4m3fn, S12 byte
      strings (n/10 keys); argsort and sort_pairs of u32 keys with duplicates;
      counting_sort of u16 with a payload; sort_u64_multipass;
+     SortConfig(device_probe=True) sorts of u32 in a 50,000 range (K1+K7),
+     of 200,000 u32 in a range of 1,000 (K1+K4), of full-entropy u32
+     (sorter), of u64 with a constant hi word and a full lo word (one int32
+     sorter operand) or a lo word in a 60,000 range (K1+K7);
+     SortConfig(dynamic_probe=True) of unpromised 0xF0F00000-masked u32
+     (K2+K5); counting_engine.sort_word_counting with a 10-bit mask,
+     descending (K1+K4); bitmap_unique_sort of u16, bincount with length
+     1,000 and 1% of the values out of range, multi_digit_histogram at r = 8
+     (all K1);
   5. require every kernel's launch count from phase 4 to be non-zero;
-  6. time each case and each kernel beside its plain version (CUDA events,
-     steady-state loops), and torch.sort of int32 and int64 keys.
-Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
+  6. time each case and each kernel beside its plain version and, where one
+     torch call computes the same function, beside that call (CUDA events,
+     steady-state loops); K1 on keys of which 90% are one value; the range
+     probe's cost on full-entropy u32; torch.sort of int32 and int64 keys.
+  7. with --profile: device time by kernel (torch.profiler, three calls)
+     of each case of the range probes and the dense tier.
+Then the card's name and power limit, one JSON line of kernels (each with
+its bound: bytes moved over the H100's 3.35 TB/s), and last
+{"ok": true, "device": {...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
 
@@ -81,10 +96,32 @@ def max_err(got, ref) -> int:
     return int(((got.long() & 0xFFFFFFFF) - (ref.long() & 0xFFFFFFFF)).abs().max())
 
 
+PROFILED = ("device_probe", "dynamic_probe", "sort_word_counting",
+            "bitmap_unique_sort", "bincount", "multi_digit_histogram")
+HBM_BYTES_PER_MS = 3.35e9    # the H100 SXM's published 3.35 TB/s
+
+
+def kernel_label(name: str) -> str:
+    """A kernel's name from the profiler, without namespaces, cut short."""
+    for noise in ("void ", "(anonymous namespace)::", "at::native::",
+                  "at_cuda_detail::"):
+        name = name.replace(noise, "")
+    return name[:56]
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least time to move ``nbytes`` through device memory (every kernel
+    here does a few integer operations per 4-byte key: bound by bytes)."""
+    return nbytes / HBM_BYTES_PER_MS
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=40_000_000)
     ap.add_argument("--seed", type=int, default=20240601)
+    ap.add_argument("--profile", action="store_true",
+                    help="also print device time by kernel (torch.profiler) "
+                         "for the range-probe and dense-tier cases")
     args = ap.parse_args()
     n = args.n
 
@@ -95,12 +132,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     kind = torch.cuda.get_device_name(0)
+    print(smi[0], flush=True)
     print(f"[1 device] {smi[0]} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {kind}", flush=True)
 
     import radix_sorting_tpu_torch as rt
-    from radix_sorting_tpu_torch.ops import _build
+    from radix_sorting_tpu_torch.ops import _build, counting_engine
     from radix_sorting_tpu_torch.ops import cuda_kernels as ck
+    from radix_sorting_tpu_torch.ops.histogram import multi_digit_histogram
     from radix_sorting_tpu_torch.ops.kdf import i32
 
     t0 = time.perf_counter()
@@ -171,6 +210,40 @@ def main() -> None:
         regen2_inputs[name] = (cum, mh, ml, phi, plo)
         print(f"[3 kernel] {name} bins={cum.numel()} dead=0x{dead:016X} equal "
               "to plain (max |err| 0)", flush=True)
+    # the dense tier: K1 drops the top quarter of the keys (drop_ge); K4/K7
+    # add the range probe's offset on the store
+    drop_ge, offset = 0xC0000000, 0x9E3779B9
+    for bits in (8, 16, 18):
+        got, ref = ck.hist(w, 0, bits, drop_ge=drop_ge), ck.hist_plain(w, 0, bits, drop_ge)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        errs["hist"] = max(errs["hist"], err)
+        if err or int(got.long().sum()) != int((w.long() & 0xFFFFFFFF).lt(drop_ge).sum()):
+            fail(f"hist r={bits}: max |err| {err}")
+        print(f"[3 kernel] hist r={bits} drop_ge=0x{drop_ge:X} equal to plain "
+              "(max |err| 0)", flush=True)
+    for bits in (8, 11):
+        got, ref = ck.hist_multi(w, bits), ck.hist_multi_plain(w, bits)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        errs["hist_multi"] = max(errs["hist_multi"], err)
+        if err or got.shape != (-(-32 // bits), 1 << bits):
+            fail(f"hist_multi r={bits}: max |err| {err}, shape {tuple(got.shape)}")
+        print(f"[3 kernel] hist_multi r={bits} passes={got.shape[0]} equal to plain "
+              "(max |err| 0)", flush=True)
+    dense_inputs = {}
+    for bits, name in ((10, "regen"), (16, "regen_windowed")):
+        c = w & i32((1 << bits) - 1)
+        cum = torch.cumsum(ck.hist(c, 0, bits), 0, dtype=torch.int32)
+        got, ref = ck.regen(cum, n, offset), ck.regen_plain(cum, n, offset)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        errs[name] = err
+        if err:
+            fail(f"{name} bins={cum.numel()}: max |err| {err}")
+        dense_inputs[name] = cum
+        print(f"[3 kernel] {name} bins={cum.numel()} offset=0x{offset:X} equal to "
+              "plain (max |err| 0)", flush=True)
 
     # -- phase 4: the slice through the public entry points -----------------
     def u32_tensor(a):
@@ -212,6 +285,26 @@ def main() -> None:
     sorted_keys = np.sort(keys)
     sorted64 = np.sort(keys64)
     desc = rt.SortConfig(descending=True)
+
+    # the range probe's and the dense tier's inputs
+    probe = rt.SortConfig(device_probe=True)
+    r50k = (np.uint64(0x9E3779B9) + rng.integers(0, 50_000, size=n).astype(np.uint64)
+            ).astype(np.uint32)
+    r1k = (np.uint64(0x7FFFFE00) + rng.integers(0, 1000, size=200_000).astype(np.uint64)
+           ).astype(np.uint32)                     # across 0x80000000
+    ts_hi = np.uint64(0x0000018F00000000)          # ms timestamps in one 2^32 span
+    ts_full = ts_hi | keys.astype(np.uint64)
+    ts_60k = ts_hi | (np.uint64(0x7FFF8000) + rng.integers(0, 60_000, size=n).astype(np.uint64))
+    m10 = 0x3FF << 12
+    counts_in = rng.integers(0, 1000, size=n).astype(np.int32)
+    out_of_range = rng.random(n) < 0.01
+    counts_in[out_of_range] = 1000 + rng.integers(0, 1 << 20, size=int(out_of_range.sum()))
+    u16_unique = np.unique(u16)
+
+    def bitmap_oracle():
+        padded = np.full(1 << 16, 0xFFFF, np.uint16)
+        padded[:u16_unique.size] = u16_unique
+        return padded, np.array([u16_unique.size], np.int64)
 
     def stable_perm(a):
         return np.argsort(a, kind="stable")
@@ -289,7 +382,43 @@ def main() -> None:
          lambda: pairs_oracle(u16)),
         ("sort_u64_multipass", lambda: u64_tensor(keys64), rt.sort_u64_multipass,
          bits_of(np.uint64), lambda: sorted64),
+        ("device_probe u32 in [0x9E3779B9, +50,000) (K1+K7)", lambda: u32_tensor(r50k),
+         lambda x: rt.sort(x, config=probe), bits_of(np.uint32), lambda: np.sort(r50k)),
+        ("device_probe u32, 200,000 keys in a range of 1,000 (K1+K4)",
+         lambda: u32_tensor(r1k), lambda x: rt.sort(x, config=probe),
+         bits_of(np.uint32), lambda: np.sort(r1k)),
+        ("device_probe u32 full entropy (sorter)", lambda: u32_tensor(keys),
+         lambda x: rt.sort(x, config=probe), bits_of(np.uint32), lambda: sorted_keys),
+        ("device_probe u64, constant hi, full lo (one int32 sorter operand)",
+         lambda: u64_tensor(ts_full), lambda x: rt.sort(x, config=probe),
+         bits_of(np.uint64), lambda: ts_hi | sorted_keys.astype(np.uint64)),
+        ("device_probe u64, constant hi, lo in a 60,000 range (K1+K7)",
+         lambda: u64_tensor(ts_60k), lambda x: rt.sort(x, config=probe),
+         bits_of(np.uint64), lambda: np.sort(ts_60k)),
+        ("dynamic_probe u32, unpromised mask 0xF0F00000 (K2+K5)",
+         lambda: u32_tensor(keys & np.uint32(mask)),
+         lambda x: rt.sort(x, config=rt.SortConfig(dynamic_probe=True)),
+         bits_of(np.uint32), lambda: np.sort(keys & np.uint32(mask))),
+        ("sort_word_counting 10-bit mask, descending (K1+K4)",
+         lambda: u32_tensor(keys & np.uint32(m10)).view(torch.int32),
+         lambda x: counting_engine.sort_word_counting(x, m10, descending=True),
+         bits_of(np.uint32), lambda: np.sort(keys & np.uint32(m10))[::-1]),
+        ("bitmap_unique_sort u16 (K1)",
+         lambda: torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16),
+         rt.bitmap_unique_sort,
+         lambda out: (gpu_bits(out[0], np.uint16), np.array([int(out[1])], np.int64)),
+         bitmap_oracle),
+        ("bincount length 1,000, 1% out of range (K1)",
+         lambda: torch.from_numpy(counts_in).to(dev),
+         lambda x: rt.bincount(x, length=1000), lambda out: out.cpu().numpy(),
+         lambda: np.bincount(counts_in[counts_in < 1000], minlength=1000).astype(np.int32)),
+        ("multi_digit_histogram r=8 (K1)", lambda: u32_tensor(keys).view(torch.int32),
+         lambda x: multi_digit_histogram([x], 8), lambda out: out.cpu().numpy(),
+         lambda: np.stack([np.bincount((keys >> np.uint32(8 * p)) & np.uint32(0xFF),
+                                       minlength=256) for p in range(4)]).astype(np.int32)),
     ]
+    # outputs that are not the keys reordered
+    other_shape = {name for name, *_ in cases[-3:]}
     inputs = [(name, make(), run, host, oracle)
               for name, make, run, host, oracle in cases]
     torch.cuda.synchronize()
@@ -299,7 +428,8 @@ def main() -> None:
     launches = rt.launch_counts()
     for (name, x, run, host, oracle), out in zip(inputs, outputs):
         first = out[0] if isinstance(out, tuple) else out
-        if torch.is_tensor(x) and (first.device != x.device or first.shape != x.shape):
+        if torch.is_tensor(x) and (first.device != x.device or (
+                name not in other_shape and first.shape != x.shape)):
             fail(f"{name}: got {first.dtype} {first.device} {tuple(first.shape)}")
         if run is rt.sort and first.dtype != x.dtype:
             fail(f"{name}: got dtype {first.dtype}, keys are {x.dtype}")
@@ -312,7 +442,7 @@ def main() -> None:
             if not np.array_equal(g, wv):
                 bad = int(np.flatnonzero(g != wv)[0])
                 fail(f"{name}: differs from the numpy oracle first at {bad}")
-        print(f"[4 sort] {name}: n={len(first)} equal to the numpy oracle",
+        print(f"[4 sort] {name}: n={len(x)} equal to the numpy oracle",
               flush=True)
 
     # -- phase 5: the main path went through every kernel -------------------
@@ -334,52 +464,136 @@ def main() -> None:
         print(f"[6 time] torch.sort {label} (reference point): {ms:.3f} ms, "
               f"{n / ms / 1e3:.1f} Mkeys/s", flush=True)
 
-    def turns(kernel, plain):
-        """Kernel and plain version in turns (plain, kernel, kernel, plain)."""
-        p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
-        return (k1 + k2) / 2, (p1 + p2) / 2
+    def turns3(kernel, plain, library=None):
+        """Kernel, plain version and library call in turns (plain, library,
+        kernel, kernel, library, plain); the library's ms is None without one."""
+        p1, l1, k1, k2, l2, p2 = (time_ms(f, reps) if f else None for f in
+                                  (plain, library, kernel, kernel, library, plain))
+        return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if library else None
 
     shapes = {name: [] for name in ck.LAUNCHES}
+
+    def row(name, bins, nbytes, kernel, plain, library=None, **extra):
+        k, p, lib = turns3(kernel, plain, library)
+        shapes[name].append({"bins": bins, **extra, "ms": k, "plain_ms": p,
+                             "library_ms": lib, "bytes": nbytes,
+                             "bound_ms": bound_ms(nbytes)})
+
     for mask in (0xF0F00000, 0xFFFF):
-        k, p = turns(lambda: ck.hist_pext(w, mask), lambda: ck.hist_pext_plain(w, mask))
-        shapes["hist_pext"].append({"bins": 1 << bin(mask).count("1"), "ms": k,
-                                    "plain_ms": p, "bytes": n * 4})
+        bins = 1 << bin(mask).count("1")
+        row("hist_pext", bins, n * 4 + bins * 4, lambda: ck.hist_pext(w, mask),
+            lambda: ck.hist_pext_plain(w, mask))
     for name, (cum, mask, plane) in regen_inputs.items():
-        k, p = turns(lambda: ck.regen_pdep(cum, n, mask, plane),
-                     lambda: ck.regen_pdep_plain(cum, n, mask, plane))
-        shapes[name].append({"bins": cum.numel(), "ms": k, "plain_ms": p,
-                             "bytes": n * 4})
+        row(name, cum.numel(), n * 4 + cum.numel() * 4 + 4,
+            lambda: ck.regen_pdep(cum, n, mask, plane),
+            lambda: ck.regen_pdep_plain(cum, n, mask, plane))
     for m64 in (0xF000000000000F00, 0x00FF00000000FF00):
         mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
-        k, p = turns(lambda: ck.hist_pext2(hi64, lo64, mh, ml),
-                     lambda: ck.hist_pext2_plain(hi64, lo64, mh, ml))
-        shapes["hist_pext2"].append({"bins": 1 << bin(m64).count("1"), "ms": k,
-                                     "plain_ms": p, "bytes": n * 8})
+        bins = 1 << bin(m64).count("1")
+        row("hist_pext2", bins, n * 8 + bins * 4, lambda: ck.hist_pext2(hi64, lo64, mh, ml),
+            lambda: ck.hist_pext2_plain(hi64, lo64, mh, ml))
     for name, (cum, mh, ml, phi, plo) in regen2_inputs.items():
-        k, p = turns(lambda: ck.regen_pdep2(cum, n, mh, ml, phi, plo),
-                     lambda: ck.regen_pdep2_plain(cum, n, mh, ml, phi, plo))
-        shapes[name].append({"bins": cum.numel(), "ms": k, "plain_ms": p,
-                             "bytes": n * 8})
+        row(name, cum.numel(), n * 8 + cum.numel() * 4 + 8,
+            lambda: ck.regen_pdep2(cum, n, mh, ml, phi, plo),
+            lambda: ck.regen_pdep2_plain(cum, n, mh, ml, phi, plo))
+
+    # K1 beside torch.bincount of the same digits (dropped keys to a spill
+    # bin, as the plain version does), computed before the timing
+    u = w.long() & 0xFFFFFFFF
+    skewed = w.clone()
+    skewed[: n * 9 // 10] = 0x155                   # 90% of the keys one value
+    for bits, keys_in, drop, label in ((8, w, drop_ge, "uniform"),
+                                       (16, w, drop_ge, "uniform"),
+                                       (18, w, drop_ge, "uniform"),
+                                       (16, skewed, None, "90% one value")):
+        bins = 1 << bits
+        uk = keys_in.long() & 0xFFFFFFFF
+        digits = uk & (bins - 1) if drop is None else torch.where(
+            uk < drop, uk & (bins - 1), bins)
+        row("hist", bins, n * 4 + bins * 4,
+            lambda: ck.hist(keys_in, 0, bits, drop_ge=drop),
+            lambda: ck.hist_plain(keys_in, 0, bits, drop),
+            lambda: torch.bincount(digits, minlength=bins + 1),
+            keys=label, drop_ge=drop)
+        del digits, uk
+    for bits in (8, 11):
+        passes, bins = -(-32 // bits), 1 << bits
+        flat = torch.cat([(p << bits) + ((u >> (p * bits)) & ((1 << bits) - 1))
+                          for p in range(passes)])
+        row("hist_multi", bins, n * 4 + passes * bins * 4,
+            lambda: ck.hist_multi(w, bits), lambda: ck.hist_multi_plain(w, bits),
+            lambda: torch.bincount(flat, minlength=passes * bins), passes=passes)
+        del flat
+    del u, skewed
+    # K4 / K7 beside torch.searchsorted(cum, arange(n), right=True)
+    j = torch.arange(n, dtype=torch.int32, device=dev)
+    for name, cum in dense_inputs.items():
+        row(name, cum.numel(), n * 4 + cum.numel() * 4,
+            lambda: ck.regen(cum, n, offset), lambda: ck.regen_plain(cum, n, offset),
+            lambda: torch.searchsorted(cum, j, right=True))
+    del j
     for name, rows in shapes.items():
         for r in rows:
-            print(f"[6 time] {name} n={n} bins={r['bins']}: kernel {r['ms']:.4f} ms "
-                  f"({r['bytes'] / r['ms'] / 1e6:.0f} GB/s of keys), plain "
-                  f"{r['plain_ms']:.4f} ms", flush=True)
+            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes") if k in r)
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            print(f"[6 time] {name} n={n} bins={r['bins']}{extra}: kernel "
+                  f"{r['ms']:.4f} ms ({r['bytes'] / r['ms'] / 1e6:.0f} GB/s moved), "
+                  f"bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"torch call {lib}", flush=True)
+
+    # what the range probe costs where it finds a wide range
+    xf = u32_tensor(keys)
+    d1, p1, p2, d2 = (time_ms(f, reps) for f in (
+        lambda: rt.sort(xf), lambda: rt.sort(xf, config=probe),
+        lambda: rt.sort(xf, config=probe), lambda: rt.sort(xf)))
+    default_ms, probe_ms = (d1 + d2) / 2, (p1 + p2) / 2
+    print(f"[6 time] device_probe cost on full-entropy u32: default {default_ms:.3f} ms, "
+          f"device_probe {probe_ms:.3f} ms ({100 * (probe_ms / default_ms - 1):+.1f}%)",
+          flush=True)
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        calls = 3
+        for name, x, run, _, _ in inputs:
+            if not name.startswith(PROFILED):
+                continue
+            run(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    run(x)
+                torch.cuda.synchronize()
+            # device-side events only (kernels, copies, memsets): an aten op's
+            # own row repeats the time of the kernels it launched
+            rows = sorted((e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda e: -e.self_device_time_total)
+            total = sum(e.self_device_time_total for e in rows) / calls / 1e3
+            print(f"[7 profile] {name}: device {total:.3f} ms per call; " + "; ".join(
+                f"{kernel_label(e.key)} {e.self_device_time_total / calls / 1e3:.4f} ms "
+                f"x{e.count // calls}" for e in rows[:8]), flush=True)
 
     pk = "radix_sorting_tpu/ops/pallas_kernels.py"
+    csrc = "radix_sorting_tpu_torch/csrc"
     replaces = {
-        "hist_pext": ("radix_sorting_tpu_torch/csrc/hist_pext.cu", f"{pk}:299"),
-        "regen_pdep": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:475"),
-        "regen_pdep_windowed": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:714"),
-        "hist_pext2": ("radix_sorting_tpu_torch/csrc/hist_pext.cu", f"{pk}:355"),
-        "regen_pdep2": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:414"),
-        "regen_pdep2_windowed": ("radix_sorting_tpu_torch/csrc/regen_pdep.cu", f"{pk}:775"),
+        "hist": (f"{csrc}/hist.cu", f"{pk}:100"),
+        "hist_multi": (f"{csrc}/hist.cu", f"{pk}:100"),
+        "regen": (f"{csrc}/regen.cu", f"{pk}:219"),
+        "regen_windowed": (f"{csrc}/regen.cu", f"{pk}:602"),
+        "hist_pext": (f"{csrc}/hist.cu", f"{pk}:299"),
+        "regen_pdep": (f"{csrc}/regen.cu", f"{pk}:475"),
+        "regen_pdep_windowed": (f"{csrc}/regen.cu", f"{pk}:714"),
+        "hist_pext2": (f"{csrc}/hist.cu", f"{pk}:355"),
+        "regen_pdep2": (f"{csrc}/regen.cu", f"{pk}:414"),
+        "regen_pdep2_windowed": (f"{csrc}/regen.cu", f"{pk}:775"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],
                 "ms": shapes[name][0]["ms"], "plain_ms": shapes[name][0]["plain_ms"],
-                "shapes": shapes[name]}
+                "bound_ms": shapes[name][0]["bound_ms"], "bound_by": "bytes",
+                "library_ms": shapes[name][0]["library_ms"], "shapes": shapes[name]}
                for name, (src, rep) in replaces.items()]
+    print(smi[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

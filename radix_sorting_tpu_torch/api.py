@@ -13,9 +13,13 @@ needs ``device=``; it is copied there bit for bit (:func:`.ops.kdf.as_tensor`),
 sorted, and the results come back as numpy arrays of its dtype. Byte-string
 (``S<W>``) and int4/uint4 keys exist only as numpy input.
 
-Not ported yet, and refused with NotImplementedError: ``Strategy.LSD``,
-``dynamic_probe=True`` and ``device_probe=True`` (see ROADMAP.md, port
-queue).
+``SortConfig.dynamic_probe`` and ``SortConfig.device_probe`` are read by
+``sort`` in AUTO strategy, as in the JAX package, and each costs one host
+read of what it measured (the JAX package's ``device_probe`` decides on the
+device with ``lax.cond``; eager PyTorch has no device-side branch).
+``argsort``, ``rank_sort`` and ``sort_pairs`` accept both flags and ignore
+them. Not ported yet, and refused with NotImplementedError:
+``Strategy.LSD`` (see ROADMAP.md, port queue).
 """
 
 from __future__ import annotations
@@ -37,10 +41,6 @@ def _refuse_unported(cfg: SortConfig) -> None:
     if cfg.strategy == Strategy.LSD:
         raise NotImplementedError(
             "Strategy.LSD is not ported yet (ROADMAP.md, port queue item 2)")
-    if cfg.dynamic_probe or cfg.device_probe:
-        raise NotImplementedError(
-            "dynamic_probe and device_probe are not ported yet "
-            "(ROADMAP.md, port queue item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -279,15 +279,42 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
         _validate_value_mask(x, dtype, value_mask)
 
     strategy = cfg.strategy
+    # computed once, consulted twice: the device probe runs only where
+    # compaction does not engage, and HW_SORT compacts with the same masks
     cmasks = _compaction_masks(words, value_mask, dtype, cfg)
     mask = None
-    if strategy in (Strategy.AUTO, Strategy.COUNTING):
+    if strategy == Strategy.AUTO:
         mask = _static_live_mask(words, value_mask, dtype, cfg)
-        if mask is None and strategy == Strategy.COUNTING:
+        if mask is None and cfg.dynamic_probe and len(words) <= 2:
+            # the runtime column-skip probe (`radix_sort.hpp:64-70`, live-bit
+            # form): dead bits are constant by measurement; one host read
+            measured = tuple(int(m) & 0xFFFFFFFF for m in
+                             torch.stack(probes.live_bit_mask(words)).tolist())
+            if 0 < sum(bin(m).count("1") for m in measured) \
+                    <= min(cfg.counting_max_bits, 32):
+                mask = measured
+        if mask is not None:
+            strategy = Strategy.COUNTING
+        elif cfg.device_probe and cmasks is None and len(words) <= 2:
+            # the range probe (a 64-bit value_mask with 18-32 live bits is a
+            # static promise of the one-operand sorter, which it must not
+            # pre-empt); the complemented word's range is the complement of
+            # the original's, so descending needs nothing more
+            if len(words) == 1:
+                sw = (counting_engine.sort_word_range_probe(
+                    words[0], guard=cfg.detect_presorted),)
+            else:
+                sw = counting_engine.sort_words2_range_probe(
+                    words[0], words[1], guard=cfg.detect_presorted)
+            return _decode(sw, dtype, cfg.descending, from_numpy)
+        else:
+            strategy = Strategy.HW_SORT
+    elif strategy == Strategy.COUNTING:
+        mask = _static_live_mask(words, value_mask, dtype, cfg)
+        if mask is None:
             raise ValueError(
                 "COUNTING strategy needs a narrow key dtype or a value_mask "
                 f"with <= {cfg.counting_max_bits} live bits")
-        strategy = Strategy.COUNTING if mask is not None else Strategy.HW_SORT
 
     if strategy == Strategy.COUNTING:
         # the descending complement flips bits in place, so the live-bit

@@ -1,6 +1,7 @@
 """Engine building blocks of the port: KDF, probes, kernels, sort engines."""
 
 from . import (  # noqa: F401
+    bitmap,
     counting_engine,
     cuda_kernels,
     histogram,

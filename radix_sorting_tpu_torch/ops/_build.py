@@ -35,6 +35,11 @@ LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
+    # keys, n, offset, shift, bits, passes, drop_ge, hist, stream
+    "rst_hist": (_P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_ulonglong, _P, _P),
+    # cum, bins, n, offset, out, stream
+    "rst_regen": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint, _P, _P),
     # keys, n, mask, hist, stream
     "rst_hist_pext": (_P, ctypes.c_longlong, ctypes.c_uint, _P, _P),
     # hi, lo, n, mask_hi, mask_lo, hist, stream

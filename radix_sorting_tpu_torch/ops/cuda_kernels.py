@@ -11,22 +11,27 @@ ported so far. Each wrapper checks its inputs, then
 ``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
 launches its kernel and nowhere else; the plain versions count nothing.
 
-======================  ===================  ================================
-wrapper / counter       CUDA source          replaces (pallas_kernels.py)
-======================  ===================  ================================
-hist_pext               csrc/hist_pext.cu    K2 ``_hist_pext_kernel``
-hist_pext2              csrc/hist_pext.cu    K3 ``_hist_pext2_kernel``
-regen_pdep              csrc/regen_pdep.cu   K5 ``_regen_pdep_kernel``
-(regen_pdep_windowed)   csrc/regen_pdep.cu   K8 ``_regen_pdep_win_kernel``
-regen_pdep2             csrc/regen_pdep.cu   K6 ``_regen_pdep2_kernel``
-(regen_pdep2_windowed)  csrc/regen_pdep.cu   K9 ``_regen_pdep2_win_kernel``
-======================  ===================  ================================
+======================  ==============  =====================================
+wrapper / counter       CUDA source     replaces (pallas_kernels.py)
+======================  ==============  =====================================
+hist                    csrc/hist.cu    K1 ``_hist_kernel`` (one digit)
+hist_multi              csrc/hist.cu    K1 ``_hist_kernel`` (every digit)
+hist_pext               csrc/hist.cu    K2 ``_hist_pext_kernel``
+hist_pext2              csrc/hist.cu    K3 ``_hist_pext2_kernel``
+regen                   csrc/regen.cu   K4 ``_regen_kernel``
+(regen_windowed)        csrc/regen.cu   K7 ``_regen_win_kernel``
+regen_pdep              csrc/regen.cu   K5 ``_regen_pdep_kernel``
+(regen_pdep_windowed)   csrc/regen.cu   K8 ``_regen_pdep_win_kernel``
+regen_pdep2             csrc/regen.cu   K6 ``_regen_pdep2_kernel``
+(regen_pdep2_windowed)  csrc/regen.cu   K9 ``_regen_pdep2_win_kernel``
+======================  ==============  =====================================
 
-One histogram kernel reads one plane (K2) or two (K3), and one
-regeneration kernel writes one plane or two and meets the <= 2^10-bin (K5,
-K6) and the 2^11 to 2^17-bin (K8, K9) contracts alike; launches are counted
-under the contract's name. The source notes in ``csrc/`` say what bounds
-each kernel on the card.
+One histogram kernel counts digits (K1) or the PEXT-compacted live bits of
+one plane (K2) or two (K3), and one regeneration kernel writes dense values
+(K4, K7) or masked keys into one plane or two, and meets the <= 2^10-bin
+(K4, K5, K6) and the 2^11 to 2^17-bin (K7, K8, K9) contracts alike;
+launches are counted under the contract's name. The source notes in
+``csrc/`` say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
@@ -34,18 +39,24 @@ from __future__ import annotations
 import torch
 
 from . import probes
-from .kdf import i32
+from .kdf import INT32_MIN, i32
 
 __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
-           "use_gpu_routes", "pick_window", "MAX_BITS",
+           "use_gpu_routes", "pick_window", "MAX_BITS", "HIST_MAX_BITS",
+           "hist", "hist_plain", "hist_multi", "hist_multi_plain",
+           "regen", "regen_plain",
            "hist_pext", "hist_pext_plain", "regen_pdep", "regen_pdep_plain",
            "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain"]
 
-LAUNCHES = {"hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
+LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
+            "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
-_K5_MAX_BINS = 1 << 10   # counting_engine._REGEN_MAX_BINS: the K5/K8, K6/K9 split
+HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bins
+_HIST_MAX_COUNTERS = 1 << 19   # K1: passes * 2^radix_bits
+_K5_MAX_BINS = 1 << 10   # counting_engine._REGEN_MAX_BINS: the K4/K7, K5/K8, K6/K9 split
+_NO_DROP = 1 << 32       # K1's drop_ge when no key is dropped
 
 
 def launch_counts() -> dict:
@@ -123,6 +134,125 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.rst_error_string(err).decode()}")
+
+
+# ---------------------------------------------------------------------------
+# K1: digit histograms, one digit or every digit in one read
+
+
+def _check_digits(name: str, shift: int, radix_bits: int, passes: int) -> None:
+    if not 1 <= radix_bits <= HIST_MAX_BITS:
+        raise ValueError(f"{name}: radix_bits must be in [1, {HIST_MAX_BITS}]")
+    if passes << radix_bits > _HIST_MAX_COUNTERS:
+        raise ValueError(f"{name}: {passes} passes of {radix_bits}-bit digits "
+                         f"exceed {_HIST_MAX_COUNTERS} counters")
+    if not 0 <= shift + (passes - 1) * radix_bits < 32:
+        raise ValueError(f"{name}: digits must start inside the 32-bit word")
+
+
+def _drop_bound(drop_ge) -> int:
+    if drop_ge is None:
+        return _NO_DROP
+    if not 0 <= int(drop_ge) <= _NO_DROP:
+        raise ValueError("drop_ge must be in [0, 2^32]")
+    return int(drop_ge)
+
+
+def hist_plain(w: torch.Tensor, pass_index: int, radix_bits: int,
+               drop_ge=None, offset: int = 0) -> torch.Tensor:
+    """(2^radix_bits,) int32 counts of digit ``pass_index`` of ``w - offset``
+    (mod 2^32), keys with ``w - offset >= drop_ge`` (unsigned) left out:
+    subtract, shift, mask, bincount with a spill bin for the dropped keys."""
+    shift = pass_index * radix_bits
+    _check_digits("hist", shift, radix_bits, 1)
+    bins = 1 << radix_bits
+    u = w - i32(offset) if offset & 0xFFFFFFFF else w
+    d = probes.shift_right(u, shift) & (bins - 1)
+    bound = _drop_bound(drop_ge)
+    if bound < _NO_DROP:      # unsigned u < bound, compared sign-flipped
+        d = torch.where((u ^ INT32_MIN) < i32(bound ^ (1 << 31)), d, bins)
+    return torch.bincount(d, minlength=bins + 1)[:bins].to(torch.int32)
+
+
+def hist(w: torch.Tensor, pass_index: int, radix_bits: int, drop_ge=None,
+         offset: int = 0) -> torch.Tensor:
+    """Histogram of one ``radix_bits``-bit digit of the plane ``w`` in one
+    read (the contract of ``histogram_tpu``, digit ``pass_index`` counted
+    from the least significant). ``drop_ge``: keys at or above it (unsigned)
+    are counted nowhere. ``offset`` is subtracted from every key first (mod
+    2^32), on the read: the dense range probe's ``w - min``."""
+    _check_plane("hist", w)
+    _check_digits("hist", pass_index * radix_bits, radix_bits, 1)
+    bound = _drop_bound(drop_ge)
+    if not use_gpu_routes(w):
+        return hist_plain(w, pass_index, radix_bits, drop_ge, offset)
+    out = torch.empty(1 << radix_bits, dtype=torch.int32, device=w.device)
+    _launch("rst_hist", w.device, w.data_ptr(), w.shape[0], offset & 0xFFFFFFFF,
+            pass_index * radix_bits, radix_bits, 1, bound, out.data_ptr())
+    LAUNCHES["hist"] += 1
+    return out
+
+
+def _num_passes(radix_bits: int) -> int:
+    return -(-32 // max(radix_bits, 1))
+
+
+def hist_multi_plain(w: torch.Tensor, radix_bits: int) -> torch.Tensor:
+    """(ceil(32 / radix_bits), 2^radix_bits) int32: :func:`hist_plain` of
+    every digit, one after the other."""
+    return torch.stack([hist_plain(w, p, radix_bits)
+                        for p in range(_num_passes(radix_bits))])
+
+
+def hist_multi(w: torch.Tensor, radix_bits: int) -> torch.Tensor:
+    """The histograms of every ``radix_bits``-bit digit of ``w`` in ONE read
+    of the keys (the contract of ``multi_digit_histogram_tpu``; the fused
+    first pass of `radix_sort_u32.c:24-37`): (passes, 2^radix_bits) int32."""
+    _check_plane("hist_multi", w)
+    passes = _num_passes(radix_bits)
+    _check_digits("hist_multi", 0, radix_bits, passes)
+    if not use_gpu_routes(w):
+        return hist_multi_plain(w, radix_bits)
+    out = torch.empty((passes, 1 << radix_bits), dtype=torch.int32, device=w.device)
+    _launch("rst_hist", w.device, w.data_ptr(), w.shape[0], 0, 0, radix_bits,
+            passes, _NO_DROP, out.data_ptr())
+    LAUNCHES["hist_multi"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4 / K7: regeneration of dense values
+
+
+def regen_plain(cum: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """``searchsorted(cum, arange(n), right=True) + offset`` (mod 2^32)."""
+    j = torch.arange(n, dtype=torch.int32, device=cum.device)
+    v = torch.searchsorted(cum, j, right=True).to(torch.int32)
+    return v + i32(offset) if offset & 0xFFFFFFFF else v
+
+
+def regen(cum: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """The n sorted dense values rebuilt from the inclusive cumulative
+    histogram ``cum``, ``out[j] = #{b : cum[b] <= j} + offset`` (mod 2^32;
+    ``offset`` added on the store: the dense range probe's ``+ min``).
+
+    The contract of ``regenerate_tpu`` (which takes the histogram and does
+    this cumsum itself) and of ``regenerate_windowed_tpu``.
+    """
+    _check_plane("regen cum", cum)
+    if not 1 <= cum.shape[0] <= 1 << MAX_BITS:
+        raise ValueError(f"regen: {cum.shape[0]} bins; 1 to 2^{MAX_BITS} are taken")
+    if not 0 <= n < 1 << 31:
+        raise ValueError("regen: n must be in [0, 2^31)")
+    if not use_gpu_routes(cum):
+        return regen_plain(cum, n, offset)
+    out = torch.empty(n, dtype=torch.int32, device=cum.device)
+    if n == 0:
+        return out
+    _launch("rst_regen", cum.device, cum.data_ptr(), cum.shape[0], n,
+            offset & 0xFFFFFFFF, out.data_ptr())
+    LAUNCHES["regen" if cum.shape[0] <= _K5_MAX_BINS else "regen_windowed"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from .kdf import INT32_MIN, i32
 __all__ = [
     "word_lt",
     "is_sorted_words",
+    "shift_right",
     "or_reduce",
     "live_bit_mask",
     "mask_runs",
@@ -61,6 +62,11 @@ def is_sorted_words(words: Sequence[torch.Tensor]) -> torch.Tensor:
     flipped = [w ^ INT32_MIN for w in words]      # one flip per plane
     return ~torch.any(_signed_lex_lt([f[1:] for f in flipped],
                                      [f[:-1] for f in flipped]))
+
+
+def shift_right(w: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of a plane's u32 bit patterns by ``s`` in [0, 32)."""
+    return (w >> s) & i32(0xFFFFFFFF >> s) if s else w
 
 
 def _fold(w: torch.Tensor, op) -> torch.Tensor:

@@ -265,3 +265,161 @@ def test_wide_sort_and_argsort_on_card(cuda, dtype):
     assert np.array_equal(_u64(rt.sort(x)), bits[perm])
     assert np.array_equal(rt.argsort(x).view(torch.int32).cpu().numpy(),
                           perm.astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the dense-domain tier: hist / hist_multi (K1), regen (K4 / K7)
+
+
+@pytest.mark.parametrize("drop_ge,offset", [(None, 0), (300, 0), (None, 0x9E3779B9),
+                                            (1 << 17, 0x7FFFFF00)])
+@pytest.mark.parametrize("bits", [1, 8, 10, 15, 16, 17, 18])
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_hist_matches_plain(cuda, n, bits, drop_ge, offset):
+    w = rand_plane(n, n ^ bits, cuda, mask=(1 << (bits + 1)) - 1) + i32(offset)
+    before = ck.launch_counts()["hist"]
+    got = ck.hist(w, 0, bits, drop_ge=drop_ge, offset=offset)
+    assert ck.launch_counts()["hist"] == before + 1
+    assert torch.equal(got, ck.hist_plain(w, 0, bits, drop_ge, offset))
+
+
+@pytest.mark.parametrize("bits,pass_index", [(8, 3), (11, 2), (16, 1)])
+def test_hist_upper_digits_match_plain(cuda, bits, pass_index):
+    w = rand_plane(1_000_003, bits, cuda)
+    assert torch.equal(ck.hist(w, pass_index, bits),
+                       ck.hist_plain(w, pass_index, bits))
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8, 11, 16, 18])
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_hist_multi_matches_plain(cuda, n, bits):
+    w = rand_plane(n, n + bits, cuda)
+    before = ck.launch_counts()["hist_multi"]
+    got = ck.hist_multi(w, bits)
+    assert ck.launch_counts()["hist_multi"] == before + 1
+    assert torch.equal(got, ck.hist_multi_plain(w, bits))
+
+
+@pytest.mark.parametrize("bits", [8, 16, 18])
+def test_hist_skewed_single_value_and_unaligned(cuda, bits):
+    n = 2_000_003
+    w = rand_plane(n, bits, cuda, mask=(1 << bits) - 1)
+    w[: n * 9 // 10] = 0x155                          # 90% of the keys one value
+    assert torch.equal(ck.hist(w, 0, bits), ck.hist_plain(w, 0, bits))
+    same = torch.full((n,), 0x2AA, dtype=torch.int32, device=cuda)
+    assert torch.equal(ck.hist(same, 0, bits), ck.hist_plain(same, 0, bits))
+    assert torch.equal(ck.hist(w[1:], 0, bits, drop_ge=1 << (bits - 1)),
+                       ck.hist_plain(w[1:], 0, bits, 1 << (bits - 1)))
+    assert torch.equal(ck.hist_multi(w[3:], 8), ck.hist_multi_plain(w[3:], 8))
+
+
+def _dense_cum(n, bins, seed, device):
+    c = rand_plane(n, seed, device, mask=bins - 1)
+    return torch.cumsum(ck.hist_plain(c, 0, bins.bit_length() - 1), 0, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 0xFFFFFF00])
+@pytest.mark.parametrize("bins", [4, 256, 1024, 2048, 1 << 16, 1 << 17])
+@pytest.mark.parametrize("n", [1, 5, 1025, 999_999])
+def test_regen_matches_plain(cuda, n, bins, offset):
+    cum = _dense_cum(n, bins, n + bins, cuda)
+    name = "regen" if bins <= 1 << 10 else "regen_windowed"
+    before = ck.launch_counts()[name]
+    got = ck.regen(cum, n, offset)
+    assert ck.launch_counts()[name] == before + 1
+    assert torch.equal(got, ck.regen_plain(cum, n, offset))
+
+
+@pytest.mark.parametrize("bins", [1024, 1 << 16, 1 << 17])
+def test_regen_skewed_and_sparse(cuda, bins):
+    n = 2_000_003
+    c = torch.full((n,), bins - 2, dtype=torch.int32, device=cuda)
+    k = min(1500, bins)
+    c[:k] = torch.randperm(bins, device=cuda)[:k].to(torch.int32)
+    cum = torch.cumsum(ck.hist_plain(c, 0, bins.bit_length() - 1), 0, dtype=torch.int32)
+    assert torch.equal(ck.regen(cum, n, 77), ck.regen_plain(cum, n, 77))
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+    """Make every plain version of K1, K4 and K7 raise: a CUDA input that
+    reached one would fail the test."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    for name in ("hist_plain", "hist_multi_plain", "regen_plain"):
+        monkeypatch.setattr(ck, name, boom)
+
+
+def _u32(t):
+    return t.view(torch.int32).cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("base,span,n,counter", [
+    (0x9E3779B9, 50_000, 9_000_001, "regen_windowed"),
+    (0x7FFFFE00, 1000, 200_000, "regen"),
+])
+def test_device_probe_runs_the_kernels(cuda, no_plain, base, span, n, counter):
+    x = (np.uint64(base) + np.random.Generator(np.random.PCG64(span)).integers(
+        0, span, size=n).astype(np.uint64)).astype(np.uint32)
+    t = torch.from_numpy(x.view(np.int32)).to(cuda).view(torch.uint32)
+    rt.reset_launch_counts()
+    out = rt.sort(t, config=rt.SortConfig(device_probe=True))
+    assert np.array_equal(_u32(out), np.sort(x))
+    counts = rt.launch_counts()
+    assert counts["hist"] == 1 and counts[counter] == 1
+    rt.reset_launch_counts()
+    out = rt.sort(t, config=rt.SortConfig(device_probe=True, descending=True))
+    assert np.array_equal(_u32(out), np.sort(x)[::-1])
+    assert rt.launch_counts()[counter] == 1
+
+
+def test_device_probe_u64_and_wide_keys_on_card(cuda, no_plain):
+    rng = np.random.Generator(np.random.PCG64(5))
+    ts = np.uint64(0x0000018F00000000) + rng.integers(0, 60_000, size=9_000_001
+                                                      ).astype(np.uint64)
+    wide = rng.integers(0, 1 << 64, size=3_000_001, dtype=np.uint64)
+    cfg = rt.SortConfig(device_probe=True)
+    for x, counter in ((ts, "regen_windowed"), (wide, None)):
+        t = torch.from_numpy(x.view(np.int64)).to(cuda).view(torch.uint64)
+        rt.reset_launch_counts()
+        out = rt.sort(t, config=cfg)
+        assert np.array_equal(out.view(torch.int64).cpu().numpy().view(np.uint64),
+                              np.sort(x))
+        counts = rt.launch_counts()
+        assert counts["hist"] == (1 if counter else 0)
+        if counter:
+            assert counts[counter] == 1
+
+
+def test_dense_entry_points_run_the_kernels(cuda, no_plain):
+    from radix_sorting_tpu_torch.ops import counting_engine, histogram
+    rng = np.random.Generator(np.random.PCG64(9))
+    rt.reset_launch_counts()
+    x = rng.integers(0, 1 << 32, size=1_000_003, dtype=np.uint32) & np.uint32(0x3FF)
+    w = torch.from_numpy(x.view(np.int32)).to(cuda)
+    assert np.array_equal(_u32(counting_engine.sort_word_counting(w, 0x3FF, True)),
+                          np.sort(x)[::-1])
+    c = rng.integers(0, 2048, size=300_000).astype(np.uint32)
+    got = counting_engine.counting_sort_compact(
+        torch.from_numpy(c.view(np.int32)).to(cuda), 2048)
+    assert np.array_equal(_u32(got), np.sort(c))
+    v = rng.integers(0, 1010, size=1_000_003).astype(np.int32)
+    assert np.array_equal(rt.bincount(torch.from_numpy(v).to(cuda), length=1000).cpu().numpy(),
+                          np.bincount(v[v < 1000], minlength=1000))
+    u16 = rng.integers(0, 5000, size=200_000).astype(np.uint16)
+    vals, count = rt.bitmap_unique_sort(u16, device=cuda)
+    uniq = np.unique(u16)
+    assert int(count) == uniq.size and np.array_equal(vals[: uniq.size], uniq)
+    hm = histogram.multi_digit_histogram((w,), 8)
+    assert np.array_equal(hm.cpu().numpy()[0], np.bincount(x & 0xFF, minlength=256))
+    counts = rt.launch_counts()
+    assert counts["hist"] == 4 and counts["hist_multi"] == 1
+    assert counts["regen"] == 1 and counts["regen_windowed"] == 1
+
+
+def test_dynamic_probe_on_card(cuda):
+    x = rand_plane(3_000_001, 31, cuda, 0xF0F00000).view(torch.uint32)
+    rt.reset_launch_counts()
+    out = rt.sort(x, config=rt.SortConfig(dynamic_probe=True))
+    assert np.array_equal(_u32(out), np.sort(_u32(x)))
+    assert rt.launch_counts()["hist_pext"] == 1 and rt.launch_counts()["regen_pdep"] == 1

@@ -125,10 +125,12 @@ def test_violated_mask_raises_like_jax():
     (lambda: rt.sort(np.zeros((2, 2), dtype="S3"), device="cpu"), ValueError),
     (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
                      config=rt.SortConfig(strategy=rt.Strategy.LSD)), NotImplementedError),
+    (lambda: rt.argsort(np.arange(8, dtype=np.uint32), device="cpu",
+                        config=rt.SortConfig(strategy=rt.Strategy.LSD,
+                                             dynamic_probe=True)), NotImplementedError),
     (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
-                     config=rt.SortConfig(dynamic_probe=True)), NotImplementedError),
-    (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
-                     config=rt.SortConfig(device_probe=True)), NotImplementedError),
+                     config=rt.SortConfig(strategy=rt.Strategy.LSD,
+                                          device_probe=True)), NotImplementedError),
     (lambda: rt.sort(np.arange(8, dtype=np.uint32)), TypeError),
     (lambda: rt.sort(torch.arange(8), device="meta"), ValueError),
 ])
