@@ -14,6 +14,12 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      hist_pext2 (K3) at the 64-bit masks 0xF000000000000F00,
      0x00FF00000000FF00 and 0x0000000000FFFF00; regen_pdep2 at 256 bins (K6
      contract) and 65,536 bins (K9 contract), with dead bits in both planes;
+     hist (K1) and hist_multi, regen (K4, K7); whist (K10) at 1,024 bins
+     with i32 values, 65,536 bins with u8 values (four counter ranges) and
+     1,024 bins with 90% of the rows in one group; whist_f32 (K11) with
+     counts at 1,024 bins and without at 32,768 bins (f32 sums to the bound
+     sum|w| * 2^-14 + 1e-5 of a float64 sum, printing the largest relative
+     error);
   4. run each case through the public entry points on CUDA tensors (byte
      strings: numpy) and compare with a numpy oracle: sort of full-entropy
      u32 (sorter), presorted u32 (guard), masked u32, u8, u16, bf16 and f32
@@ -30,14 +36,21 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      (K2+K5); counting_engine.sort_word_counting with a 10-bit mask,
      descending (K1+K4); bitmap_unique_sort of u16, bincount with length
      1,000 and 1% of the values out of range, multi_digit_histogram at r = 8
-     (all K1);
+     (all K1); the group-by slice: bench.py's group-by case (group_reduce
+     sum of i32 values over k = x & 1023, 1,024 groups; K10), group_reduce
+     mean of f32 values at 1,024 groups (K11 with counts), sum of u8 values
+     at 65,536 groups (K10), sort-native sum, min and max with no groups,
+     value_counts with groups=1024 (K1) and without (sorter), and
+     stats.histogram of standard normal f32 at 256 bins, unweighted (K1) and
+     weighted (K11); integers exact, f32 sums and means to the bound above;
   5. require every kernel's launch count from phase 4 to be non-zero;
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
      steady-state loops); K1 on keys of which 90% are one value; the range
      probe's cost on full-entropy u32; torch.sort of int32 and int64 keys.
   7. with --profile: device time by kernel (torch.profiler, three calls)
-     of each case of the range probes and the dense tier.
+     of each case of the range probes, the dense tier and the group-by
+     slice.
 Then the card's name and power limit, one JSON line of kernels (each with
 its bound: bytes moved over the H100's 3.35 TB/s), and last
 {"ok": true, "device": {...}}.
@@ -97,7 +110,8 @@ def max_err(got, ref) -> int:
 
 
 PROFILED = ("device_probe", "dynamic_probe", "sort_word_counting",
-            "bitmap_unique_sort", "bincount", "multi_digit_histogram")
+            "bitmap_unique_sort", "bincount", "multi_digit_histogram",
+            "group_reduce", "value_counts", "histogram")
 HBM_BYTES_PER_MS = 3.35e9    # the H100 SXM's published 3.35 TB/s
 
 
@@ -107,6 +121,28 @@ def kernel_label(name: str) -> str:
                   "at_cuda_detail::"):
         name = name.replace(noise, "")
     return name[:56]
+
+
+def f32_sum_check(got, keys, weights, bins: int, drop_ge: int):
+    """(max relative error, within bound) of f32 per-bin sums against a
+    float64 sum on the card; bound: sum|w| * 2^-14 + 1e-5 per bin."""
+    import torch
+    k = keys.long() & 0xFFFFFFFF
+    keep = k < drop_ge
+    w = weights.double()[keep]
+    ref = torch.zeros(bins, dtype=torch.float64, device=keys.device).index_add_(0, k[keep], w)
+    absum = torch.zeros_like(ref).index_add_(0, k[keep], w.abs())
+    err = (got.double() - ref).abs()
+    rel = float((err / absum.clamp(min=1e-30)).max())
+    return rel, bool((err <= absum * 2.0 ** -14 + 1e-5).all())
+
+
+def bin_index_np(x: np.ndarray, edges: np.ndarray, nb: int) -> np.ndarray:
+    """stats.histogram's bin of each value, in numpy float32 arithmetic; nb
+    for values outside the edges."""
+    lo, hi = np.float32(edges[0]), np.float32(edges[-1])
+    idx = np.floor((x - lo) * np.float32(nb / (edges[-1] - edges[0])))
+    return np.where((x >= lo) & (x <= hi), np.minimum(idx, nb - 1), nb).astype(np.int64)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -244,6 +280,44 @@ def main() -> None:
         dense_inputs[name] = cum
         print(f"[3 kernel] {name} bins={cum.numel()} offset=0x{offset:X} equal to "
               "plain (max |err| 0)", flush=True)
+    # the group-by tier: K10 counts and wrapping sums, K11 f32 sums
+    vals_i32 = lo64                                     # full-range int32 values
+    vals_u8 = lo64 & 0xFF                               # u8 values, u32-converted
+    skewed_k = w & 1023
+    skewed_k[: n * 9 // 10] = 7                         # 90% of the rows one group
+    weights = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    whist_inputs = [(w & 1023, vals_i32, 10, 1000, "i32 values, 1,000 of 1,024 kept"),
+                    (w & 0xFFFF, vals_u8, 16, 1 << 16, "u8 values, 4 ranges"),
+                    (skewed_k, vals_i32, 10, 1024, "90% one group")]
+    for k, v, bits, drop, label in whist_inputs:
+        (gc, gs), (pc, ps) = ck.whist(k, v, bits, drop), ck.whist_plain(k, v, bits, drop)
+        torch.cuda.synchronize()
+        err = max(max_err(gc, pc), max_err(gs, ps))
+        errs["whist"] = max(errs["whist"], err)
+        if err or int(gc.long().sum()) != int(((k.long() & 0xFFFFFFFF) < drop).sum()):
+            fail(f"whist bins={1 << bits} {label}: max |err| {err}")
+        print(f"[3 kernel] whist bins={1 << bits} drop_ge={drop} {label}: counts and "
+              "sums equal to plain (max |err| 0)", flush=True)
+    whist_f32_inputs = [(w & 1023, 10, 1000, True), (w & 0x7FFF, 15, 1 << 15, False)]
+    for k, bits, drop, with_counts in whist_f32_inputs:
+        name = "whist_f32_counts" if with_counts else "whist_f32"
+        got = ck.whist_f32(k, weights, bits, drop, with_counts)
+        plain = ck.whist_f32_plain(k, weights, bits, drop, with_counts)
+        torch.cuda.synchronize()
+        if with_counts:
+            if max_err(got[0], plain[0]):
+                fail(f"{name} bins={1 << bits}: counts differ from plain")
+            got, plain = got[1], plain[1]
+        rel, ok = f32_sum_check(got, k, weights, 1 << bits, drop)
+        rel_plain, ok_plain = f32_sum_check(plain, k, weights, 1 << bits, drop)
+        errs[name] = float((got.double() - plain.double()).abs().max())
+        if not (ok and ok_plain):
+            fail(f"{name} bins={1 << bits}: sums past the bound (max rel err {rel:.3g}, "
+                 f"plain {rel_plain:.3g})")
+        print(f"[3 kernel] {name} bins={1 << bits} drop_ge={drop}: "
+              f"{'counts equal to plain, ' if with_counts else ''}sums within "
+              f"sum|w| * 2^-14 + 1e-5 of float64 (max rel err {rel:.3g}, plain "
+              f"{rel_plain:.3g}; max |kernel - plain| {errs[name]:.3g})", flush=True)
 
     # -- phase 4: the slice through the public entry points -----------------
     def u32_tensor(a):
@@ -300,6 +374,72 @@ def main() -> None:
     out_of_range = rng.random(n) < 0.01
     counts_in[out_of_range] = 1000 + rng.integers(0, 1 << 20, size=int(out_of_range.sum()))
     u16_unique = np.unique(u16)
+
+    # the group-by slice: bench.py's group-by case (k = x & 1023, v =
+    # int32(x >> 10)), then 65,536 groups, f32 values and histograms
+    k1024 = keys & np.uint32(1023)
+    v_bench = (keys >> np.uint32(10)).astype(np.int32)
+    k64k = keys & np.uint32(0xFFFF)
+    v_u8 = (keys64 >> np.uint64(56)).astype(np.uint8)
+    hist_w = pay_f32[::-1].copy()
+    v_bench_t, v_u8_t = (torch.from_numpy(a).to(dev) for a in (v_bench, v_u8))
+    pay_f32_t, hist_w_t = (torch.from_numpy(a).to(dev) for a in (pay_f32, hist_w))
+    groups1024 = np.arange(1024, dtype=np.uint32)
+    groups64k = np.arange(1 << 16, dtype=np.uint32)
+    cnt1024, cnt64k = np.bincount(k1024, minlength=1024), np.bincount(k64k, minlength=1 << 16)
+
+    def wrapped_sums(k, v, bins):
+        """Exact per-group sums mod 2^32 (float64 is exact below 2^53)."""
+        s = np.bincount(k, weights=v.astype(np.float64), minlength=bins)
+        return s.astype(np.int64).astype(np.uint32)
+
+    def grouped(np_dtype):
+        return lambda out: (gpu_bits(out[0], np.uint32), gpu_bits(out[1], np_dtype),
+                            np.array([int(out[2])]))
+
+    def sorted_runs_extremes():
+        """min and max of v_bench per 16-bit group, by a stable sort."""
+        perm = np.argsort(k64k, kind="stable")
+        vs, starts = v_bench[perm], np.searchsorted(k64k[perm], groups64k)
+        return np.minimum.reduceat(vs, starts), np.maximum.reduceat(vs, starts)
+
+    extremes = []
+
+    def extreme(i):
+        if not extremes:
+            extremes.extend(sorted_runs_extremes())
+        return extremes[i]
+
+    def mean_check(out):
+        """group_reduce mean of f32 values: within the K11 bound over the
+        group's size, plus 2^-22 of the mean for the division."""
+        if not np.array_equal(gpu_bits(out[0], np.uint32), groups1024) or int(out[2]) != 1024:
+            return "groups differ"
+        ref = np.bincount(k1024, weights=pay_f32.astype(np.float64), minlength=1024) / cnt1024
+        absum = np.bincount(k1024, weights=np.abs(pay_f32.astype(np.float64)), minlength=1024)
+        err = np.abs(out[1].cpu().numpy().astype(np.float64) - ref)
+        if not np.all(err <= (absum * 2**-14 + 1e-5) / cnt1024 + np.abs(ref) * 2**-22):
+            return f"mean past the bound: max |err| {err.max():.3g}"
+        return None
+
+    def histogram_check(weighted):
+        def check(out):
+            counts, edges = out
+            want_edges = np.linspace(float(pay_f32.min()), float(pay_f32.max()), 257)
+            if not np.array_equal(edges, want_edges):
+                return "edges differ"
+            idx = bin_index_np(pay_f32, edges, 256)
+            got = counts.cpu().numpy()
+            if not weighted:
+                want = np.bincount(idx, minlength=257)[:256].astype(np.int32)
+                return None if np.array_equal(got, want) else "counts differ"
+            w64 = hist_w.astype(np.float64)
+            ref = np.bincount(idx, weights=w64, minlength=257)[:256]
+            absum = np.bincount(idx, weights=np.abs(w64), minlength=257)[:256]
+            err = np.abs(got.astype(np.float64) - ref)
+            ok = np.all(err <= absum * 2**-14 + 1e-5)
+            return None if ok else f"weighted sums past the bound: max |err| {err.max():.3g}"
+        return check
 
     def bitmap_oracle():
         padded = np.full(1 << 16, 0xFFFF, np.uint16)
@@ -416,9 +556,46 @@ def main() -> None:
          lambda x: multi_digit_histogram([x], 8), lambda out: out.cpu().numpy(),
          lambda: np.stack([np.bincount((keys >> np.uint32(8 * p)) & np.uint32(0xFF),
                                        minlength=256) for p in range(4)]).astype(np.int32)),
+        ("group_reduce sum of i32 values, 1,024 groups (bench.py group-by case; K10)",
+         lambda: u32_tensor(k1024),
+         lambda x: rt.group_reduce(x, v_bench_t, reduce="sum", groups=1024, size=1024),
+         grouped(np.int32),
+         lambda: (groups1024, wrapped_sums(k1024, v_bench, 1024), np.array([1024]))),
+        ("group_reduce mean of f32 values, 1,024 groups (K11 with counts)",
+         lambda: u32_tensor(k1024),
+         lambda x: rt.group_reduce(x, pay_f32_t, reduce="mean", groups=1024),
+         lambda out: out, lambda: mean_check),
+        ("group_reduce sum of u8 values, 65,536 groups (K10, 4 ranges)",
+         lambda: u32_tensor(k64k),
+         lambda x: rt.group_reduce(x, v_u8_t, reduce="sum", groups=1 << 16),
+         grouped(np.uint32),
+         lambda: (groups64k, wrapped_sums(k64k, v_u8, 1 << 16), np.array([1 << 16]))),
+        ("group_reduce sum, no groups (sort-native)", lambda: u32_tensor(k64k),
+         lambda x: rt.group_reduce(x, v_bench_t, reduce="sum", size=1 << 16),
+         grouped(np.int32),
+         lambda: (groups64k, wrapped_sums(k64k, v_bench, 1 << 16), np.array([1 << 16]))),
+        ("group_reduce min, no groups (sort-native)", lambda: u32_tensor(k64k),
+         lambda x: rt.group_reduce(x, v_bench_t, reduce="min", size=1 << 16),
+         grouped(np.int32), lambda: (groups64k, extreme(0), np.array([1 << 16]))),
+        ("group_reduce max, no groups (sort-native)", lambda: u32_tensor(k64k),
+         lambda x: rt.group_reduce(x, v_bench_t, reduce="max", size=1 << 16),
+         grouped(np.int32), lambda: (groups64k, extreme(1), np.array([1 << 16]))),
+        ("value_counts groups=1024 (K1)", lambda: u32_tensor(k1024),
+         lambda x: rt.value_counts(x, groups=1024), grouped(np.int32),
+         lambda: (groups1024, cnt1024.astype(np.int32), np.array([1024]))),
+        ("value_counts, no groups (sorter)", lambda: u32_tensor(k1024),
+         lambda x: rt.value_counts(x, size=1024), grouped(np.int32),
+         lambda: (groups1024, cnt1024.astype(np.int32), np.array([1024]))),
+        ("histogram of standard normal f32, 256 bins (K1)",
+         lambda: pay_f32_t, lambda x: rt.histogram(x, bins=256),
+         lambda out: out, lambda: histogram_check(False)),
+        ("histogram of standard normal f32, 256 bins, weighted (K11)",
+         lambda: pay_f32_t, lambda x: rt.histogram(x, bins=256, weights=hist_w_t),
+         lambda out: out, lambda: histogram_check(True)),
     ]
-    # outputs that are not the keys reordered
-    other_shape = {name for name, *_ in cases[-3:]}
+    # outputs that are not the keys reordered: from bitmap_unique_sort on
+    first_other = next(i for i, c in enumerate(cases) if c[0].startswith("bitmap"))
+    other_shape = {name for name, *_ in cases[first_other:]}
     inputs = [(name, make(), run, host, oracle)
               for name, make, run, host, oracle in cases]
     torch.cuda.synchronize()
@@ -434,6 +611,13 @@ def main() -> None:
         if run is rt.sort and first.dtype != x.dtype:
             fail(f"{name}: got dtype {first.dtype}, keys are {x.dtype}")
         got, want = host(out), oracle()
+        if callable(want):           # float results: a check to the bound
+            bad = want(got)
+            if bad:
+                fail(f"{name}: {bad}")
+            print(f"[4 sort] {name}: n={len(x)} within the bound of the numpy oracle",
+                  flush=True)
+            continue
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, wv in zip(got, want):
@@ -532,9 +716,30 @@ def main() -> None:
             lambda: ck.regen(cum, n, offset), lambda: ck.regen_plain(cum, n, offset),
             lambda: torch.searchsorted(cum, j, right=True))
     del j
+    # K10 / K11 beside one torch call of their sums (index_add_ into a spill
+    # bin, computed before the timing); the bound counts one read of keys and
+    # values, the kernel reads them once per counter range
+    for k, v, bits, drop, label in whist_inputs:
+        bins = 1 << bits
+        idx = torch.where((k.long() & 0xFFFFFFFF) < drop, k.long() & 0xFFFFFFFF, bins)
+        row("whist", bins, n * 8 + bins * 8, lambda: ck.whist(k, v, bits, drop),
+            lambda: ck.whist_plain(k, v, bits, drop),
+            lambda: torch.zeros(bins + 1, dtype=torch.int32, device=dev).index_add_(0, idx, v),
+            keys=label, reads=max(1, bins * 8 >> 17))
+    for k, bits, drop, with_counts in whist_f32_inputs:
+        bins, per_bin = 1 << bits, 8 if with_counts else 4
+        idx = torch.where((k.long() & 0xFFFFFFFF) < drop, k.long() & 0xFFFFFFFF, bins)
+        row("whist_f32_counts" if with_counts else "whist_f32", bins, n * 8 + bins * per_bin,
+            lambda: ck.whist_f32(k, weights, bits, drop, with_counts),
+            lambda: ck.whist_f32_plain(k, weights, bits, drop, with_counts),
+            lambda: torch.zeros(bins + 1, dtype=torch.float32,
+                                device=dev).index_add_(0, idx, weights),
+            reads=max(1, bins * per_bin >> 17))
+    del idx
     for name, rows in shapes.items():
         for r in rows:
-            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes") if k in r)
+            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads")
+                            if k in r)
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             print(f"[6 time] {name} n={n} bins={r['bins']}{extra}: kernel "
                   f"{r['ms']:.4f} ms ({r['bytes'] / r['ms'] / 1e6:.0f} GB/s moved), "
@@ -586,6 +791,9 @@ def main() -> None:
         "hist_pext2": (f"{csrc}/hist.cu", f"{pk}:355"),
         "regen_pdep2": (f"{csrc}/regen.cu", f"{pk}:414"),
         "regen_pdep2_windowed": (f"{csrc}/regen.cu", f"{pk}:775"),
+        "whist": (f"{csrc}/whist.cu", f"{pk}:862"),
+        "whist_f32": (f"{csrc}/whist.cu", f"{pk}:957"),
+        "whist_f32_counts": (f"{csrc}/whist.cu", f"{pk}:957"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],

@@ -9,9 +9,10 @@ are the JAX package's, so an input takes the same route in both packages.
 
 Inputs: a torch tensor is sorted on its own device and the results are
 tensors on that device. A numpy array (or anything ``numpy.asarray`` takes)
-needs ``device=``; it is copied there bit for bit (:func:`.ops.kdf.as_tensor`),
-sorted, and the results come back as numpy arrays of its dtype. Byte-string
-(``S<W>``) and int4/uint4 keys exist only as numpy input.
+is copied bit for bit (:func:`.ops.kdf.as_tensor`) to ``device=``, the CUDA
+device when none is given (without a card that raises: pass
+``device="cpu"``), sorted, and the results come back as numpy arrays of its
+dtype. Byte-string (``S<W>``) and int4/uint4 keys exist only as numpy input.
 
 ``SortConfig.dynamic_probe`` and ``SortConfig.device_probe`` are read by
 ``sort`` in AUTO strategy, as in the JAX package, and each costs one host
@@ -47,11 +48,11 @@ def _refuse_unported(cfg: SortConfig) -> None:
 # input normalization
 
 
-def _as_words(x, descending: bool, device) -> Tuple[tuple, object, bool]:
-    """KDF-encode a 1-D key array into int32 word planes.
+def _as_input(x, device) -> Tuple[torch.Tensor, object, bool]:
+    """A 1-D key array as (dense carrier tensor, key dtype, from_numpy).
 
-    Returns (words, key dtype, from_numpy). The key dtype is the tensor's
-    torch dtype, or the numpy dtype of a numpy input.
+    The key dtype is the tensor's torch dtype, or the numpy dtype of a numpy
+    input, which goes to ``device`` (:func:`.ops.kdf.input_device`).
     """
     if torch.is_tensor(x):
         if device is not None and torch.device(device) != x.device:
@@ -60,15 +61,22 @@ def _as_words(x, descending: bool, device) -> Tuple[tuple, object, bool]:
         if x.ndim != 1:
             raise ValueError(f"keys must be 1-D, got shape {tuple(x.shape)}")
         # the kernels take dense planes; a strided view is copied once here
-        return kdf.encode(x.contiguous(), descending), x.dtype, False
-    if device is None:
-        raise TypeError("a numpy input needs device= (e.g. 'cuda')")
+        return x.contiguous(), x.dtype, False
     a = np.asarray(x)
     if a.ndim != 1:
         what = "byte-string keys" if a.dtype.kind == "S" else "keys"
         raise ValueError(f"{what} must be 1-D, got shape {a.shape}")
     # the numpy codec: 64-bit keys, byte strings and int4 cross as carriers
-    return kdf.encode(kdf.as_tensor(a, device), descending, a.dtype), a.dtype, True
+    return kdf.as_tensor(a, kdf.input_device(device)), a.dtype, True
+
+
+def _as_words(x, descending: bool, device) -> Tuple[tuple, object, bool]:
+    """KDF-encode a 1-D key array into int32 word planes.
+
+    Returns (words, key dtype, from_numpy), as :func:`_as_input` gives them.
+    """
+    t, dtype, from_numpy = _as_input(x, device)
+    return kdf.encode(t, descending, dtype), dtype, from_numpy
 
 
 def _decode(words, dtype, descending: bool, from_numpy: bool):
@@ -266,7 +274,8 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
     ``key == key & value_mask``; it enables the COUNTING path when few bits
     are live. A broken promise truncates keys to the mask;
     ``validate_mask=True`` pays one OR-reduce and a host sync to raise
-    ValueError instead. ``device`` places a numpy input (required for one).
+    ValueError instead. ``device`` places a numpy input (the CUDA device by
+    default).
     """
     cfg = config
     _refuse_unported(cfg)
@@ -277,7 +286,14 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
         return np.asarray(x).copy() if from_numpy else x.clone()
     if value_mask is not None and validate_mask:
         _validate_value_mask(x, dtype, value_mask)
+    sw = _sort_words(words, dtype, cfg, value_mask)
+    return _decode(sw, dtype, cfg.descending, from_numpy)
 
+
+def _sort_words(words, dtype, cfg: SortConfig, value_mask: Optional[int] = None):
+    """The strategy dispatch of :func:`sort`: the planes of at least two
+    encoded keys, sorted ascending (the complemented planes of a descending
+    sort)."""
     strategy = cfg.strategy
     # computed once, consulted twice: the device probe runs only where
     # compaction does not engage, and HW_SORT compacts with the same masks
@@ -306,7 +322,7 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
             else:
                 sw = counting_engine.sort_words2_range_probe(
                     words[0], words[1], guard=cfg.detect_presorted)
-            return _decode(sw, dtype, cfg.descending, from_numpy)
+            return sw
         else:
             strategy = Strategy.HW_SORT
     elif strategy == Strategy.COUNTING:
@@ -330,7 +346,7 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
             sw, _ = hw_engine.sort_words(operands, stable=False)
         if cmasks is not None:
             sw = probes.expand_word_planes(sw[0], words, cmasks)
-    return _decode(sw, dtype, cfg.descending, from_numpy)
+    return sw
 
 
 def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,

@@ -46,6 +46,7 @@
 #include <cstdint>
 
 #include "bit_runs.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -148,22 +149,9 @@ int launch_hist(const void* hi, const void* lo, long long n, const Count& count,
   const int local_bits = std::min(total_bits, kLocalMaxBits);
   const int ranges = (total + (1 << local_bits) - 1) >> local_bits;
   const int smem = static_cast<int>(sizeof(int)) << local_bits;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  dim3 grid;
+  err = rst::wave_grid(hist_kernel<Count>, kThreads, smem, n, ranges, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(hist_kernel<Count>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hist_kernel<Count>,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // one wave of blocks shared among the ranges; no more blocks than there
-  // are 16-byte loads to give one to each thread
-  const long long wave = static_cast<long long>(sms) * std::max(per_sm, 1);
-  const long long want = (n + 4LL * kThreads - 1) / (4LL * kThreads);
-  const dim3 grid(static_cast<unsigned>(std::max(1LL, std::min(want, wave / ranges))),
-                  static_cast<unsigned>(ranges));
   hist_kernel<Count><<<grid, kThreads, smem, s>>>(
       static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo), n, count,
       local_bits, total, static_cast<int*>(hist));

@@ -50,6 +50,11 @@ _SIGNATURES = {
     # cum, bins, n, mask_hi, mask_lo, plane_hi, plane_lo, out_hi, out_lo, stream
     "rst_regen_pdep2": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                         ctypes.c_uint, _P, _P, _P, _P, _P),
+    # keys, values, n, bits, drop_ge, counts, sums, stream
+    "rst_whist": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, _P, _P, _P),
+    # keys, weights, n, bits, drop_ge, counts (null: none), sums, stream
+    "rst_whist_f32": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, _P, _P,
+                      _P),
 }
 
 

@@ -21,7 +21,7 @@ import torch
 
 from . import cuda_kernels, kdf
 
-__all__ = ["bitmap_unique_sort"]
+__all__ = ["bitmap_unique_sort", "nonzero_static"]
 
 _HIST_MIN_KEYS = 1 << 16   # the JAX package's gate for the histogram route
 
@@ -35,16 +35,16 @@ def _presence(w: torch.Tensor, domain_bits: int) -> torch.Tensor:
     return present
 
 
-def _emit(present: torch.Tensor, size: int, fill_value: int):
-    """(values, count): the first ``size`` present values in order, padded
-    with ``fill_value``, and the number present."""
-    slot = torch.cumsum(present, 0) - 1
-    # absent values, and present ones past ``size``, go to a spill slot
-    slot = torch.where(present & (slot < size), slot, size)
-    values = torch.full((size + 1,), fill_value, dtype=torch.int64,
-                        device=present.device)
-    values.scatter_(0, slot, torch.arange(present.shape[0], device=present.device))
-    return values[:size], present.sum(dtype=torch.int32)
+def nonzero_static(flags: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
+    """(size,) int64: the positions of the first ``size`` set flags in
+    order, padded with ``fill_value``. The JAX package's ``jnp.nonzero(size=,
+    fill_value=)`` without a host sync (``torch.nonzero`` reads its size):
+    the j-th set flag is where the running count first reaches j, one
+    binary search per slot (a scatter of every position costs more than the
+    count itself: 1.13 ms at 40M flags on an H100 80GB HBM3 at 700 W)."""
+    count = torch.cumsum(flags, 0)
+    pos = torch.searchsorted(count, torch.arange(1, size + 1, device=flags.device))
+    return torch.where(pos < flags.shape[0], pos, fill_value)
 
 
 def bitmap_unique_sort(x, size: Optional[int] = None,
@@ -52,7 +52,8 @@ def bitmap_unique_sort(x, size: Optional[int] = None,
     """Sorted unique values of an unsigned array of <= 16-bit domain.
 
     Args:
-      x: 1-D uint8/uint16 tensor, or numpy array with ``device=``.
+      x: 1-D uint8/uint16 tensor, or numpy array (placed by ``device=``,
+        the CUDA device by default).
       size: static length of the returned value vector (default: the full
         domain).
       fill_value: padding past ``count`` (default: the domain's maximum).
@@ -64,12 +65,10 @@ def bitmap_unique_sort(x, size: Optional[int] = None,
     """
     from_numpy = not torch.is_tensor(x)
     if from_numpy:
-        if device is None:
-            raise TypeError("a numpy input needs device= (e.g. 'cuda')")
         a = np.asarray(x)
         if a.dtype not in (np.uint8, np.uint16):
             raise TypeError("bitmap_unique_sort supports uint8/uint16 keys")
-        x = kdf.as_tensor(a, device)
+        x = kdf.as_tensor(a, kdf.input_device(device))
     elif x.dtype not in (torch.uint8, torch.uint16):
         raise TypeError("bitmap_unique_sort supports uint8/uint16 keys")
     if x.ndim != 1:
@@ -78,7 +77,9 @@ def bitmap_unique_sort(x, size: Optional[int] = None,
     size = (1 << domain_bits) if size is None else int(size)
     fill_value = (1 << domain_bits) - 1 if fill_value is None else int(fill_value)
     (w,) = kdf.raw_bits(x.contiguous())
-    values, count = _emit(_presence(w, domain_bits), size, fill_value)
+    present = _presence(w, domain_bits)
+    values = nonzero_static(present, size, fill_value)
+    count = present.sum(dtype=torch.int32)
     # to the key dtype, wrapping as the JAX package's astype does
     values = values.to(torch.uint8) if domain_bits == 8 \
         else values.to(torch.int16).view(torch.uint16)

@@ -1,4 +1,5 @@
-"""Hopper kernels of the counting tier, their plain versions and launch counts.
+"""Hopper kernels of the counting and group-by tiers, their plain versions and
+launch counts.
 
 The counterpart of ``radix_sorting_tpu.ops.pallas_kernels`` for the kernels
 ported so far. Each wrapper checks its inputs, then
@@ -24,14 +25,18 @@ regen_pdep              csrc/regen.cu   K5 ``_regen_pdep_kernel``
 (regen_pdep_windowed)   csrc/regen.cu   K8 ``_regen_pdep_win_kernel``
 regen_pdep2             csrc/regen.cu   K6 ``_regen_pdep2_kernel``
 (regen_pdep2_windowed)  csrc/regen.cu   K9 ``_regen_pdep2_win_kernel``
+whist                   csrc/whist.cu   K10 ``_whist_kernel``
+whist_f32               csrc/whist.cu   K11 ``_whist_f32_kernel`` (sums)
+(whist_f32_counts)      csrc/whist.cu   K11 ``_whist_f32_kernel`` (counts too)
 ======================  ==============  =====================================
 
 One histogram kernel counts digits (K1) or the PEXT-compacted live bits of
 one plane (K2) or two (K3), and one regeneration kernel writes dense values
 (K4, K7) or masked keys into one plane or two, and meets the <= 2^10-bin
 (K4, K5, K6) and the 2^11 to 2^17-bin (K7, K8, K9) contracts alike;
-launches are counted under the contract's name. The source notes in
-``csrc/`` say what bounds each kernel on the card.
+launches are counted under the contract's name. One weighted histogram
+kernel sums integer values (K10) or f32 weights (K11) per key. The source
+notes in ``csrc/`` say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
@@ -46,11 +51,14 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "hist", "hist_plain", "hist_multi", "hist_multi_plain",
            "regen", "regen_plain",
            "hist_pext", "hist_pext_plain", "regen_pdep", "regen_pdep_plain",
-           "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain"]
+           "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain",
+           "whist", "whist_plain", "whist_f32", "whist_f32_plain", "low32",
+           "WHIST_MAX_BITS"]
 
 LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
-            "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0}
+            "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
+            "whist": 0, "whist_f32": 0, "whist_f32_counts": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
 HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bins
@@ -408,3 +416,102 @@ def regen_pdep2(cum: torch.Tensor, n: int, mask_hi: int, mask_lo: int,
     LAUNCHES["regen_pdep2" if cum.shape[0] <= _K5_MAX_BINS
              else "regen_pdep2_windowed"] += 1
     return out_hi, out_lo
+
+
+# ---------------------------------------------------------------------------
+# K10 / K11: weighted histograms, the dense group-by tier
+
+WHIST_MAX_BITS = 17      # widest table the group-by gates ask for (2^17 bins)
+
+
+def _check_whist(name: str, keys: torch.Tensor, values: torch.Tensor,
+                 value_dtype: torch.dtype, radix_bits: int, drop_ge: int) -> None:
+    _check_plane(f"{name} keys", keys)
+    if not torch.is_tensor(values) or values.dtype != value_dtype or values.ndim != 1:
+        raise TypeError(f"{name}: expected 1-D {value_dtype} values")
+    if not values.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous values")
+    if values.shape != keys.shape or values.device != keys.device:
+        raise ValueError(f"{name}: keys and values must match in length and device")
+    if not 2 <= radix_bits <= WHIST_MAX_BITS:
+        raise ValueError(f"{name}: radix_bits must be in [2, {WHIST_MAX_BITS}]")
+    if not 0 <= int(drop_ge) <= 1 << radix_bits:
+        raise ValueError(f"{name}: drop_ge must be in [0, 2^radix_bits]")
+
+
+def _bin_index(keys: torch.Tensor, bins: int, drop_ge: int) -> torch.Tensor:
+    """int64 bin of each key; keys at or past ``drop_ge`` go to spill bin ``bins``."""
+    k = keys.long() & 0xFFFFFFFF
+    return torch.where(k < drop_ge, k, bins)
+
+
+def low32(x: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 ``x`` as the int32 that carries them."""
+    return ((x & 0xFFFFFFFF) ^ (1 << 31)).sub_(1 << 31).to(torch.int32)
+
+
+def whist_plain(keys: torch.Tensor, values: torch.Tensor, radix_bits: int,
+                drop_ge: int):
+    """(counts, sums) int32 of 2^radix_bits bins: bincount and an int64
+    ``index_add_`` into a spill bin, the sums cut to their low 32 bits."""
+    bins = 1 << radix_bits
+    idx = _bin_index(keys, bins, drop_ge)
+    counts = torch.bincount(idx, minlength=bins + 1)[:bins].to(torch.int32)
+    sums = torch.zeros(bins + 1, dtype=torch.int64, device=keys.device)
+    sums.index_add_(0, idx, values.long())
+    return counts, low32(sums[:bins])
+
+
+def whist(keys: torch.Tensor, values: torch.Tensor, radix_bits: int, drop_ge: int):
+    """Per-key counts and value sums of u32 keys in one read (the contract of
+    ``weighted_histogram_tpu``, its byte planes recombined).
+
+    ``values`` is the int32 plane of the values' u32 conversion; keys at or
+    past ``drop_ge`` (at most 2^radix_bits) are counted nowhere. Returns
+    ``(counts, sums)``, int32 each of 2^radix_bits bins, the sums mod 2^32.
+    """
+    _check_whist("whist", keys, values, torch.int32, radix_bits, drop_ge)
+    if not use_gpu_routes(keys):
+        return whist_plain(keys, values, radix_bits, drop_ge)
+    counts = torch.empty(1 << radix_bits, dtype=torch.int32, device=keys.device)
+    sums = torch.empty_like(counts)
+    _launch("rst_whist", keys.device, keys.data_ptr(), values.data_ptr(), keys.shape[0],
+            radix_bits, int(drop_ge), counts.data_ptr(), sums.data_ptr())
+    LAUNCHES["whist"] += 1
+    return counts, sums
+
+
+def whist_f32_plain(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
+                    drop_ge: int, with_counts: bool = False):
+    """f32 sums of 2^radix_bits bins (``index_add_`` into a spill bin), and
+    the bincount before them when ``with_counts``."""
+    bins = 1 << radix_bits
+    idx = _bin_index(keys, bins, drop_ge)
+    sums = torch.zeros(bins + 1, dtype=torch.float32, device=keys.device)
+    sums = sums.index_add_(0, idx, weights)[:bins]
+    if not with_counts:
+        return sums
+    return torch.bincount(idx, minlength=bins + 1)[:bins].to(torch.int32), sums
+
+
+def whist_f32(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
+              drop_ge: int, with_counts: bool = False):
+    """Per-key sums of f32 weights in one read (the contract of
+    ``weighted_histogram_f32_tpu``; with ``with_counts``, of
+    ``weighted_histogram_f32_counts_tpu``: ``(counts, sums)``).
+
+    Keys at or past ``drop_ge`` (at most 2^radix_bits) count nowhere. The
+    kernel adds with float atomics, so the order of the additions, and the
+    last bits of the sums, vary from run to run; the counts are exact.
+    """
+    _check_whist("whist_f32", keys, weights, torch.float32, radix_bits, drop_ge)
+    if not use_gpu_routes(keys):
+        return whist_f32_plain(keys, weights, radix_bits, drop_ge, with_counts)
+    sums = torch.empty(1 << radix_bits, dtype=torch.float32, device=keys.device)
+    counts = torch.empty(1 << radix_bits, dtype=torch.int32, device=keys.device) \
+        if with_counts else None
+    _launch("rst_whist_f32", keys.device, keys.data_ptr(), weights.data_ptr(),
+            keys.shape[0], radix_bits, int(drop_ge),
+            counts.data_ptr() if with_counts else None, sums.data_ptr())
+    LAUNCHES["whist_f32_counts" if with_counts else "whist_f32"] += 1
+    return (counts, sums) if with_counts else sums

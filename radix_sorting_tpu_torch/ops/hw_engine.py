@@ -31,10 +31,10 @@ import torch
 from . import probes
 from .kdf import INT32_MIN, join64, split64
 
-__all__ = ["sort_words", "argsort_words", "sort_words_presort_guard"]
+__all__ = ["sort_words", "argsort_words", "sort_words_presort_guard", "gather"]
 
-# same-width signed views for the gather (torch indexes few unsigned dtypes)
-_GATHER_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+# same-width signed views: torch indexes few of its unsigned dtypes
+SIGNED_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _key(group: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -53,9 +53,9 @@ def _unkey(s: torch.Tensor, planes: int) -> Tuple[torch.Tensor, ...]:
     return hi ^ INT32_MIN, lo
 
 
-def _gather(p: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+def gather(p: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """``p[perm]`` along dim 0, through a same-width integer view."""
-    v = _GATHER_VIEW[p.element_size()]
+    v = SIGNED_VIEW[p.element_size()]
     return p.view(v)[perm].view(p.dtype)
 
 
@@ -77,7 +77,7 @@ def _stable_sort(words: Sequence[torch.Tensor]) -> Tuple[tuple, torch.Tensor]:
             key = key[perm]
         idx = torch.sort(key, stable=True).indices
         perm = idx if perm is None else perm[idx]
-    return tuple(_gather(w, perm) for w in words), perm
+    return tuple(gather(w, perm) for w in words), perm
 
 
 def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] = (),
@@ -96,7 +96,7 @@ def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] =
         s = torch.sort(_key(words), stable=stable).values
         return _unkey(s, len(words)), ()
     sw, perm = _stable_sort(words)
-    return sw, tuple(_gather(p, perm) for p in payloads)
+    return sw, tuple(gather(p, perm) for p in payloads)
 
 
 def argsort_words(words: Sequence[torch.Tensor],

@@ -63,6 +63,7 @@ __all__ = [
     "unpack_bytes_be",
     "encode_bytes_np",
     "decode_bytes_np",
+    "input_device",
     "as_tensor",
     "to_numpy",
     "i32",
@@ -379,6 +380,20 @@ def complement(words: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 
 # ---------------------------------------------------------------------------
 # numpy <-> torch codec: the same bits into both packages
+
+
+def input_device(device=None) -> torch.device:
+    """Where a numpy input goes: ``device``, or the CUDA device when None.
+
+    The entry points run on the card unless the caller asks for another
+    device; without a card a numpy input with no ``device=`` raises.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("numpy input goes to the CUDA device by default and "
+                           "none is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def as_tensor(a, device) -> torch.Tensor:

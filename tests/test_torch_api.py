@@ -284,8 +284,12 @@ def test_error_paths_match_jax(case):
 
 
 def test_port_only_errors():
-    with pytest.raises(TypeError):       # numpy input needs a device
-        rt.argsort(U32)
+    # numpy input with no device= goes to the card, and raises without one
+    if torch.cuda.is_available():
+        assert np.array_equal(rt.argsort(U32), np.argsort(U32, kind="stable"))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            rt.argsort(U32)
     with pytest.raises(ValueError):      # payload tensors live with the keys
         rt.sort_pairs(torch.arange(4), torch.arange(4, device="meta"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

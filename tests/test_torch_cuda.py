@@ -423,3 +423,103 @@ def test_dynamic_probe_on_card(cuda):
     out = rt.sort(x, config=rt.SortConfig(dynamic_probe=True))
     assert np.array_equal(_u32(out), np.sort(_u32(x)))
     assert rt.launch_counts()["hist_pext"] == 1 and rt.launch_counts()["regen_pdep"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the group-by tier: whist (K10), whist_f32 (K11)
+
+
+def _f32_bound(keys, weights, bins, drop_ge):
+    """Per-bin float64 sums and sum|w| * 2^-14 + 1e-5, the K11 bound."""
+    k = keys.long() & 0xFFFFFFFF
+    keep = k < drop_ge
+    w64 = weights.double()[keep]
+    ref = torch.zeros(bins, dtype=torch.float64, device=keys.device)
+    ref.index_add_(0, k[keep], w64)
+    absum = torch.zeros_like(ref).index_add_(0, k[keep], w64.abs())
+    return ref, absum * 2.0 ** -14 + 1e-5
+
+
+@pytest.mark.parametrize("bits,drop", [(2, 3), (10, 1000), (14, 1 << 14), (15, 30_000),
+                                       (16, 1 << 16), (17, 100_000)])
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_whist_matches_plain(cuda, n, bits, drop):
+    keys = rand_plane(n, n ^ bits, cuda, mask=(1 << bits) - 1)
+    vals = rand_plane(n, n + bits, cuda)
+    before = ck.launch_counts()["whist"]
+    counts, sums = ck.whist(keys, vals, bits, drop)
+    assert ck.launch_counts()["whist"] == before + 1
+    pc, ps = ck.whist_plain(keys, vals, bits, drop)
+    assert torch.equal(counts, pc) and torch.equal(sums, ps)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("bits,drop", [(2, 4), (10, 1000), (14, 1 << 14), (15, 1 << 15),
+                                       (16, 50_000)])
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_whist_f32_matches_plain(cuda, n, bits, drop, with_counts):
+    keys = rand_plane(n, n ^ bits, cuda, mask=(1 << bits) - 1)
+    w = torch.from_numpy(np.random.Generator(np.random.PCG64(bits)).standard_normal(n)
+                         .astype(np.float32) * 100).to(cuda)
+    name = "whist_f32_counts" if with_counts else "whist_f32"
+    before = ck.launch_counts()[name]
+    got = ck.whist_f32(keys, w, bits, drop, with_counts)
+    assert ck.launch_counts()[name] == before + 1
+    plain = ck.whist_f32_plain(keys, w, bits, drop, with_counts)
+    if with_counts:
+        assert torch.equal(got[0], plain[0])
+        got, plain = got[1], plain[1]
+    ref, bound = _f32_bound(keys, w, 1 << bits, drop)
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    assert bool(((plain.double() - ref).abs() <= bound).all())
+
+
+def test_whist_skewed_unaligned_and_non_finite(cuda):
+    n = 2_000_003
+    keys = rand_plane(n, 1, cuda, mask=1023)
+    keys[: n * 9 // 10] = 7                           # 90% of the rows one group
+    vals = rand_plane(n, 2, cuda)
+    for k, v in ((keys, vals), (keys[1:], vals[1:])):  # 4-byte offset: no 16-byte loads
+        assert all(torch.equal(a, b) for a, b in
+                   zip(ck.whist(k, v, 10, 1000), ck.whist_plain(k, v, 10, 1000)))
+    w = torch.ones(n, dtype=torch.float32, device=cuda)
+    w[5], w[6], w[8] = float("inf"), float("nan"), float("-inf")
+    keys[5], keys[6], keys[8] = 3, 4, 3                # 3: inf - inf; 4: NaN
+    counts, sums = ck.whist_f32(keys, w, 10, 1024, with_counts=True)
+    pc, ps = ck.whist_f32_plain(keys, w, 10, 1024, with_counts=True)
+    assert torch.equal(counts, pc)
+    finite = torch.isfinite(ps)
+    assert torch.equal(torch.isfinite(sums), finite) and int((~finite).sum()) == 2
+    assert torch.equal(sums[finite], ps[finite])       # integer-valued sums: exact
+
+
+def test_group_by_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a plain torch call ran on a CUDA tensor")
+    monkeypatch.setattr(ck, "whist_plain", boom)
+    monkeypatch.setattr(ck, "whist_f32_plain", boom)
+    monkeypatch.setattr(torch.Tensor, "index_add_", boom)
+    monkeypatch.setattr(torch, "bincount", boom)
+    rng = np.random.Generator(np.random.PCG64(11))
+    n, G = 1_000_003, 1000
+    k = rng.integers(0, G, size=n).astype(np.int32)
+    v = rng.integers(-1000, 1000, size=n).astype(np.int32)
+    f = rng.standard_normal(n).astype(np.float32)
+    kt, vt, ft = (torch.from_numpy(a).to(cuda) for a in (k, v, f))
+    rt.reset_launch_counts()
+    uk, s, ng = rt.group_reduce(kt, vt, groups=G)
+    assert int(ng) == G and np.array_equal(uk.cpu().numpy(), np.arange(G))
+    assert np.array_equal(s.cpu().numpy(), np.bincount(k, weights=v).astype(np.int32))
+    _, m, _ = rt.group_reduce(kt, ft, reduce="mean", groups=G)
+    want = np.bincount(k, weights=f) / np.bincount(k)
+    assert np.allclose(m.cpu().numpy(), want, rtol=1e-4, atol=1e-4)
+    uk, c, _ = rt.value_counts(kt, groups=G)
+    assert np.array_equal(c.cpu().numpy(), np.bincount(k))
+    x = ((rng.integers(0, 100, size=n) + 0.5) / 25 - 2).astype(np.float32)  # bin centres
+    h, edges = rt.histogram(torch.from_numpy(x).to(cuda), bins=100, range=(-2, 2),
+                            weights=ft)
+    he, _ = np.histogram(x, bins=edges, weights=f.astype(np.float64))
+    assert np.allclose(h.cpu().numpy(), he, rtol=1e-4, atol=1e-3)
+    counts = rt.launch_counts()
+    assert counts["whist"] == 1 and counts["whist_f32_counts"] == 1
+    assert counts["whist_f32"] == 1 and counts["hist"] == 1
