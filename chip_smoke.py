@@ -19,7 +19,11 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      1,024 bins with 90% of the rows in one group; whist_f32 (K11) with
      counts at 1,024 bins and without at 32,768 bins (f32 sums to the bound
      sum|w| * 2^-14 + 1e-5 of a float64 sum, printing the largest relative
-     error);
+     error); the LSD passes lsd_hist (L1) and lsd_scatter (L2) for one pass
+     at r = 8, 11 and 16 (key and index planes; the pass must be stable);
+     bitonic (K12) at 1,024, 4,097 and 131,072 keys: one key plane, (hi, lo)
+     keys, (key, index) keys with a payload, and 16 key values with a
+     payload and num_keys=1, whose records must stay a permutation (R1);
   4. run each case through the public entry points on CUDA tensors (byte
      strings: numpy) and compare with a numpy oracle: sort of full-entropy
      u32 (sorter), presorted u32 (guard), masked u32, u8, u16, bf16 and f32
@@ -42,17 +46,33 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      at 65,536 groups (K10), sort-native sum, min and max with no groups,
      value_counts with groups=1024 (K1) and without (sorter), and
      stats.histogram of standard normal f32 at 256 bins, unweighted (K1) and
-     weighted (K11); integers exact, f32 sums and means to the bound above;
+     weighted (K11); the LSD slice (L1 + L2): SortConfig(strategy=LSD) sort
+     of full-entropy u32 at r = 8 (the slice's main path) and r = 11, of
+     u32 with value_mask=0xF0F00000 (two of four passes live: the launch
+     counts must show it), of u64 (8 passes), f32 with specials and
+     descending u16, argsort of u32 with duplicates, sort_pairs with {i64,
+     f32} and a 6-byte field; sort_planes_vmem of 131,072 keys with an index
+     plane (K12); sort_batched, argsort_batched and sort_pairs_batched of the
+     keys as rows of 4,096 (bench.py's batched case; torch.sort); the
+     configured sorters models.RadixSorterU32 and GenericRadixSorter with
+     LSD; integers exact, f32 sums and means to the bound above; the launches
+     of each case are printed beside it;
   5. require every kernel's launch count from phase 4 to be non-zero;
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
      steady-state loops); K1 on keys of which 90% are one value; the range
-     probe's cost on full-entropy u32; torch.sort of int32 and int64 keys.
+     probe's cost on full-entropy u32; torch.sort of int32 and int64 keys;
+     the LSD sort of u32 at r = 8 and 11 beside torch.sort of the same int32
+     keys and the AUTO sort, in turns, with its byte bound (12 bytes a key
+     for each live pass: L1 reads the plane, L2 reads and writes it); L1 and
+     L2 per pass; K12 at 2^10, 2^14 and 2^17 keys beside torch.sort of the
+     same packed key; torch.sort(dim=-1) of the batched rows.
   7. with --profile: device time by kernel (torch.profiler, three calls)
-     of each case of the range probes, the dense tier and the group-by
-     slice.
+     of each case of the range probes, the dense tier, the group-by slice,
+     the LSD sorts of u32 and u64, sort_planes_vmem and sort_batched.
 Then the card's name and power limit, one JSON line of kernels (each with
-its bound: bytes moved over the H100's 3.35 TB/s), and last
+its bound: bytes moved over the H100's 3.35 TB/s, or for K12 its
+compare-exchanges over 67 T operations/s where that is larger), and last
 {"ok": true, "device": {...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
@@ -111,8 +131,10 @@ def max_err(got, ref) -> int:
 
 PROFILED = ("device_probe", "dynamic_probe", "sort_word_counting",
             "bitmap_unique_sort", "bincount", "multi_digit_histogram",
-            "group_reduce", "value_counts", "histogram")
+            "group_reduce", "value_counts", "histogram", "LSD u32 full entropy",
+            "LSD u64", "sort_planes_vmem", "sort_batched")
 HBM_BYTES_PER_MS = 3.35e9    # the H100 SXM's published 3.35 TB/s
+OPS_PER_MS = 67e9            # its published 67 T float32 operations/s, no tensor cores
 
 
 def kernel_label(name: str) -> str:
@@ -173,8 +195,9 @@ def main() -> None:
           f"cuda {torch.version.cuda} | {kind}", flush=True)
 
     import radix_sorting_tpu_torch as rt
-    from radix_sorting_tpu_torch.ops import _build, counting_engine
+    from radix_sorting_tpu_torch.ops import _build, counting_engine, lsd_engine, probes, scan
     from radix_sorting_tpu_torch.ops import cuda_kernels as ck
+    from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem
     from radix_sorting_tpu_torch.ops.histogram import multi_digit_histogram
     from radix_sorting_tpu_torch.ops.kdf import i32
 
@@ -318,6 +341,52 @@ def main() -> None:
               f"{'counts equal to plain, ' if with_counts else ''}sums within "
               f"sum|w| * 2^-14 + 1e-5 of float64 (max rel err {rel:.3g}, plain "
               f"{rel_plain:.3g}; max |kernel - plain| {errs[name]:.3g})", flush=True)
+    # the LSD passes: L1 and L2 for the lowest digit of the keys, carrying an
+    # index plane as argsort does; the pass must be stable
+    idx32 = torch.arange(n, dtype=torch.int32, device=dev)
+    lsd_inputs = {}
+    for bits in (8, 11, 16):
+        tile = lsd_engine.lsd_tile(8192, bits)
+        got, ref = ck.lsd_hist(w, 0, bits, tile), ck.lsd_hist_plain(w, 0, bits, tile)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        errs["lsd_hist"] = max(errs["lsd_hist"], err)
+        if err or int(got.long().sum()) != n:
+            fail(f"lsd_hist r={bits}: max |err| {err}")
+        bases = scan.scatter_bases(got)
+        gk, gi = ck.lsd_scatter(w, (w, idx32), 0, bits, tile, bases)
+        rk, ri = ck.lsd_scatter_plain(w, (w, idx32), 0, bits, tile, bases)
+        torch.cuda.synchronize()
+        err = max(max_err(gk, rk), max_err(gi, ri))
+        errs["lsd_scatter"] = max(errs["lsd_scatter"], err)
+        d = gk & ((1 << bits) - 1)
+        stable = bool(((d[1:] > d[:-1]) | ((d[1:] == d[:-1]) & (gi[1:] > gi[:-1]))).all())
+        if err or not stable:
+            fail(f"lsd_scatter r={bits}: max |err| {err}, stable {stable}")
+        lsd_inputs[bits] = (tile, bases)
+        del got, ref, gk, gi, rk, ri, d
+        print(f"[3 kernel] lsd_hist and lsd_scatter r={bits} tile={tile}: equal to plain "
+              "(max |err| 0), one stable pass", flush=True)
+    # K12: the records of equal key tuples must stay a permutation (R1)
+    for m in (1024, 4097, 131_072):
+        dup, iota = w[:m] & 15, idx32[:m]
+        for label, planes, nk in (("one key plane", (w[:m],), 1),
+                                  ("(hi, lo) keys", (hi64[:m], lo64[:m]), 2),
+                                  ("(key, index) keys + payload", (dup, iota, lo64[:m]), 2),
+                                  ("16 key values + payload, num_keys=1", (dup, iota), 1)):
+            got, ref = ck.bitonic(planes, nk), ck.bitonic_plain(planes, nk)
+            torch.cuda.synchronize()
+            err = max(max_err(a, b) for a, b in zip(got, ref))
+            errs["bitonic"] = max(errs["bitonic"], err)
+            ok = bool(probes.is_sorted_words(got[:nk]))
+            if nk == 1 and len(planes) == 2:    # the payload is the index
+                ok &= torch.equal(torch.sort(got[1]).values, iota)
+                ok &= torch.equal(dup[got[1].long()], got[0])
+            if err or not ok:
+                fail(f"bitonic n={m} {label}: max |err| {err}, sorted and permuted {ok}")
+            print(f"[3 kernel] bitonic n={m} {label}: equal to plain (max |err| 0), "
+                  f"sorted{', every record once' if len(planes) == 2 and nk == 1 else ''}",
+                  flush=True)
 
     # -- phase 4: the slice through the public entry points -----------------
     def u32_tensor(a):
@@ -359,6 +428,18 @@ def main() -> None:
     sorted_keys = np.sort(keys)
     sorted64 = np.sort(keys64)
     desc = rt.SortConfig(descending=True)
+    # the LSD slice: configurations, a byte field, bench.py's 4,096-key rows
+    lsd8 = rt.SortConfig(strategy=rt.Strategy.LSD)
+    lsd11 = lsd8.replace(radix_bits=11)
+    names6 = rng.integers(0, 256, size=(n, 6), dtype=np.uint8)
+    payload_b = dict(payload, name=torch.from_numpy(names6).to(dev))
+    n_rows = n // 4096
+    rows_u32 = keys[: n_rows * 4096].reshape(n_rows, 4096)
+    rows_dups = dups[: n_rows * 4096].reshape(n_rows, 4096)
+    rows_f32 = pay_f32[: n_rows * 4096].reshape(n_rows, 4096)
+    rows_f32_t = torch.from_numpy(rows_f32).to(dev)
+    m17 = 1 << 17
+    iota17 = torch.arange(m17, dtype=torch.int32, device=dev)
 
     # the range probe's and the dense tier's inputs
     probe = rt.SortConfig(device_probe=True)
@@ -543,6 +624,53 @@ def main() -> None:
          lambda: u32_tensor(keys & np.uint32(m10)).view(torch.int32),
          lambda x: counting_engine.sort_word_counting(x, m10, descending=True),
          bits_of(np.uint32), lambda: np.sort(keys & np.uint32(m10))[::-1]),
+        ("LSD u32 full entropy, r=8 (L1+L2; the slice's main path)",
+         lambda: u32_tensor(keys), lambda x: rt.sort(x, config=lsd8),
+         bits_of(np.uint32), lambda: sorted_keys),
+        ("LSD u32 full entropy, r=11 (L1+L2)", lambda: u32_tensor(keys),
+         lambda x: rt.sort(x, config=lsd11), bits_of(np.uint32), lambda: sorted_keys),
+        ("LSD u32 value_mask=0xF0F00000, 2 of 4 passes live (L1+L2)",
+         lambda: u32_tensor(keys & np.uint32(mask)),
+         lambda x: rt.sort(x, config=lsd8, value_mask=mask), bits_of(np.uint32),
+         lambda: np.sort(keys & np.uint32(mask))),
+        ("LSD u64 full entropy, 8 passes (L1+L2)", lambda: u64_tensor(keys64),
+         lambda x: rt.sort(x, config=lsd8), bits_of(np.uint64), lambda: sorted64),
+        ("LSD f32 +-0 +-inf NaN (L1+L2)",
+         lambda: torch.from_numpy(f32b.view(np.float32)).to(dev),
+         lambda x: rt.sort(x, config=lsd8), bits_of(np.uint32),
+         lambda: float_order_np(f32b, 32)),
+        ("LSD u16 descending (L1+L2)",
+         lambda: torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16),
+         lambda x: rt.sort(x, config=lsd8.replace(descending=True)), bits_of(np.uint16),
+         lambda: np.sort(u16)[::-1]),
+        ("LSD argsort u32 with duplicates (L1+L2, stable)", lambda: u32_tensor(dups),
+         lambda x: rt.argsort(x, config=lsd8), bits_of(np.uint32),
+         lambda: stable_perm(dups).astype(np.uint32)),
+        ("LSD sort_pairs u32 with duplicates, {i64, f32, 6-byte field} (L1+L2)",
+         lambda: u32_tensor(dups), lambda x: rt.sort_pairs(x, payload_b, config=lsd8),
+         lambda out: pairs_host(out) + (out[1]["name"].cpu().numpy(),),
+         lambda: pairs_oracle(dups) + (names6[stable_perm(dups)],)),
+        ("sort_planes_vmem 131,072 keys + index plane (K12)",
+         lambda: w[:m17].clone(), lambda x: sort_planes_vmem((x, iota17), 2),
+         lambda out: (gpu_bits(out[0], np.uint32), gpu_bits(out[1], np.uint32)),
+         lambda: (np.sort(keys[:m17]), stable_perm(keys[:m17]).astype(np.uint32))),
+        (f"sort_batched ({n_rows}, 4096) u32 rows (bench.py batched case)",
+         lambda: u32_tensor(rows_u32), rt.sort_batched, bits_of(np.uint32),
+         lambda: np.sort(rows_u32, axis=-1)),
+        (f"argsort_batched ({n_rows}, 4096) u32 rows with duplicates",
+         lambda: u32_tensor(rows_dups), rt.argsort_batched, bits_of(np.uint32),
+         lambda: np.argsort(rows_dups, axis=-1, kind="stable").astype(np.uint32)),
+        (f"sort_pairs_batched ({n_rows}, 4096) u32 rows with duplicates, f32 payload",
+         lambda: u32_tensor(rows_dups), lambda x: rt.sort_pairs_batched(x, rows_f32_t),
+         lambda out: (gpu_bits(out[0], np.uint32), out[1].cpu().numpy()),
+         lambda: (np.sort(rows_dups, axis=-1), np.take_along_axis(
+             rows_f32, np.argsort(rows_dups, axis=-1, kind="stable"), -1))),
+        ("models.RadixSorterU32 with LSD (L1+L2)", lambda: u32_tensor(keys),
+         rt.models.RadixSorterU32(lsd8), bits_of(np.uint32), lambda: sorted_keys),
+        ("models.GenericRadixSorter with LSD, f32 with specials (L1+L2)",
+         lambda: torch.from_numpy(f32b.view(np.float32)).to(dev),
+         rt.models.GenericRadixSorter(lsd8), bits_of(np.uint32),
+         lambda: float_order_np(f32b, 32)),
         ("bitmap_unique_sort u16 (K1)",
          lambda: torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16),
          rt.bitmap_unique_sort,
@@ -600,10 +728,24 @@ def main() -> None:
               for name, make, run, host, oracle in cases]
     torch.cuda.synchronize()
     rt.reset_launch_counts()
-    outputs = [run(x) for _, x, run, _, _ in inputs]
+    outputs, case_launches = [], []
+    for _, x, run, _, _ in inputs:
+        before = rt.launch_counts()
+        outputs.append(run(x))
+        case_launches.append({k: c - before[k] for k, c in rt.launch_counts().items()
+                              if c != before[k]})
     torch.cuda.synchronize()
     launches = rt.launch_counts()
-    for (name, x, run, host, oracle), out in zip(inputs, outputs):
+    # column skipping shows in the LSD cases' passes: one L1 and one L2 each
+    lsd_passes = {"LSD u32 full entropy, r=8": 4, "LSD u32 full entropy, r=11": 3,
+                  "LSD u32 value_mask=0xF0F00000": 2, "LSD u64 full entropy": 8}
+    for (name, *_), counts in zip(inputs, case_launches):
+        for prefix, want in lsd_passes.items():
+            if name.startswith(prefix) and not (
+                    counts.get("lsd_hist") == counts.get("lsd_scatter") == want):
+                fail(f"{name}: launches {counts}, {want} passes expected")
+    for (name, x, run, host, oracle), out, counts in zip(inputs, outputs, case_launches):
+        size = x.numel() if torch.is_tensor(x) else len(x)
         first = out[0] if isinstance(out, tuple) else out
         if torch.is_tensor(x) and (first.device != x.device or (
                 name not in other_shape and first.shape != x.shape)):
@@ -615,8 +757,8 @@ def main() -> None:
             bad = want(got)
             if bad:
                 fail(f"{name}: {bad}")
-            print(f"[4 sort] {name}: n={len(x)} within the bound of the numpy oracle",
-                  flush=True)
+            print(f"[4 sort] {name}: n={size} within the bound of the numpy oracle; "
+                  f"launches {counts}", flush=True)
             continue
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -626,7 +768,7 @@ def main() -> None:
             if not np.array_equal(g, wv):
                 bad = int(np.flatnonzero(g != wv)[0])
                 fail(f"{name}: differs from the numpy oracle first at {bad}")
-        print(f"[4 sort] {name}: n={len(x)} equal to the numpy oracle",
+        print(f"[4 sort] {name}: n={size} equal to the numpy oracle; launches {counts}",
               flush=True)
 
     # -- phase 5: the main path went through every kernel -------------------
@@ -639,7 +781,7 @@ def main() -> None:
     reps = 10
     for name, x, run, _, _ in inputs:
         ms = time_ms(lambda: run(x), reps)
-        m = len(x)
+        m = x.numel() if torch.is_tensor(x) else len(x)
         print(f"[6 time] {name}: {ms:.3f} ms, {m / ms / 1e3:.1f} Mkeys/s",
               flush=True)
     w64 = torch.from_numpy(keys64.view(np.int64)).to(dev)
@@ -657,11 +799,13 @@ def main() -> None:
 
     shapes = {name: [] for name in ck.LAUNCHES}
 
-    def row(name, bins, nbytes, kernel, plain, library=None, **extra):
+    def row(name, bins, nbytes, kernel, plain, library=None, ops=0, **extra):
         k, p, lib = turns3(kernel, plain, library)
+        by_ops = ops / OPS_PER_MS > bound_ms(nbytes)
         shapes[name].append({"bins": bins, **extra, "ms": k, "plain_ms": p,
                              "library_ms": lib, "bytes": nbytes,
-                             "bound_ms": bound_ms(nbytes)})
+                             "bound_ms": max(bound_ms(nbytes), ops / OPS_PER_MS),
+                             "bound_by": "operations" if by_ops else "bytes"})
 
     for mask in (0xF0F00000, 0xFFFF):
         bins = 1 << bin(mask).count("1")
@@ -736,14 +880,36 @@ def main() -> None:
                                 device=dev).index_add_(0, idx, weights),
             reads=max(1, bins * per_bin >> 17))
     del idx
+    # L1 beside torch.bincount of the precomputed tile-major digits; L2
+    # (keys and an index plane) has no one torch call
+    for bits, (tile, bases) in lsd_inputs.items():
+        bins, tiles = 1 << bits, -(-n // tile)
+        g = (torch.arange(n, device=dev) // tile) * bins + (w.long() & (bins - 1))
+        row("lsd_hist", bins, n * 4 + tiles * bins * 4,
+            lambda: ck.lsd_hist(w, 0, bits, tile), lambda: ck.lsd_hist_plain(w, 0, bits, tile),
+            lambda: torch.bincount(g, minlength=tiles * bins), tile=tile)
+        del g
+        row("lsd_scatter", bins, n * 16 + tiles * bins * 4,
+            lambda: ck.lsd_scatter(w, (w, idx32), 0, bits, tile, bases),
+            lambda: ck.lsd_scatter_plain(w, (w, idx32), 0, bits, tile, bases),
+            tile=tile, planes=2)
+    # K12, one key plane, beside torch.sort of the same packed key; its
+    # operations are the network's compare-exchanges
+    for m in (1 << 10, 1 << 14, 1 << 17):
+        km, log_m = w[:m].clone(), ck.bitonic_pad_len(m).bit_length() - 1
+        row("bitonic", m, m * 8, lambda: ck.bitonic((km,), 1),
+            lambda: ck.bitonic_plain((km,), 1), lambda: torch.sort(km ^ i32(1 << 31)),
+            ops=log_m * (log_m + 1) // 2 * (1 << (log_m - 1)), n=m)
     for name, rows in shapes.items():
         for r in rows:
-            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads")
+            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads",
+                                                     "tile", "planes")
                             if k in r)
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-            print(f"[6 time] {name} n={n} bins={r['bins']}{extra}: kernel "
+            print(f"[6 time] {name} n={r.get('n', n)} bins={r['bins']}{extra}: kernel "
                   f"{r['ms']:.4f} ms ({r['bytes'] / r['ms'] / 1e6:.0f} GB/s moved), "
-                  f"bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"plain {r['plain_ms']:.4f} ms, "
                   f"torch call {lib}", flush=True)
 
     # what the range probe costs where it finds a wide range
@@ -755,6 +921,24 @@ def main() -> None:
     print(f"[6 time] device_probe cost on full-entropy u32: default {default_ms:.3f} ms, "
           f"device_probe {probe_ms:.3f} ms ({100 * (probe_ms / default_ms - 1):+.1f}%)",
           flush=True)
+
+    # the LSD sort against torch.sort of the same int32 keys and the AUTO
+    # sort, in turns; bound: 12 bytes a key for each live pass
+    turns = {"AUTO": lambda: rt.sort(xf), "LSD r=8": lambda: rt.sort(xf, config=lsd8),
+             "LSD r=11": lambda: rt.sort(xf, config=lsd11),
+             "torch.sort int32": lambda: torch.sort(w)}
+    got_ms = {k: [] for k in turns}
+    for k in list(turns) + list(turns)[::-1]:
+        got_ms[k].append(time_ms(turns[k], reps))
+    mean = {k: sum(v) / len(v) for k, v in got_ms.items()}
+    print(f"[6 time] LSD sort of u32, in turns: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in mean.items())
+        + f"; bound r=8 {bound_ms(4 * 12 * n):.3f} ms (4 passes x 12 B/key), "
+        f"r=11 {bound_ms(3 * 12 * n):.3f} ms (3 passes)", flush=True)
+    rows_t = u32_tensor(rows_u32).view(torch.int32)
+    ms = time_ms(lambda: torch.sort(rows_t, dim=-1), reps)
+    print(f"[6 time] torch.sort(dim=-1) of ({n_rows}, 4096) int32 (reference point): "
+          f"{ms:.3f} ms; bound {bound_ms(n_rows * 4096 * 8):.3f} ms", flush=True)
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -794,11 +978,17 @@ def main() -> None:
         "whist": (f"{csrc}/whist.cu", f"{pk}:862"),
         "whist_f32": (f"{csrc}/whist.cu", f"{pk}:957"),
         "whist_f32_counts": (f"{csrc}/whist.cu", f"{pk}:957"),
+        "bitonic": (f"{csrc}/bitonic.cu", "radix_sorting_tpu/ops/vmem_sort.py:95"),
+        "lsd_hist": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/lsd_engine.py:63 "
+                     "(XLA, no Pallas kernel)"),
+        "lsd_scatter": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/lsd_engine.py:63 "
+                        "(XLA, no Pallas kernel)"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],
                 "ms": shapes[name][0]["ms"], "plain_ms": shapes[name][0]["plain_ms"],
-                "bound_ms": shapes[name][0]["bound_ms"], "bound_by": "bytes",
+                "bound_ms": shapes[name][0]["bound_ms"],
+                "bound_by": shapes[name][0]["bound_by"],
                 "library_ms": shapes[name][0]["library_ms"], "shapes": shapes[name]}
                for name, (src, rep) in replaces.items()]
     print(smi[0], flush=True)

@@ -6,11 +6,14 @@ tested against. So far it holds ``sort`` (with the ``dynamic_probe`` and
 ``device_probe`` routes), ``argsort`` / ``rank_sort``, ``sort_pairs``,
 ``counting_sort`` and ``sort_u64_multipass`` of 1-D keys of 8 to 64 bits,
 byte strings, float8 and int4/uint4, plus ``bitmap_unique_sort`` and
-``bincount``, and the group-by slice: ``group_reduce``, ``value_counts``,
-``unique_sorted``, ``histogram``, ``histogram_bin_edges`` and ``mode``. The
-kernels (K1 digit histogram, K2/K3 PEXT histogram, K4/K7 dense
-regeneration, K5/K6/K8/K9 PDEP regeneration, K10/K11 weighted histograms)
-are written in CUDA under ``csrc/``. A numpy input goes to the CUDA device
+``bincount``, the group-by slice (``group_reduce``, ``value_counts``,
+``unique_sorted``, ``histogram``, ``histogram_bin_edges`` and ``mode``), the
+batched sorts (``sort_batched``, ``argsort_batched``, ``sort_pairs_batched``),
+``Strategy.LSD``, ``ops.vmem_sort.sort_planes_vmem`` and the configured
+sorters of ``models``. The kernels (K1 digit histogram, K2/K3 PEXT
+histogram, K4/K7 dense regeneration, K5/K6/K8/K9 PDEP regeneration, K10/K11
+weighted histograms, K12 bitonic sort, L1/L2 the LSD radix passes) are
+written in CUDA under ``csrc/``. A numpy input goes to the CUDA device
 unless ``device=`` names another.
 
 Public API: the entry points above, ``SortConfig`` / ``Strategy``, the
@@ -18,9 +21,9 @@ kernel launch counters (``LAUNCHES``, ``launch_counts``,
 ``reset_launch_counts``) and the numpy codec (``as_tensor``, ``to_numpy``).
 """
 
-from . import stats
-from .api import (argsort, counting_sort, rank_sort, sort, sort_pairs,
-                  sort_u64_multipass)
+from . import models, stats
+from .api import (argsort, argsort_batched, counting_sort, rank_sort, sort,
+                  sort_batched, sort_pairs, sort_pairs_batched, sort_u64_multipass)
 from .config import DEFAULT_CONFIG, SortConfig, Strategy
 from .extras import bincount, group_reduce, unique_sorted, value_counts
 from .ops import cuda_kernels as _ck
@@ -35,6 +38,7 @@ reset_launch_counts = _ck.reset_launch_counts
 __all__ = ["sort", "argsort", "rank_sort", "sort_pairs", "counting_sort",
            "sort_u64_multipass", "bitmap_unique_sort", "bincount",
            "group_reduce", "value_counts", "unique_sorted", "histogram",
-           "histogram_bin_edges", "mode", "stats",
+           "histogram_bin_edges", "mode", "stats", "sort_batched",
+           "argsort_batched", "sort_pairs_batched", "models",
            "SortConfig", "Strategy", "DEFAULT_CONFIG", "LAUNCHES",
            "launch_counts", "reset_launch_counts", "as_tensor", "to_numpy"]

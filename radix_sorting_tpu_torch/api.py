@@ -19,8 +19,12 @@ dtype. Byte-string (``S<W>``) and int4/uint4 keys exist only as numpy input.
 read of what it measured (the JAX package's ``device_probe`` decides on the
 device with ``lax.cond``; eager PyTorch has no device-side branch).
 ``argsort``, ``rank_sort`` and ``sort_pairs`` accept both flags and ignore
-them. Not ported yet, and refused with NotImplementedError:
-``Strategy.LSD`` (see ROADMAP.md, port queue).
+them. ``Strategy.LSD`` runs the hand-written LSD radix engine
+(:mod:`.ops.lsd_engine`); AUTO and HW_SORT keep ``torch.sort``.
+
+The batched sorts (``sort_batched``, ``argsort_batched``,
+``sort_pairs_batched``) sort every 1-D slice along an axis with one
+``torch.sort(dim=-1)``, the stand-in for ``lax.sort`` along a dimension.
 """
 
 from __future__ import annotations
@@ -32,16 +36,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .config import DEFAULT_CONFIG, SortConfig, Strategy
-from .ops import counting_engine, hw_engine, kdf, probes
+from .ops import counting_engine, hw_engine, kdf, lsd_engine, probes
 
 __all__ = ["sort", "argsort", "rank_sort", "sort_pairs", "counting_sort",
-           "sort_u64_multipass"]
-
-
-def _refuse_unported(cfg: SortConfig) -> None:
-    if cfg.strategy == Strategy.LSD:
-        raise NotImplementedError(
-            "Strategy.LSD is not ported yet (ROADMAP.md, port queue item 2)")
+           "sort_u64_multipass", "sort_batched", "argsort_batched",
+           "sort_pairs_batched"]
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +277,6 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
     default).
     """
     cfg = config
-    _refuse_unported(cfg)
     words, dtype, from_numpy = _as_words(x, cfg.descending, device)
     _reject_bytes_mask(dtype, value_mask)
     n = int(words[0].shape[0])
@@ -288,6 +286,12 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
         _validate_value_mask(x, dtype, value_mask)
     sw = _sort_words(words, dtype, cfg, value_mask)
     return _decode(sw, dtype, cfg.descending, from_numpy)
+
+
+def _sort_lsd(words, payloads, cfg: SortConfig):
+    return lsd_engine.sort_words_lsd(words, payloads, radix_bits=cfg.radix_bits,
+                                     chunk=cfg.lsd_chunk,
+                                     skip_trivial=cfg.skip_trivial_digits)
 
 
 def _sort_words(words, dtype, cfg: SortConfig, value_mask: Optional[int] = None):
@@ -336,6 +340,11 @@ def _sort_words(words, dtype, cfg: SortConfig, value_mask: Optional[int] = None)
         # the descending complement flips bits in place, so the live-bit
         # positions are unchanged; decode restores order and values
         sw = counting_engine.sort_words_counting(words, mask)
+    elif strategy == Strategy.LSD:
+        # compaction pays here too: fewer words, fewer digit passes
+        sw, _ = _sort_lsd(_operands(words, cmasks), (), cfg)
+        if cmasks is not None:
+            sw = probes.expand_word_planes(sw[0], words, cmasks)
     else:
         # HW_SORT; keys-only, so the unstable sorter is exact. Masked 64-bit
         # keys with <= 32 live bits sort as one compacted operand.
@@ -360,7 +369,6 @@ def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,
     with <= 32 live bits rank with ONE compacted key operand.
     """
     cfg = config
-    _refuse_unported(cfg)
     words, dtype, from_numpy = _as_words(x, cfg.descending, device)
     _reject_bytes_mask(dtype, value_mask)
     n = int(words[0].shape[0])
@@ -373,6 +381,12 @@ def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,
             "Strategy.COUNTING is keys-only (regeneration rebuilds values "
             "from the histogram and cannot carry a permutation); use AUTO, "
             "LSD, or HW_SORT for argsort")
+    if n > 1 and cfg.strategy == Strategy.LSD:
+        # the index rides as the one payload plane (no compaction, as in
+        # the JAX package)
+        iota = torch.arange(n, dtype=torch.int32, device=words[0].device)
+        perm = _sort_lsd(words, (iota,), cfg)[1][0].to(idt)
+        return kdf.to_numpy(perm) if from_numpy else perm
     operands = _operands(words, _compaction_masks(words, value_mask, dtype, cfg))
     # the presorted guard (`radix_sort.hpp:60-62`): an ordered input's
     # stable permutation is the identity
@@ -399,7 +413,6 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
     the masked domain, so the stable payload order is unchanged).
     """
     cfg = config
-    _refuse_unported(cfg)
     words, dtype, from_numpy = _as_words(keys, cfg.descending, device)
     _reject_bytes_mask(dtype, value_mask)
     leaves, pmeta = _flatten_payload(values, words[0].device)
@@ -416,7 +429,9 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
             "or HW_SORT for sort_pairs")
     cmasks = _compaction_masks(words, value_mask, dtype, cfg)
     operands = _operands(words, cmasks)
-    if cfg.detect_presorted:
+    if cfg.strategy == Strategy.LSD:
+        sw, sp = _sort_lsd(operands, leaves, cfg)
+    elif cfg.detect_presorted:
         sw, sp = hw_engine.sort_words_presort_guard(operands, leaves)
     else:
         sw, sp = hw_engine.sort_words(operands, leaves)
@@ -466,3 +481,134 @@ def sort_u64_multipass(x, *, config: SortConfig = DEFAULT_CONFIG, device=None):
     (lo1,), (hi1,) = hw_engine.sort_words((lo,), (hi,))
     (hi2,), (lo2,) = hw_engine.sort_words((hi1,), (lo1,))
     return _decode((hi2, lo2), dtype, cfg.descending, from_numpy)
+
+
+# ---------------------------------------------------------------------------
+# batched (multi-row) sorts
+#
+# The reference is strictly 1-D. The JAX package sorts every slice along an
+# axis with one `lax.sort` along that dimension; here with one
+# `torch.sort(dim=-1)` of the slices' packed keys (:func:`.ops.hw_engine._key`),
+# a library sorter outside every kernel, as `lax.sort` is outside every
+# Pallas kernel.
+
+
+def _as_array(x):
+    return x if torch.is_tensor(x) else np.asarray(x)
+
+
+def _moveaxis_last(x, axis: int):
+    """(x with ``axis`` moved last, normalized axis), a tensor or numpy array."""
+    ndim = x.ndim
+    if not -ndim <= axis < ndim:
+        raise ValueError(f"axis {axis} out of bounds for {ndim}-D keys")
+    axis %= ndim
+    if axis == ndim - 1:
+        return x, axis
+    if torch.is_tensor(x):
+        return x.movedim(axis, -1).contiguous(), axis
+    return np.ascontiguousarray(np.moveaxis(x, axis, -1)), axis
+
+
+def _restore_axis(x, axis: int):
+    if axis == x.ndim - 1:
+        return x
+    return x.movedim(-1, axis) if torch.is_tensor(x) else np.moveaxis(x, -1, axis)
+
+
+def _single_batch(xm) -> bool:
+    """True when the batch is one row: it goes through the 1-D entry point,
+    so an input takes the same route in both packages."""
+    return int(np.prod(xm.shape[:-1])) == 1
+
+
+def _batch_key(xm, descending: bool, device):
+    """The keys of slices along the last axis as one signed sort key of
+    their shape: (key, number of planes, key dtype, from_numpy)."""
+    if torch.is_tensor(xm):
+        if device is not None and torch.device(device) != xm.device:
+            raise ValueError("device= places numpy input; a tensor is sorted "
+                             "on its own device")
+        t, dtype, from_numpy = xm, xm.dtype, False
+    else:
+        if kdf.is_bytes_dtype(xm.dtype):
+            raise ValueError(f"byte-string keys must be 1-D, got shape {xm.shape}")
+        t, dtype, from_numpy = kdf.as_tensor(xm, kdf.input_device(device)), xm.dtype, True
+    words = kdf.encode(t.reshape(-1), descending, dtype)
+    return hw_engine._key(words).view(xm.shape), len(words), dtype, from_numpy
+
+
+def _batch_decode(sorted_key, planes: int, dtype, descending: bool, from_numpy: bool):
+    words = hw_engine._unkey(sorted_key.reshape(-1), planes)
+    out = kdf.decode(words, dtype, descending).reshape(sorted_key.shape)
+    return kdf.to_numpy(out, dtype) if from_numpy else out
+
+
+def sort_batched(x, *, axis: int = -1, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Independently sort every 1-D slice of ``x`` along ``axis``.
+
+    Keys-only, any supported dtype but byte strings, ascending or descending
+    via ``config.descending``; one ``torch.sort`` over the whole batch.
+    """
+    xm, axis = _moveaxis_last(_as_array(x), axis)
+    if _single_batch(xm):
+        out = sort(xm.reshape(-1), config=config, device=device)
+        return _restore_axis(out.reshape(xm.shape), axis)
+    key, planes, dtype, from_numpy = _batch_key(xm, config.descending, device)
+    s = torch.sort(key, dim=-1).values
+    return _restore_axis(_batch_decode(s, planes, dtype, config.descending, from_numpy), axis)
+
+
+def argsort_batched(x, *, axis: int = -1, config: SortConfig = DEFAULT_CONFIG,
+                    index_dtype=torch.uint32, device=None):
+    """Stable argsort of every 1-D slice along ``axis``: per-slice indices
+    as ``index_dtype``, ties to the lower index (the index as the last key
+    of the JAX package; here a stable sort, the same permutation)."""
+    xm, axis = _moveaxis_last(_as_array(x), axis)
+    if _single_batch(xm):
+        out = argsort(xm.reshape(-1), config=config, index_dtype=index_dtype,
+                      device=device)
+        return _restore_axis(out.reshape(xm.shape), axis)
+    idt = _index_dtype(index_dtype)
+    _check_index_width(int(xm.shape[-1]), idt)
+    key, _, _, from_numpy = _batch_key(xm, config.descending, device)
+    perm = torch.sort(key, dim=-1, stable=True).indices.to(idt)
+    return _restore_axis(kdf.to_numpy(perm) if from_numpy else perm, axis)
+
+
+def sort_pairs_batched(keys, values, *, axis: int = -1,
+                       config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Stable batched record sort: keys and a payload pytree whose leaves
+    have the keys' shape (tensors, or numpy arrays, 64-bit ones included);
+    every leaf is permuted by its slice's stable key order."""
+    ka = _as_array(keys)
+    key_shape = tuple(ka.shape)
+    km, axis = _moveaxis_last(ka, axis)
+    dev = km.device if torch.is_tensor(km) else kdf.input_device(device)
+    leaves, treedef = pytree.tree_flatten(values)
+    moved = []
+    for leaf in leaves:
+        t = leaf if torch.is_tensor(leaf) else kdf.as_tensor(np.asarray(leaf), dev)
+        if tuple(t.shape) != key_shape or t.device != dev:
+            raise ValueError("payload leaves must match the keys' shape and device")
+        moved.append(_moveaxis_last(t, axis)[0])
+    numpy_leaf = [None if torch.is_tensor(leaf) else np.asarray(leaf).dtype
+                  for leaf in leaves]
+    if _single_batch(km):
+        # one row: the leaves' elements are already in the row's order
+        rows = [leaf.reshape(-1) if torch.is_tensor(leaf) else np.asarray(leaf).reshape(-1)
+                for leaf in leaves]
+        sk, sv = sort_pairs(km.reshape(-1), pytree.tree_unflatten(rows, treedef),
+                            config=config, device=device)
+        out = [_restore_axis(v.reshape(km.shape), axis) for v in pytree.tree_leaves(sv)]
+        return (_restore_axis(sk.reshape(km.shape), axis),
+                pytree.tree_unflatten(out, treedef))
+    key, planes, dtype, from_numpy = _batch_key(km, config.descending, device)
+    s = torch.sort(key, dim=-1, stable=True)
+    out = []
+    for m, d in zip(moved, numpy_leaf):
+        v = hw_engine.SIGNED_VIEW[m.element_size()]
+        p = torch.take_along_dim(m.view(v), s.indices, dim=-1).view(m.dtype)
+        out.append(_restore_axis(p if d is None else kdf.to_numpy(p, d), axis))
+    sorted_keys = _batch_decode(s.values, planes, dtype, config.descending, from_numpy)
+    return _restore_axis(sorted_keys, axis), pytree.tree_unflatten(out, treedef)

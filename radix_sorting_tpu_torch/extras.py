@@ -206,7 +206,6 @@ def _run_starts(words) -> torch.Tensor:
 
 def _sorted_words(xt: torch.Tensor, dtype, config: SortConfig):
     """The encoded planes of ``xt``, sorted as :func:`.api.sort` sorts them."""
-    api._refuse_unported(config)
     words = kdf.encode(xt, config.descending, dtype)
     return api._sort_words(words, dtype, config) if xt.shape[0] > 1 else words
 

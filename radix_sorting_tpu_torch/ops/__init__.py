@@ -7,5 +7,8 @@ from . import (  # noqa: F401
     histogram,
     hw_engine,
     kdf,
+    lsd_engine,
     probes,
+    scan,
+    vmem_sort,
 )

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
 _SIGNATURES = {
     # keys, n, offset, shift, bits, passes, drop_ge, hist, stream
     "rst_hist": (_P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
@@ -55,6 +56,14 @@ _SIGNATURES = {
     # keys, weights, n, bits, drop_ge, counts (null: none), sums, stream
     "rst_whist_f32": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, _P, _P,
                       _P),
+    # keys, n, shift, bits, tile, hist, stream
+    "rst_lsd_hist": (_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                     _P, _P),
+    # keys, in planes, out planes, planes, n, shift, bits, tile, bases, counters, stream
+    "rst_lsd_scatter": (_P, _PP, _PP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_longlong, _P, _P, _P),
+    # in planes, out planes, planes, keys, n, stream
+    "rst_bitonic": (_PP, _PP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P),
 }
 
 

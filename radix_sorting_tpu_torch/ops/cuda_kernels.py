@@ -1,5 +1,5 @@
-"""Hopper kernels of the counting and group-by tiers, their plain versions and
-launch counts.
+"""Hopper kernels of the counting, group-by and sort tiers, their plain
+versions and launch counts.
 
 The counterpart of ``radix_sorting_tpu.ops.pallas_kernels`` for the kernels
 ported so far. Each wrapper checks its inputs, then
@@ -28,6 +28,9 @@ regen_pdep2             csrc/regen.cu   K6 ``_regen_pdep2_kernel``
 whist                   csrc/whist.cu   K10 ``_whist_kernel``
 whist_f32               csrc/whist.cu   K11 ``_whist_f32_kernel`` (sums)
 (whist_f32_counts)      csrc/whist.cu   K11 ``_whist_f32_kernel`` (counts too)
+bitonic                 csrc/bitonic.cu K12 ``vmem_sort._bitonic_kernel``
+lsd_hist                csrc/lsd.cu     L1, no Pallas kernel (LSD pass)
+lsd_scatter             csrc/lsd.cu     L2, no Pallas kernel (LSD pass)
 ======================  ==============  =====================================
 
 One histogram kernel counts digits (K1) or the PEXT-compacted live bits of
@@ -35,11 +38,17 @@ one plane (K2) or two (K3), and one regeneration kernel writes dense values
 (K4, K7) or masked keys into one plane or two, and meets the <= 2^10-bin
 (K4, K5, K6) and the 2^11 to 2^17-bin (K7, K8, K9) contracts alike;
 launches are counted under the contract's name. One weighted histogram
-kernel sums integer values (K10) or f32 weights (K11) per key. The source
-notes in ``csrc/`` say what bounds each kernel on the card.
+kernel sums integer values (K10) or f32 weights (K11) per key. K12 sorts a
+few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
+sort (per-tile digit histograms, stable scatter); the JAX package's LSD
+engine is XLA with no Pallas kernel, so they replace none. The source notes
+in ``csrc/`` say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
 
 import torch
 
@@ -53,12 +62,15 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "hist_pext", "hist_pext_plain", "regen_pdep", "regen_pdep_plain",
            "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain",
            "whist", "whist_plain", "whist_f32", "whist_f32_plain", "low32",
-           "WHIST_MAX_BITS"]
+           "WHIST_MAX_BITS", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
+           "lsd_scatter_plain", "LSD_MAX_BITS", "bitonic", "bitonic_plain",
+           "bitonic_pad_len", "BITONIC_MIN_PAD"]
 
 LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
-            "whist": 0, "whist_f32": 0, "whist_f32_counts": 0}
+            "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
+            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
 HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bins
@@ -515,3 +527,203 @@ def whist_f32(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
             counts.data_ptr() if with_counts else None, sums.data_ptr())
     LAUNCHES["whist_f32_counts" if with_counts else "whist_f32"] += 1
     return (counts, sums) if with_counts else sums
+
+
+# ---------------------------------------------------------------------------
+# L1 / L2: one pass of the LSD radix sort (Strategy.LSD)
+
+LSD_MAX_BITS = 16        # SortConfig's widest digit
+_LSD_SHARED_MAX_BITS = 12  # csrc/lsd.cu: L2 counters in shared memory up to 2^12 bins
+_MAX_PLANES = 32         # planes one L2 or K12 launch takes (csrc/lsd.cu, bitonic.cu)
+
+
+def _check_lsd(name: str, w: torch.Tensor, shift: int, radix_bits: int, tile: int) -> None:
+    _check_plane(name, w)
+    if not 1 <= radix_bits <= LSD_MAX_BITS:
+        raise ValueError(f"{name}: radix_bits must be in [1, {LSD_MAX_BITS}]")
+    if not 0 <= shift < 32:
+        raise ValueError(f"{name}: the digit must start inside the 32-bit word")
+    if tile < 1:
+        raise ValueError(f"{name}: tile must be positive")
+
+
+def _tile_ids(n: int, tile: int, bins: int, digits: torch.Tensor) -> torch.Tensor:
+    """int64 ``tile_id * bins + digit`` of every key."""
+    tid = torch.arange(n, dtype=torch.int64, device=digits.device) // tile
+    return tid * bins + digits
+
+
+def lsd_hist_plain(w: torch.Tensor, shift: int, radix_bits: int,
+                   tile: int) -> torch.Tensor:
+    """``bincount(tile_id * bins + digit)`` as (tiles, bins) int32."""
+    _check_lsd("lsd_hist", w, shift, radix_bits, tile)
+    n, bins = w.shape[0], 1 << radix_bits
+    tiles = -(-n // tile)
+    g = _tile_ids(n, tile, bins, probes.shift_right(w, shift) & (bins - 1))
+    return torch.bincount(g, minlength=tiles * bins).view(tiles, bins).to(torch.int32)
+
+
+def lsd_hist(w: torch.Tensor, shift: int, radix_bits: int, tile: int) -> torch.Tensor:
+    """Per-tile histograms of the ``radix_bits``-bit digit at bit ``shift``
+    of the plane ``w``: (ceil(n / tile), 2^radix_bits) int32, tile t
+    counting keys [t * tile, (t + 1) * tile) (the last tile short)."""
+    _check_lsd("lsd_hist", w, shift, radix_bits, tile)
+    if not use_gpu_routes(w):
+        return lsd_hist_plain(w, shift, radix_bits, tile)
+    n = w.shape[0]
+    out = torch.empty((-(-n // tile), 1 << radix_bits), dtype=torch.int32, device=w.device)
+    if n == 0:
+        return out
+    _launch("rst_lsd_hist", w.device, w.data_ptr(), n, shift, radix_bits, tile,
+            out.data_ptr())
+    LAUNCHES["lsd_hist"] += 1
+    return out
+
+
+def _check_planes(name: str, planes: Sequence[torch.Tensor], n: int,
+                  device: torch.device) -> None:
+    for p in planes:
+        _check_plane(name, p)
+        if p.shape[0] != n or p.device != device:
+            raise ValueError(f"{name}: planes must match the keys in length and device")
+
+
+def _check_bases(w: torch.Tensor, bases: torch.Tensor, radix_bits: int, tile: int) -> None:
+    shape = (-(-w.shape[0] // tile), 1 << radix_bits)
+    if not torch.is_tensor(bases) or bases.dtype != torch.int32 \
+            or tuple(bases.shape) != shape or not bases.is_contiguous() \
+            or bases.device != w.device:
+        raise ValueError(f"lsd_scatter: bases must be a contiguous {shape} int32 "
+                         "tensor on the keys' device")
+
+
+def lsd_scatter_plain(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+                      radix_bits: int, tile: int, bases: torch.Tensor) -> tuple:
+    """Each key's rank among the earlier keys of its tile with its digit,
+    from a stable ``torch.sort`` of ``tile_id * bins + digit``; every plane
+    scattered to ``bases[tile, digit] + rank``."""
+    _check_lsd("lsd_scatter", w, shift, radix_bits, tile)
+    _check_planes("lsd_scatter", planes, w.shape[0], w.device)
+    _check_bases(w, bases, radix_bits, tile)
+    n, bins = w.shape[0], 1 << radix_bits
+    g = _tile_ids(n, tile, bins, probes.shift_right(w, shift) & (bins - 1))
+    order = torch.sort(g, stable=True).indices
+    counts = torch.bincount(g, minlength=bases.numel())
+    first = torch.cumsum(counts, 0) - counts      # each group's start in `order`
+    gs = g[order]
+    dest = torch.empty_like(order)
+    dest[order] = bases.reshape(-1).long()[gs] + torch.arange(n, device=w.device) - first[gs]
+    out = []
+    for p in planes:
+        o = torch.empty_like(p)
+        o[dest] = p
+        out.append(o)
+    return tuple(out)
+
+
+def _pointers(planes: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(planes))(*(p.data_ptr() for p in planes))
+
+
+def lsd_scatter(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+                radix_bits: int, tile: int, bases: torch.Tensor) -> tuple:
+    """One stable LSD scatter: key i of tile t, with digit d of ``w`` (the
+    ``radix_bits`` bits at ``shift``) and rank r among the earlier keys of
+    tile t with digit d, sends every plane's element i to ``bases[t, d] +
+    r``. ``bases`` (tiles, 2^radix_bits) int32, as ``scan.scatter_bases``
+    gives them. Returns the new planes."""
+    _check_lsd("lsd_scatter", w, shift, radix_bits, tile)
+    _check_planes("lsd_scatter", planes, w.shape[0], w.device)
+    _check_bases(w, bases, radix_bits, tile)
+    if not use_gpu_routes(w):
+        return lsd_scatter_plain(w, planes, shift, radix_bits, tile, bases)
+    n = w.shape[0]
+    out = tuple(torch.empty_like(p) for p in planes)
+    if n == 0:
+        return out
+    counters = torch.empty_like(bases) if radix_bits > _LSD_SHARED_MAX_BITS else None
+    for g in range(0, len(planes), _MAX_PLANES):
+        group = slice(g, g + _MAX_PLANES)
+        _launch("rst_lsd_scatter", w.device, w.data_ptr(), _pointers(planes[group]),
+                _pointers(out[group]), len(planes[group]), n, shift, radix_bits, tile,
+                bases.data_ptr(), None if counters is None else counters.data_ptr())
+        LAUNCHES["lsd_scatter"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K12: the bitonic network of sort_planes_vmem
+
+BITONIC_MIN_PAD = 1024   # the JAX package's VMEM_SORT_MIN_PAD
+
+
+def bitonic_pad_len(n: int) -> int:
+    """Size of the network for n keys: max(1024, the next power of two)."""
+    return max(BITONIC_MIN_PAD, 1 << max(0, (n - 1).bit_length()))
+
+
+def _check_bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> None:
+    if not planes:
+        raise ValueError("bitonic: no planes")
+    _check_planes("bitonic", planes, planes[0].shape[0], planes[0].device)
+    if not 1 <= num_keys <= len(planes):
+        raise ValueError(f"num_keys must be in [1, {len(planes)}]")
+
+
+def _exchange(xs, num_keys: int, lo: torch.Tensor, hi: torch.Tensor):
+    """Swap the records of each pair (lo, hi) whose key(lo) > key(hi)."""
+    a = [x[lo] for x in xs]
+    b = [x[hi] for x in xs]
+    gt = probes.word_lt(b[:num_keys], a[:num_keys])
+    out = []
+    for x, u, v in zip(xs, a, b):
+        x = x.clone()
+        x[lo] = torch.where(gt, v, u)
+        x[hi] = torch.where(gt, u, v)
+        out.append(x)
+    return out
+
+
+def bitonic_plain(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
+    """The network of csrc/bitonic.cu in torch, pair for pair: the planes
+    padded to :func:`bitonic_pad_len` (all-ones keys, zero payloads), then
+    for each size 2^k the mirror step (pairs (i, i ^ (2^k - 1))) and the
+    steps at strides 2^(k-2) .. 1, each pair swapped iff key(lo) > key(hi),
+    unsigned and lexicographic over the first ``num_keys`` planes."""
+    planes = tuple(planes)
+    _check_bitonic(planes, num_keys)
+    n = planes[0].shape[0]
+    if n == 0:
+        return tuple(p.clone() for p in planes)
+    size = bitonic_pad_len(n)
+    xs = [torch.cat([p, p.new_full((size - n,), -1 if i < num_keys else 0)])
+          for i, p in enumerate(planes)]
+    q = torch.arange(size // 2, dtype=torch.int64, device=planes[0].device)
+    for k in range(1, size.bit_length()):
+        block, off = (q >> (k - 1)) << k, q & ((1 << (k - 1)) - 1)
+        xs = _exchange(xs, num_keys, block + off, block + (1 << k) - 1 - off)
+        for j in range(k - 2, -1, -1):
+            lo = ((q >> j) << (j + 1)) | (q & ((1 << j) - 1))
+            xs = _exchange(xs, num_keys, lo, lo + (1 << j))
+    return tuple(x[:n] for x in xs)
+
+
+def bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
+    """K12: the planes sorted ascending, unsigned and lexicographic over the
+    first ``num_keys`` (most significant first), every plane moving with its
+    key; equal key tuples keep a permutation of their records (the network
+    of :func:`bitonic_plain`). At most 32 planes on the card."""
+    planes = tuple(planes)
+    _check_bitonic(planes, num_keys)
+    if not use_gpu_routes(planes[0]):
+        return bitonic_plain(planes, num_keys)
+    if len(planes) > _MAX_PLANES:
+        raise ValueError(f"bitonic: the kernel takes at most {_MAX_PLANES} planes")
+    n = planes[0].shape[0]
+    out = tuple(torch.empty_like(p) for p in planes)
+    if n == 0:
+        return out
+    _launch("rst_bitonic", planes[0].device, _pointers(planes), _pointers(out), len(planes),
+            num_keys, n)
+    LAUNCHES["bitonic"] += 1
+    return out

@@ -6,7 +6,8 @@ The PyTorch counterpart of ``radix_sorting_tpu.ops.histogram``
 one-hot compare-reduce because a TPU vector unit has no scatter; here
 ``torch.bincount`` is the plain form. ``multi_digit_histogram`` of one plane
 runs K1 (:func:`.cuda_kernels.hist_multi`) on every device, as the JAX
-package runs its Pallas kernel on its TPU route.
+package runs its Pallas kernel on its TPU route. ``chunked_digit_histogram``
+(the LSD engine's per-tile counts) runs L1 (:func:`.cuda_kernels.lsd_hist`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from . import cuda_kernels
 from .probes import shift_right
 
-__all__ = ["extract_digit", "digit_histogram", "multi_digit_histogram"]
+__all__ = ["extract_digit", "digit_histogram", "chunked_digit_histogram",
+           "multi_digit_histogram"]
 
 
 def extract_digit(words: Sequence[torch.Tensor], pass_index: int,
@@ -40,6 +42,19 @@ def digit_histogram(digits: torch.Tensor, bins: int) -> torch.Tensor:
     """(bins,) int32 histogram of non-negative digits; digits >= bins are
     dropped, as the JAX one-hot drops them."""
     return torch.bincount(digits, minlength=bins)[:bins].to(torch.int32)
+
+
+def chunked_digit_histogram(w: torch.Tensor, shift: int, radix_bits: int,
+                            tile: int) -> torch.Tensor:
+    """(tiles, 2^radix_bits) int32 histograms of the digit at bit ``shift``
+    of the plane ``w``, one row per tile of ``tile`` keys (the last tile
+    short): the tile-major counts whose scan gives the stable scatter bases.
+
+    The JAX package's form takes the digits and a chunk count that divides
+    n (its engine pads); here the kernel extracts the digit on its read and
+    needs no padding. Plain form ``bincount(tile_id * bins + digit)``.
+    """
+    return cuda_kernels.lsd_hist(w, shift, radix_bits, tile)
 
 
 def multi_digit_histogram(words: Sequence[torch.Tensor],

@@ -1,9 +1,10 @@
 """HW_SORT engine: sort by the derived key with the device's general sorter.
 
 The counterpart of ``radix_sorting_tpu.ops.hw_engine``, whose sorter is XLA's
-``lax.sort``, a library routine outside every Pallas kernel. Until the
-hand-written LSD radix sort lands (ROADMAP.md, port queue item 2), the port's
-stand-in for it is ``torch.sort``.
+``lax.sort``, a library routine outside every Pallas kernel. The port's
+stand-in for it is ``torch.sort``, until the hand-written LSD radix sort
+(:mod:`.lsd_engine`, ``Strategy.LSD``) beats it (ROADMAP.md, port queue
+item 2).
 
 ``torch.sort`` takes one key tensor (``lax.sort`` takes ``num_keys``), so
 multi-plane keys are sorted in one of two ways:

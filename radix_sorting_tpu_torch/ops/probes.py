@@ -25,6 +25,7 @@ __all__ = [
     "shift_right",
     "or_reduce",
     "live_bit_mask",
+    "live_digit_mask",
     "mask_runs",
     "compact_live_bits",
     "expand_live_bits",
@@ -87,6 +88,26 @@ def or_reduce(w: torch.Tensor) -> torch.Tensor:
 def live_bit_mask(words: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Per-plane mask of the bits that vary across the input (OR ^ AND)."""
     return tuple(or_reduce(w) ^ _fold(w, torch.bitwise_and) for w in words)
+
+
+def live_digit_mask(mask_words: Sequence, radix_bits: int) -> Tuple[bool, ...]:
+    """One flag per digit position, least significant first across the
+    words (the LSD pass order, `README.md:316-335`): True where the digit
+    varies. A False entry is a trivial pass, skipped like the reference's
+    column skip (`radix_sort.hpp:82-90`).
+
+    ``mask_words`` are :func:`live_bit_mask`'s planes (0-d tensors) or ints,
+    most significant first. Digits never cross a word: at ``radix_bits=11``
+    a word's top digit has 10 bits. The masks come to the host in one read.
+    """
+    if torch.is_tensor(mask_words[0]):
+        mask_words = torch.stack(tuple(mask_words)).tolist()
+    words = [int(m) & 0xFFFFFFFF for m in mask_words]
+    digits_per_word = -(-32 // radix_bits)
+    digit_mask = (1 << radix_bits) - 1
+    return tuple(bool((words[len(words) - 1 - d // digits_per_word]
+                       >> (d % digits_per_word * radix_bits)) & digit_mask)
+                 for d in range(digits_per_word * len(words)))
 
 
 def mask_runs(mask: int) -> List[Tuple[int, int, int]]:

@@ -523,3 +523,128 @@ def test_group_by_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
     counts = rt.launch_counts()
     assert counts["whist"] == 1 and counts["whist_f32_counts"] == 1
     assert counts["whist_f32"] == 1 and counts["hist"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the LSD passes: lsd_hist (L1), lsd_scatter (L2); K12 bitonic
+
+
+def _tile(bits):
+    from radix_sorting_tpu_torch.ops.lsd_engine import lsd_tile
+    return lsd_tile(8192, bits)
+
+
+@pytest.mark.parametrize("shift", [0, 21])
+@pytest.mark.parametrize("bits", [1, 8, 11, 12, 13, 15, 16])
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_lsd_hist_matches_plain(cuda, n, bits, shift):
+    w = rand_plane(n, n ^ bits, cuda)
+    before = ck.launch_counts()["lsd_hist"]
+    got = ck.lsd_hist(w, shift, bits, _tile(bits))
+    assert ck.launch_counts()["lsd_hist"] == before + 1
+    assert torch.equal(got, ck.lsd_hist_plain(w, shift, bits, _tile(bits)))
+
+
+def _bases(w, shift, bits, tile):
+    from radix_sorting_tpu_torch.ops.scan import scatter_bases
+    return scatter_bases(ck.lsd_hist_plain(w, shift, bits, tile))
+
+
+@pytest.mark.parametrize("planes", [1, 3, 33])
+@pytest.mark.parametrize("bits", [1, 8, 11, 12, 13, 16])
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_lsd_scatter_matches_plain(cuda, n, bits, planes):
+    w = rand_plane(n, n + bits, cuda)
+    w[::5] = w[1]                                  # ties inside every tile
+    extra = [rand_plane(n, p, cuda) for p in range(planes - 1)]
+    tile = _tile(bits)
+    bases = _bases(w, 3, bits, tile)
+    before = ck.launch_counts()["lsd_scatter"]
+    got = ck.lsd_scatter(w, [w] + extra, 3, bits, tile, bases)
+    assert ck.launch_counts()["lsd_scatter"] == before + -(-planes // 32)
+    want = ck.lsd_scatter_plain(w, [w] + extra, 3, bits, tile, bases)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_lsd_scatter_small_tiles_and_skew(cuda):
+    n = 2_000_003
+    w = rand_plane(n, 4, cuda, mask=0xFF)
+    w[: n * 9 // 10] = 0x55                        # 90% of the keys one digit
+    for tile in (256, 1000, 8192):
+        bases = _bases(w, 0, 8, tile)
+        assert torch.equal(ck.lsd_scatter(w, [w], 0, 8, tile, bases)[0],
+                           ck.lsd_scatter_plain(w, [w], 0, 8, tile, bases)[0])
+
+
+def _bitonic_planes(n, planes, keys, seed, device, distinct=16):
+    rng = np.random.Generator(np.random.PCG64(seed))
+    out = [rng.integers(0, distinct, size=n).astype(np.uint32) for _ in range(keys)]
+    out += [rng.integers(0, 1 << 32, size=n, dtype=np.uint32) for _ in range(planes - keys)]
+    return [torch.from_numpy(p.view(np.int32)).to(device) for p in out]
+
+
+@pytest.mark.parametrize("planes,keys", [(1, 1), (2, 2), (3, 2), (2, 1), (12, 3), (32, 1)])
+@pytest.mark.parametrize("n", [1, 5, 1024, 4097, 65_536, 131_072])
+def test_bitonic_matches_plain(cuda, n, planes, keys):
+    if n * planes > 131_072 * 12:
+        pytest.skip("past the gate's plane budget")
+    xs = _bitonic_planes(n, planes, keys, n + planes, cuda)
+    before = ck.launch_counts()["bitonic"]
+    got = ck.bitonic(xs, keys)
+    assert ck.launch_counts()["bitonic"] == before + 1
+    want = ck.bitonic_plain(xs, keys)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bitonic_at_the_plane_budget_edge(cuda):
+    from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem, vmem_sort_ok
+    n = 1 << 17
+    assert vmem_sort_ok(n, 12) and not vmem_sort_ok(n, 13)
+    xs = _bitonic_planes(n, 12, 2, 7, cuda, distinct=1 << 20)
+    got = sort_planes_vmem(xs, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.bitonic_plain(xs, 2)))
+    k = torch.stack([x.long() & 0xFFFFFFFF for x in got[:2]])
+    assert bool(((k[0, 1:] > k[0, :-1]) | ((k[0, 1:] == k[0, :-1])
+                                           & (k[1, 1:] >= k[1, :-1]))).all())
+
+
+def test_bitonic_refuses_more_than_32_planes_on_the_card(cuda):
+    xs = _bitonic_planes(100, 33, 1, 1, cuda)
+    with pytest.raises(ValueError, match="32"):
+        ck.bitonic(xs, 1)
+
+
+def test_lsd_and_bitonic_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
+    from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    for name in ("lsd_hist_plain", "lsd_scatter_plain", "bitonic_plain"):
+        monkeypatch.setattr(ck, name, boom)
+    rng = np.random.Generator(np.random.PCG64(12))
+    n = 1_000_003
+    x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+    t = torch.from_numpy(x.view(np.int32)).to(cuda).view(torch.uint32)
+    lsd = rt.SortConfig(strategy="lsd")
+    rt.reset_launch_counts()
+    assert np.array_equal(_u32(rt.sort(t, config=lsd)), np.sort(x))
+    assert rt.launch_counts()["lsd_hist"] == 4 and rt.launch_counts()["lsd_scatter"] == 4
+    dups = x & np.uint32(0xFF00)
+    td = torch.from_numpy(dups.view(np.int32)).to(cuda).view(torch.uint32)
+    perm = rt.argsort(td, config=lsd, index_dtype=torch.int64)
+    assert np.array_equal(perm.cpu().numpy(), np.argsort(dups, kind="stable"))
+    v = torch.arange(n, dtype=torch.int64, device=cuda)
+    sk, sv = rt.sort_pairs(td, {"v": v, "f": v.float()}, config=lsd.replace(radix_bits=11))
+    order = np.argsort(dups, kind="stable")
+    assert np.array_equal(sv["v"].cpu().numpy(), order)
+    assert np.array_equal(sv["f"].cpu().numpy(), order.astype(np.float32))
+    m = x & np.uint32(0xF0F00000)
+    tm = torch.from_numpy(m.view(np.int32)).to(cuda).view(torch.uint32)
+    rt.reset_launch_counts()
+    assert np.array_equal(_u32(rt.sort(tm, config=lsd, value_mask=0xF0F00000)), np.sort(m))
+    assert rt.launch_counts()["lsd_scatter"] == 2           # two live digits
+    k = torch.from_numpy(x[:4097].view(np.int32)).to(cuda)
+    rt.reset_launch_counts()
+    sk, si = sort_planes_vmem((k, torch.arange(4097, dtype=torch.int32, device=cuda)), 2)
+    assert np.array_equal(si.cpu().numpy(), np.argsort(x[:4097], kind="stable"))
+    assert rt.launch_counts()["bitonic"] == 1

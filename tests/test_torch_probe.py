@@ -196,9 +196,11 @@ def test_argsort_and_sort_pairs_ignore_the_probes(flag):
 
 
 def test_only_lsd_is_refused():
+    # nothing is refused any more: Strategy.LSD ignores the probe flags, as
+    # the JAX package's does, and sorts
     x = np.arange(8, dtype=np.uint32)
-    with pytest.raises(NotImplementedError, match="LSD"):
-        rt.sort(x, config=rt.SortConfig(strategy="lsd", device_probe=True), device="cpu")
+    assert np.array_equal(rt.sort(x[::-1].copy(), config=rt.SortConfig(
+        strategy="lsd", device_probe=True), device="cpu"), x)
     for flag in ("device_probe", "dynamic_probe"):
         assert np.array_equal(rt.sort(x[::-1].copy(), config=rt.SortConfig(**{flag: True}),
                                       device="cpu"), x)

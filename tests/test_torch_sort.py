@@ -123,14 +123,21 @@ def test_violated_mask_raises_like_jax():
     (lambda: rt.sort(np.array([b"b", b"a"]), device="cpu", value_mask=0xFF), ValueError),
     (lambda: rt.sort(np.zeros(4, dtype="S300"), device="cpu"), ValueError),
     (lambda: rt.sort(np.zeros((2, 2), dtype="S3"), device="cpu"), ValueError),
-    (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
-                     config=rt.SortConfig(strategy=rt.Strategy.LSD)), NotImplementedError),
-    (lambda: rt.argsort(np.arange(8, dtype=np.uint32), device="cpu",
-                        config=rt.SortConfig(strategy=rt.Strategy.LSD,
-                                             dynamic_probe=True)), NotImplementedError),
-    (lambda: rt.sort(np.arange(8, dtype=np.uint32), device="cpu",
-                     config=rt.SortConfig(strategy=rt.Strategy.LSD,
-                                          device_probe=True)), NotImplementedError),
+    # Strategy.LSD sorts now; these three cases (their ids kept) hold its
+    # entry points to the typed errors of the others
+    pytest.param(lambda: rt.sort(np.zeros((4, 4), np.uint32), device="cpu",
+                                 config=rt.SortConfig(strategy=rt.Strategy.LSD)),
+                 ValueError, id="<lambda>-NotImplementedError0"),
+    pytest.param(lambda: rt.argsort(np.arange(300, dtype=np.uint32), device="cpu",
+                                    index_dtype=np.uint8,
+                                    config=rt.SortConfig(strategy=rt.Strategy.LSD,
+                                                         dynamic_probe=True)),
+                 ValueError, id="<lambda>-NotImplementedError1"),
+    pytest.param(lambda: rt.sort_pairs(np.arange(8, dtype=np.uint32), np.arange(7),
+                                       device="cpu",
+                                       config=rt.SortConfig(strategy=rt.Strategy.LSD,
+                                                            device_probe=True)),
+                 ValueError, id="<lambda>-NotImplementedError2"),
     # numpy input with no device= goes to the card, and raises without one
     # (the case keeps its name; tests/test_torch_api.py::test_port_only_errors
     # covers a machine with a card)
