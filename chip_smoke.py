@@ -24,6 +24,11 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      bitonic (K12) at 1,024, 4,097 and 131,072 keys: one key plane, (hi, lo)
      keys, (key, index) keys with a payload, and 16 key values with a
      payload and num_keys=1, whose records must stay a permutation (R1);
+     sort_planes_vmem (K12) past 32 planes: (n, planes, num_keys) of (100,
+     33, 1), (1,024, 40, 34) and the gate's top plane count at 1,024 keys,
+     16 values in the first key plane and an index plane, whose records
+     must stay a permutation; dma_copy (E1) at 2^24 and 2^24 + 12,345
+     keys; msd_spread (E2) on the n keys as 128 sorted rows, 128 buckets;
   4. run each case through the public entry points on CUDA tensors (byte
      strings: numpy) and compare with a numpy oracle: sort of full-entropy
      u32 (sorter), presorted u32 (guard), masked u32, u8, u16, bf16 and f32
@@ -56,7 +61,13 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      keys as rows of 4,096 (bench.py's batched case; torch.sort); the
      configured sorters models.RadixSorterU32 and GenericRadixSorter with
      LSD; integers exact, f32 sums and means to the bound above; the launches
-     of each case are printed beside it;
+     of each case are printed beside it; then the measurement entry points:
+     cli.main for "40000000 u32", "40000000 u32 0xF0F00000", "20000000 u64
+     0x0000F0F000000000" and "40000000 f32" (each must print "verified":
+     true), utils.verify on the card's sort, argsort and LSD rank outputs
+     (and a broken permutation, which must fail), the probe script's
+     probe_dma (E1) and the MSD pipeline of exp_sol_round2 (E2) on the n
+     keys against np.sort;
   5. require every kernel's launch count from phase 4 to be non-zero;
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
@@ -66,7 +77,12 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      keys and the AUTO sort, in turns, with its byte bound (12 bytes a key
      for each live pass: L1 reads the plane, L2 reads and writes it); L1 and
      L2 per pass; K12 at 2^10, 2^14 and 2^17 keys beside torch.sort of the
-     same packed key; torch.sort(dim=-1) of the batched rows.
+     same packed key; torch.sort(dim=-1) of the batched rows; E1 beside
+     copy_ (8 bytes a key each) and beside utils.timing.stream_gbps (16 bytes
+     a key an iteration: two kernels) on the n keys, the evidence for R4; E2
+     beside its plain version; K12 at the gate's top plane count; the probe
+     script's stream, copy, sorter, gather and DMA figures; the MSD
+     pipeline's time in all and by stage.
   7. with --profile: device time by kernel (torch.profiler, three calls)
      of each case of the range probes, the dense tier, the group-by slice,
      the LSD sorts of u32 and u64, sort_planes_vmem and sort_batched.
@@ -80,6 +96,8 @@ Any failure raises, so the exit code is non-zero and no result is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import time
@@ -200,6 +218,10 @@ def main() -> None:
     from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem
     from radix_sorting_tpu_torch.ops.histogram import multi_digit_histogram
     from radix_sorting_tpu_torch.ops.kdf import i32
+    from radix_sorting_tpu_torch.ops.vmem_sort import vmem_sort_ok
+    from radix_sorting_tpu_torch import cli
+    from radix_sorting_tpu_torch.scripts import exp_sol_probe, exp_sol_round2
+    from radix_sorting_tpu_torch.utils import timing, verify
 
     t0 = time.perf_counter()
     path, log = _build.build()
@@ -387,6 +409,54 @@ def main() -> None:
             print(f"[3 kernel] bitonic n={m} {label}: equal to plain (max |err| 0), "
                   f"sorted{', every record once' if len(planes) == 2 and nk == 1 else ''}",
                   flush=True)
+    # K12 past 32 planes, up to the gate's top plane count (F1): 16 values in
+    # the first key plane, an index plane, random words elsewhere
+    top = max(p for p in range(1, 4096) if vmem_sort_ok(1024, p))
+    for m, nplanes, nk in ((100, 33, 1), (1024, 40, 34), (1024, top, 2)):
+        if not vmem_sort_ok(m, nplanes):
+            fail(f"sort_planes_vmem ({m}, {nplanes}): not admitted by the gate")
+        words = rng.integers(0, 1 << 32, size=(nplanes, m), dtype=np.uint32)
+        words[0] &= 15
+        words[nk] = np.arange(m)
+        planes = tuple(torch.from_numpy(words.view(np.int32)).to(dev).unbind(0))
+        got, ref = sort_planes_vmem(planes, nk), ck.bitonic_plain(planes, nk)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got, ref))
+        errs["bitonic"] = max(errs["bitonic"], err)
+        perm = got[nk].long()
+        ok = bool(probes.is_sorted_words(got[:nk])) and torch.equal(
+            torch.sort(perm).values, torch.arange(m, device=dev))
+        ok &= all(torch.equal(p[perm], g) for p, g in zip(planes, got))
+        if err or not ok:
+            fail(f"sort_planes_vmem ({m}, {nplanes}, {nk}): max |err| {err}, "
+                 f"sorted and permuted {ok}")
+        print(f"[3 kernel] sort_planes_vmem n={m} planes={nplanes} num_keys={nk}: equal "
+              "to plain (max |err| 0), sorted, every record once", flush=True)
+    top_planes = planes
+    # E1: the staged copy, a whole number of chunks and a ragged tail
+    for m in (1 << 24, (1 << 24) + 12_345):
+        got, ref = ck.dma_copy(w[:m]), ck.dma_copy_plain(w[:m])
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        errs["dma_copy"] = max(errs["dma_copy"], err)
+        if err or not torch.equal(got, w[:m]):
+            fail(f"dma_copy n={m}: max |err| {err}")
+        print(f"[3 kernel] dma_copy n={m}: equal to plain (max |err| 0)", flush=True)
+    # E2: the spread step on the keys as 128 sorted rows, 128 buckets
+    n_msd = n // 128 * 128
+    _, msd_shapes, msd = exp_sol_round2.build_msd(n_msd, 128, 128, 24)
+    xs = msd["row_sort"](w[:n_msd])
+    s128, xp = msd["spread_inputs"](xs, msd["starts"](xs))
+    spread_args = (s128, xp, msd_shapes["m"], msd_shapes["d"], 24)
+    got, ref = ck.msd_spread(*spread_args), ck.msd_spread_plain(*spread_args)
+    torch.cuda.synchronize()
+    errs["msd_spread"] = max_err(got, ref)
+    kept = int((got != -1).sum())
+    if errs["msd_spread"] or kept != n_msd - int((xs == -1).sum()):
+        fail(f"msd_spread: max |err| {errs['msd_spread']}, {kept} keys kept of {n_msd}")
+    print(f"[3 kernel] msd_spread R=K=128 capr=24 m={msd_shapes['m']} W={xp.shape[1]}: "
+          f"equal to plain (max |err| 0), {kept} keys kept", flush=True)
+    del got, ref, xs
 
     # -- phase 4: the slice through the public entry points -----------------
     def u32_tensor(a):
@@ -734,6 +804,59 @@ def main() -> None:
         outputs.append(run(x))
         case_launches.append({k: c - before[k] for k, c in rt.launch_counts().items()
                               if c != before[k]})
+    # the measurement entry points: the CLI, the oracles on the card's
+    # outputs, the probe script's E1 and the MSD pipeline's E2
+    def entry(run):
+        """run()'s result and the launches it made."""
+        before = rt.launch_counts()
+        result = run()
+        counts = {k: c - before[k] for k, c in rt.launch_counts().items() if c != before[k]}
+        return result, counts
+
+    for argv in (["40000000", "u32"], ["40000000", "u32", "0xF0F00000"],
+                 ["20000000", "u64", "0x0000F0F000000000"], ["40000000", "f32"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, counts = entry(lambda: cli.main(argv))
+        lines = buf.getvalue().strip().splitlines()
+        rec = json.loads(lines[-1])
+        if rc != 0 or rec["verified"] is not True:
+            fail(f"cli {' '.join(argv)}: exit {rc}, {lines}")
+        print(f"[4 entry] cli {' '.join(argv)}: {' | '.join(lines)}; launches {counts}",
+              flush=True)
+    by_name = {name: out for (name, *_), out in zip(inputs, outputs)}
+    dups_t = u32_tensor(dups)
+    perm = by_name["argsort u32 with duplicates"]
+    lsd_perm = by_name["LSD argsort u32 with duplicates (L1+L2, stable)"]
+    swapped = perm.view(torch.int32).clone()
+    swapped[[0, 1]] = swapped[[1, 0]]
+    doubled = perm.view(torch.int32).clone()
+    doubled[1] = doubled[0]
+    oracle_checks = (
+        ("is_sorted(sort)", lambda: verify.is_sorted(by_name["u32 full entropy (sorter)"]), True),
+        ("same_multiset(sort, keys)",
+         lambda: verify.same_multiset(by_name["u32 full entropy (sorter)"], keys), True),
+        ("is_sorted(keys)", lambda: verify.is_sorted(u32_tensor(keys)), False),
+        ("is_permutation(argsort)", lambda: verify.is_permutation(perm), True),
+        ("is_permutation(one index twice)", lambda: verify.is_permutation(doubled), False),
+        ("rank_is_stable_sort(argsort)", lambda: verify.rank_is_stable_sort(dups_t, perm), True),
+        ("rank_is_stable_sort(LSD argsort)",
+         lambda: verify.rank_is_stable_sort(dups_t, lsd_perm), True),
+        ("rank_is_stable_sort(two indices swapped)",
+         lambda: verify.rank_is_stable_sort(dups_t, swapped), False))
+    for label, check, want in oracle_checks:
+        if check() is not want:
+            fail(f"utils.verify {label}: not {want}")
+    print(f"[4 entry] utils.verify on the card: " + ", ".join(
+        f"{label} {want}" for label, _, want in oracle_checks), flush=True)
+    gbps, counts = entry(lambda: exp_sol_probe.probe_dma(dev))
+    print(f"[4 entry] exp_sol_probe.probe_dma (E1) 2^24 keys: {gbps:.1f} GB/s; "
+          f"launches {counts}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, counts = entry(lambda: exp_sol_round2.check_msd(keys[:n_msd], dev))
+    print(f"[4 entry] exp_sol_round2.check_msd (E2) {n_msd} keys: "
+          f"{buf.getvalue().strip()}; equal to np.sort; launches {counts}", flush=True)
     torch.cuda.synchronize()
     launches = rt.launch_counts()
     # column skipping shows in the LSD cases' passes: one L1 and one L2 each
@@ -900,13 +1023,26 @@ def main() -> None:
         row("bitonic", m, m * 8, lambda: ck.bitonic((km,), 1),
             lambda: ck.bitonic_plain((km,), 1), lambda: torch.sort(km ^ i32(1 << 31)),
             ops=log_m * (log_m + 1) // 2 * (1 << (log_m - 1)), n=m)
+    # K12 at the gate's top plane count (two key planes); no one torch call
+    row("bitonic", 1024, 1024 * 4 * len(top_planes) * 2, lambda: ck.bitonic(top_planes, 2),
+        lambda: ck.bitonic_plain(top_planes, 2), ops=55 * 512, n=1024, planes=len(top_planes))
+    # E1 at the probe's 2^24 keys beside copy_; E2 beside its plain version
+    # (the bound: xp read once, the cells written once; no one torch call)
+    xd = w[: 1 << 24]
+    copy_buf = torch.empty_like(xd)
+    row("dma_copy", None, xd.numel() * 8, lambda: ck.dma_copy(xd),
+        lambda: ck.dma_copy_plain(xd), lambda: copy_buf.copy_(xd), n=xd.numel())
+    row("msd_spread", 128, xp.numel() * 4 + 128 * 128 * 24 * 128 * 4,
+        lambda: ck.msd_spread(*spread_args), lambda: ck.msd_spread_plain(*spread_args),
+        n=n_msd, capr=24)
     for name, rows in shapes.items():
         for r in rows:
             extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads",
-                                                     "tile", "planes")
+                                                     "tile", "planes", "capr")
                             if k in r)
+            bins = "" if r["bins"] is None else f" bins={r['bins']}"
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-            print(f"[6 time] {name} n={r.get('n', n)} bins={r['bins']}{extra}: kernel "
+            print(f"[6 time] {name} n={r.get('n', n)}{bins}{extra}: kernel "
                   f"{r['ms']:.4f} ms ({r['bytes'] / r['ms'] / 1e6:.0f} GB/s moved), "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                   f"plain {r['plain_ms']:.4f} ms, "
@@ -935,6 +1071,30 @@ def main() -> None:
         f"{k} {v:.3f} ms" for k, v in mean.items())
         + f"; bound r=8 {bound_ms(4 * 12 * n):.3f} ms (4 passes x 12 B/key), "
         f"r=11 {bound_ms(3 * 12 * n):.3f} ms (3 passes)", flush=True)
+    # R4: what the stream's traffic model counts, beside E1 and copy_ on the
+    # same n keys, E1 and copy_ in turns
+    out_buf = torch.empty_like(w)
+    e1, c1, c2, e2 = (time_ms(f, reps) for f in (
+        lambda: ck.dma_copy(w), lambda: out_buf.copy_(w),
+        lambda: out_buf.copy_(w), lambda: ck.dma_copy(w)))
+    e1_ms, copy_ms = (e1 + e2) / 2, (c1 + c2) / 2
+    stream = timing.stream_gbps(x=w)
+    per_key = timing.stream_bytes_per_iter(n) // n
+    print(f"[6 time] R4 at n={n}: dma_copy (E1) {e1_ms:.4f} ms, {8 * n / e1_ms / 1e6:.1f} "
+          f"GB/s (8 B/key); copy_ {copy_ms:.4f} ms, {8 * n / copy_ms / 1e6:.1f} GB/s (8 "
+          f"B/key); stream_gbps {stream:.1f} GB/s counting {per_key} B/key an iteration "
+          f"({timing.STREAM_PASSES} kernels), {stream * 8 / per_key:.1f} GB/s if one pass "
+          "of 8 B/key is counted", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sol = exp_sol_probe.main([])
+    print(f"[6 time] exp_sol_probe: {json.dumps(sol)}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        msd_rec = exp_sol_round2.exp_msd(keys[:n_msd], dev)
+    print(f"[6 time] exp_sol_round2 msd pipeline, {n_msd} keys: total "
+          f"{msd_rec['ms']:.3f} ms; stages " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in msd_rec["stages"].items()), flush=True)
     rows_t = u32_tensor(rows_u32).view(torch.int32)
     ms = time_ms(lambda: torch.sort(rows_t, dim=-1), reps)
     print(f"[6 time] torch.sort(dim=-1) of ({n_rows}, 4096) int32 (reference point): "
@@ -983,6 +1143,8 @@ def main() -> None:
                      "(XLA, no Pallas kernel)"),
         "lsd_scatter": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/lsd_engine.py:63 "
                         "(XLA, no Pallas kernel)"),
+        "dma_copy": (f"{csrc}/sol.cu", "scripts/exp_sol_probe.py:117"),
+        "msd_spread": (f"{csrc}/sol.cu", "scripts/exp_sol_round2.py:128"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],

@@ -3,11 +3,16 @@
 // Replaces radix_sorting_tpu/ops/vmem_sort.py::_bitonic_kernel (K12,
 // sort_planes_vmem): the whole network inside one Pallas invocation, every
 // plane resident in VMEM, partners fetched with lane and row rolls.
-// Contract: planes (n,) u32 (int32 carriers), at most 32 of them; the first
-// `keys` are compared lexicographically as unsigned words, most significant
-// first, and every plane moves with its key. The network is that of
-// N = max(1024, next power of two >= n) elements, the elements from n on being
-// all-ones keys (the JAX package's padding):
+// Contract: P planes of n u32 keys (int32 carriers) in one plane-major (P, n)
+// array, for any P whose tile of two keys fits a block's shared memory (the
+// wrapper stacks the planes; the JAX package's gate admits up to 1,536 planes
+// at 1,024 keys, and the kernel takes them in one launch with no table of
+// plane pointers; two or more payload planes reach it as one index plane,
+// the wrapper gathering them after the network); the first `keys` are
+// compared lexicographically as unsigned words, most significant first, and
+// every plane moves with its key.
+// The network is that of N = max(1024, next power of two >= n) elements, the
+// elements from n on being all-ones keys (the JAX package's padding):
 //   for k = 1 .. log2(N), size = 2^k:
 //     one step of pairs (i, i ^ (size - 1)) within each block of `size`
 //     (the block's mirror), then steps of pairs (i, i + s), i & s == 0, for
@@ -24,9 +29,9 @@
 // Bound on the H100: each plane read once and written once. A padded plane
 // of 2^17 keys is 512 KB, more than a block's shared memory, so:
 //   * tiles of T keys (the largest power of two with planes * T * 4 bytes
-//     <= 64 KB, at most N, and cut down to 1,024 keys while there are fewer
-//     than 32 tiles: one SM alone runs a tile, at the pace of its shared
-//     memory) run every step whose pairs lie inside a tile in
+//     <= 64 KB, at least 2, at most N, and cut down to 1,024 keys while there
+//     are fewer than 32 tiles: one SM alone runs a tile, at the pace of its
+//     shared memory) run every step whose pairs lie inside a tile in
 //     shared memory, one block per tile, all planes resident: all of the
 //     sizes up to T in the first launch (reading the input, writing the
 //     output), then, for each larger size, the steps of s < T in one launch
@@ -43,15 +48,10 @@
 
 namespace {
 
-constexpr int kMaxPlanes = 32;
 constexpr int kTileBytes = 64 * 1024;
+constexpr int kMaxSharedBytes = 227 * 1024;   // a block's shared memory on the H100
 constexpr int kStepThreads = 256;
 constexpr int kMinTiles = 32;
-
-struct Planes {
-  const uint32_t* in[kMaxPlanes];
-  uint32_t* out[kMaxPlanes];
-};
 
 // key(a) > key(b) over the first `keys` planes of a plane-major array with
 // `stride` elements between planes
@@ -101,16 +101,17 @@ __device__ void tile_strides(uint32_t* s, int T, int valid, int nplanes, int key
   }
 }
 
-// One block per tile of T = 2^log_t keys. full: every size up to T; else the
-// steps of strides T / 2 .. 1 (the tail of a larger size's merge).
-__global__ void bitonic_tile_kernel(Planes planes, int nplanes, int keys, long long n,
-                                    int log_t, bool full) {
+// One block per tile of T = 2^log_t keys of the (nplanes, n) arrays. full:
+// every size up to T; else the steps of strides T / 2 .. 1 (the tail of a
+// larger size's merge). `in` may be `out`: a block reads and writes its tile.
+__global__ void bitonic_tile_kernel(const uint32_t* in, uint32_t* out, int nplanes, int keys,
+                                    long long n, int log_t, bool full) {
   extern __shared__ uint32_t s[];
   const int T = 1 << log_t;
   const long long base = static_cast<long long>(blockIdx.x) * T;
   const int valid = static_cast<int>(min(static_cast<long long>(T), n - base));
   for (int p = 0; p < nplanes; ++p) {
-    for (int i = threadIdx.x; i < valid; i += blockDim.x) s[p * T + i] = planes.in[p][base + i];
+    for (int i = threadIdx.x; i < valid; i += blockDim.x) s[p * T + i] = in[p * n + base + i];
   }
   __syncthreads();
   if (full) {
@@ -127,14 +128,14 @@ __global__ void bitonic_tile_kernel(Planes planes, int nplanes, int keys, long l
     tile_strides(s, T, valid, nplanes, keys, log_t - 1);
   }
   for (int p = 0; p < nplanes; ++p) {
-    for (int i = threadIdx.x; i < valid; i += blockDim.x) planes.out[p][base + i] = s[p * T + i];
+    for (int i = threadIdx.x; i < valid; i += blockDim.x) out[p * n + base + i] = s[p * T + i];
   }
 }
 
-// One step through device memory on the output planes: the mirror step of
-// size 2^k (mirror) or the step at stride 2^k.
+// One step through device memory on the (nplanes, n) output in place: the
+// mirror step of size 2^k (mirror) or the step at stride 2^k.
 __global__ void __launch_bounds__(kStepThreads)
-bitonic_step_kernel(Planes planes, int nplanes, int keys, long long n, long long pairs, int k,
+bitonic_step_kernel(uint32_t* x, int nplanes, int keys, long long n, long long pairs, int k,
                     bool mirror) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -145,55 +146,35 @@ bitonic_step_kernel(Planes planes, int nplanes, int keys, long long n, long long
     } else {
       stride_pair(q, k, &lo, &hi);
     }
-    if (hi >= n) continue;
-    bool gt = false;
-    for (int p = 0; p < keys; ++p) {
-      const uint32_t u = planes.out[p][lo], v = planes.out[p][hi];
-      if (u != v) {
-        gt = u > v;
-        break;
-      }
-    }
-    if (!gt) continue;
-    for (int p = 0; p < nplanes; ++p) {
-      const uint32_t t = planes.out[p][lo];
-      planes.out[p][lo] = planes.out[p][hi];
-      planes.out[p][hi] = t;
-    }
+    if (hi < n) exchange(x, n, nplanes, keys, lo, hi);
   }
 }
 
 }  // namespace
 
-// K12: sort `nplanes` planes of n keys by the first `keys`, from `in` into
-// `out` (separate buffers).
-extern "C" int rst_bitonic(const void* const* in, void* const* out, int nplanes, int keys,
-                           long long n, void* stream) {
+// K12: sort the (nplanes, n) planes `in` by the first `keys` into `out` (a
+// separate buffer).
+extern "C" int rst_bitonic(const void* in, void* out, int nplanes, int keys, long long n,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nplanes < 1 || nplanes > kMaxPlanes || keys < 1 || keys > nplanes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (nplanes < 1 || keys < 1 || keys > nplanes) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   int log_n = 10;  // N >= 1024, as the JAX package pads
   while ((1LL << log_n) < n) ++log_n;
   int log_t = log_n;
   while (log_t > 1 && (static_cast<long long>(nplanes) * 4) << log_t > kTileBytes) --log_t;
   while (log_t > 10 && (1LL << (log_n - log_t)) < kMinTiles) --log_t;
-  Planes p{};
-  for (int i = 0; i < nplanes; ++i) {
-    p.in[i] = static_cast<const uint32_t*>(in[i]);
-    p.out[i] = static_cast<uint32_t*>(out[i]);
-  }
-  Planes inplace = p;
-  for (int i = 0; i < nplanes; ++i) inplace.in[i] = inplace.out[i];
   const int T = 1 << log_t;
-  const int smem = nplanes * T * static_cast<int>(sizeof(uint32_t));
+  if (4LL * nplanes * T > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 4 * nplanes * T;
   const int threads = std::min(1024, T / 2);
   const unsigned tiles = static_cast<unsigned>((n + T - 1) / T);
+  const uint32_t* src = static_cast<const uint32_t*>(in);
+  uint32_t* dst = static_cast<uint32_t*>(out);
   cudaError_t err = cudaFuncSetAttribute(bitonic_tile_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bitonic_tile_kernel<<<tiles, threads, smem, st>>>(p, nplanes, keys, n, log_t, true);
+  bitonic_tile_kernel<<<tiles, threads, smem, st>>>(src, dst, nplanes, keys, n, log_t, true);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
@@ -204,11 +185,11 @@ extern "C" int rst_bitonic(const void* const* in, void* const* out, int nplanes,
   const unsigned grid = static_cast<unsigned>(
       std::max(1LL, std::min((pairs + kStepThreads - 1) / kStepThreads, 8LL * sms)));
   for (int k = log_t + 1; k <= log_n; ++k) {
-    bitonic_step_kernel<<<grid, kStepThreads, 0, st>>>(p, nplanes, keys, n, pairs, k, true);
+    bitonic_step_kernel<<<grid, kStepThreads, 0, st>>>(dst, nplanes, keys, n, pairs, k, true);
     for (int j = k - 2; j >= log_t; --j) {
-      bitonic_step_kernel<<<grid, kStepThreads, 0, st>>>(p, nplanes, keys, n, pairs, j, false);
+      bitonic_step_kernel<<<grid, kStepThreads, 0, st>>>(dst, nplanes, keys, n, pairs, j, false);
     }
-    bitonic_tile_kernel<<<tiles, threads, smem, st>>>(inplace, nplanes, keys, n, log_t, false);
+    bitonic_tile_kernel<<<tiles, threads, smem, st>>>(dst, dst, nplanes, keys, n, log_t, false);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

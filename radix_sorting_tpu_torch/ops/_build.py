@@ -62,8 +62,13 @@ _SIGNATURES = {
     # keys, in planes, out planes, planes, n, shift, bits, tile, bases, counters, stream
     "rst_lsd_scatter": (_P, _PP, _PP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_longlong, _P, _P, _P),
-    # in planes, out planes, planes, keys, n, stream
-    "rst_bitonic": (_PP, _PP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P),
+    # (planes, n) in, (planes, n) out, planes, keys, n, stream
+    "rst_bitonic": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P),
+    # in, out, n, stream
+    "rst_dma_copy": (_P, _P, ctypes.c_longlong, _P),
+    # s128, xp, out, R, K, W, m, d, capr, stream
+    "rst_msd_spread": (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P),
 }
 
 

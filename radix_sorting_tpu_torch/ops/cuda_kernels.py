@@ -31,6 +31,8 @@ whist_f32               csrc/whist.cu   K11 ``_whist_f32_kernel`` (sums)
 bitonic                 csrc/bitonic.cu K12 ``vmem_sort._bitonic_kernel``
 lsd_hist                csrc/lsd.cu     L1, no Pallas kernel (LSD pass)
 lsd_scatter             csrc/lsd.cu     L2, no Pallas kernel (LSD pass)
+dma_copy                csrc/sol.cu     E1 ``scripts/exp_sol_probe.py``
+msd_spread              csrc/sol.cu     E2 ``scripts/exp_sol_round2.py``
 ======================  ==============  =====================================
 
 One histogram kernel counts digits (K1) or the PEXT-compacted live bits of
@@ -41,8 +43,10 @@ launches are counted under the contract's name. One weighted histogram
 kernel sums integer values (K10) or f32 weights (K11) per key. K12 sorts a
 few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
 sort (per-tile digit histograms, stable scatter); the JAX package's LSD
-engine is XLA with no Pallas kernel, so they replace none. The source notes
-in ``csrc/`` say what bounds each kernel on the card.
+engine is XLA with no Pallas kernel, so they replace none. E1 and E2 are
+the kernels of the speed-of-light scripts (:mod:`..scripts`): a staged
+device-memory copy and the spread step of the two-level MSD sort. The source
+notes in ``csrc/`` say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
@@ -64,13 +68,15 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "whist", "whist_plain", "whist_f32", "whist_f32_plain", "low32",
            "WHIST_MAX_BITS", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
            "lsd_scatter_plain", "LSD_MAX_BITS", "bitonic", "bitonic_plain",
-           "bitonic_pad_len", "BITONIC_MIN_PAD"]
+           "bitonic_pad_len", "BITONIC_MIN_PAD", "dma_copy", "dma_copy_plain",
+           "msd_spread", "msd_spread_plain"]
 
 LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
             "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
-            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0}
+            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0,
+            "dma_copy": 0, "msd_spread": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
 HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bins
@@ -534,7 +540,7 @@ def whist_f32(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
 
 LSD_MAX_BITS = 16        # SortConfig's widest digit
 _LSD_SHARED_MAX_BITS = 12  # csrc/lsd.cu: L2 counters in shared memory up to 2^12 bins
-_MAX_PLANES = 32         # planes one L2 or K12 launch takes (csrc/lsd.cu, bitonic.cu)
+_MAX_PLANES = 32         # planes one L2 launch takes (csrc/lsd.cu)
 
 
 def _check_lsd(name: str, w: torch.Tensor, shift: int, radix_bits: int, tile: int) -> None:
@@ -670,60 +676,149 @@ def _check_bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> None:
         raise ValueError(f"num_keys must be in [1, {len(planes)}]")
 
 
-def _exchange(xs, num_keys: int, lo: torch.Tensor, hi: torch.Tensor):
-    """Swap the records of each pair (lo, hi) whose key(lo) > key(hi)."""
-    a = [x[lo] for x in xs]
-    b = [x[hi] for x in xs]
-    gt = probes.word_lt(b[:num_keys], a[:num_keys])
-    out = []
-    for x, u, v in zip(xs, a, b):
-        x = x.clone()
-        x[lo] = torch.where(gt, v, u)
-        x[hi] = torch.where(gt, u, v)
-        out.append(x)
-    return out
+def _exchange(x: torch.Tensor, num_keys: int, lo: torch.Tensor, hi: torch.Tensor) -> None:
+    """Swap, in place, the records (columns of the stacked planes ``x``) of
+    each pair (lo, hi) whose key(lo) > key(hi)."""
+    a, b = x[:, lo], x[:, hi]
+    gt = probes.word_lt(b[:num_keys].unbind(0), a[:num_keys].unbind(0))
+    x[:, lo] = torch.where(gt, b, a)
+    x[:, hi] = torch.where(gt, a, b)
 
 
 def bitonic_plain(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
     """The network of csrc/bitonic.cu in torch, pair for pair: the planes
-    padded to :func:`bitonic_pad_len` (all-ones keys, zero payloads), then
-    for each size 2^k the mirror step (pairs (i, i ^ (2^k - 1))) and the
-    steps at strides 2^(k-2) .. 1, each pair swapped iff key(lo) > key(hi),
-    unsigned and lexicographic over the first ``num_keys`` planes."""
+    stacked and padded to :func:`bitonic_pad_len` (all-ones keys, zero
+    payloads), then for each size 2^k the mirror step (pairs (i, i ^ (2^k -
+    1))) and the steps at strides 2^(k-2) .. 1, each pair swapped iff
+    key(lo) > key(hi), unsigned and lexicographic over the first
+    ``num_keys`` planes."""
     planes = tuple(planes)
     _check_bitonic(planes, num_keys)
     n = planes[0].shape[0]
     if n == 0:
         return tuple(p.clone() for p in planes)
     size = bitonic_pad_len(n)
-    xs = [torch.cat([p, p.new_full((size - n,), -1 if i < num_keys else 0)])
-          for i, p in enumerate(planes)]
+    x = torch.stack([torch.cat([p, p.new_full((size - n,), -1 if i < num_keys else 0)])
+                     for i, p in enumerate(planes)])
     q = torch.arange(size // 2, dtype=torch.int64, device=planes[0].device)
     for k in range(1, size.bit_length()):
         block, off = (q >> (k - 1)) << k, q & ((1 << (k - 1)) - 1)
-        xs = _exchange(xs, num_keys, block + off, block + (1 << k) - 1 - off)
+        _exchange(x, num_keys, block + off, block + (1 << k) - 1 - off)
         for j in range(k - 2, -1, -1):
             lo = ((q >> j) << (j + 1)) | (q & ((1 << j) - 1))
-            xs = _exchange(xs, num_keys, lo, lo + (1 << j))
-    return tuple(x[:n] for x in xs)
+            _exchange(x, num_keys, lo, lo + (1 << j))
+    return tuple(x[:, :n].unbind(0))
 
 
 def bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
     """K12: the planes sorted ascending, unsigned and lexicographic over the
     first ``num_keys`` (most significant first), every plane moving with its
     key; equal key tuples keep a permutation of their records (the network
-    of :func:`bitonic_plain`). At most 32 planes on the card."""
+    of :func:`bitonic_plain`).
+
+    On the card the key planes go to the kernel as one stacked (planes, n)
+    array, so one launch takes every plane count the gate admits. Two or
+    more payload planes ride one index plane through the network and are
+    gathered once after it: the swaps depend on the keys alone, so the
+    output is the same, and each exchange moves one word in place of
+    every payload's."""
     planes = tuple(planes)
     _check_bitonic(planes, num_keys)
     if not use_gpu_routes(planes[0]):
         return bitonic_plain(planes, num_keys)
-    if len(planes) > _MAX_PLANES:
-        raise ValueError(f"bitonic: the kernel takes at most {_MAX_PLANES} planes")
     n = planes[0].shape[0]
-    out = tuple(torch.empty_like(p) for p in planes)
-    if n == 0:
-        return out
-    _launch("rst_bitonic", planes[0].device, _pointers(planes), _pointers(out), len(planes),
-            num_keys, n)
-    LAUNCHES["bitonic"] += 1
+    payloads = planes[num_keys:]
+    ride = len(payloads) >= 2
+    if ride:
+        planes = planes[:num_keys] + (torch.arange(n, dtype=torch.int32, device=planes[0].device),)
+    src = planes[0] if len(planes) == 1 else torch.stack(planes)
+    out = torch.empty((len(planes), n), dtype=torch.int32, device=src.device)
+    if n:
+        _launch("rst_bitonic", src.device, src.data_ptr(), out.data_ptr(), len(planes),
+                num_keys, n)
+        LAUNCHES["bitonic"] += 1
+    if ride:
+        return tuple(out[:num_keys].unbind(0)) + \
+            tuple(torch.stack(payloads)[:, out[num_keys].long()].unbind(0))
+    return tuple(out.unbind(0))
+
+
+# ---------------------------------------------------------------------------
+# E1 / E2: the kernels of the speed-of-light scripts
+
+
+def dma_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x``."""
+    return x.clone()
+
+
+def dma_copy(x: torch.Tensor) -> torch.Tensor:
+    """E1: a copy of the plane ``x`` staged through shared memory in chunks
+    (the contract of ``exp_sol_probe.probe_dma``'s DMA round trip, device
+    memory to on-chip memory and back); any length."""
+    _check_plane("dma_copy", x)
+    if not use_gpu_routes(x):
+        return dma_copy_plain(x)
+    out = torch.empty_like(x)
+    if x.shape[0]:
+        _launch("rst_dma_copy", x.device, x.data_ptr(), out.data_ptr(), x.shape[0])
+        LAUNCHES["dma_copy"] += 1
+    return out
+
+
+def _check_spread(s128: torch.Tensor, xp: torch.Tensor, m: int, d: int, capr: int) -> None:
+    for name, t, ndim in (("s128", s128, 2), ("xp", xp, 3)):
+        if not torch.is_tensor(t) or t.dtype != torch.int32 or t.ndim != ndim:
+            raise TypeError(f"msd_spread: {name} must be a {ndim}-D int32 tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"msd_spread: {name} must be contiguous")
+    (R, K), (Rx, W, lanes) = s128.shape, xp.shape
+    if Rx != R or lanes != 128 or s128.device != xp.device:
+        raise ValueError("msd_spread: xp must be (R, W, 128) beside s128 (R, K), on one device")
+    if not 1 <= d <= 32 or capr < 1 or not 0 <= m <= W * 128:
+        raise ValueError("msd_spread: need 1 <= d <= 32, capr >= 1 and 0 <= m <= W * 128")
+    if R * K >= 1 << 31:
+        raise ValueError("msd_spread: at most 2^31 - 1 cells")
+
+
+def msd_spread_plain(s128: torch.Tensor, xp: torch.Tensor, m: int, d: int,
+                     capr: int) -> torch.Tensor:
+    """Every window gathered at once: for each (r, k) the rows
+    ``s128[r, k] + [0, capr)`` of ``xp[r]``, positions ``row * 128 + lane``
+    at or past m (or before 0) and keys whose top d bits are not k replaced
+    by all-ones, then (R, K) moved to (K, R)."""
+    _check_spread(s128, xp, m, d, capr)
+    R, K = s128.shape
+    W = xp.shape[1]
+    dev = xp.device
+    sub = s128.long()[:, :, None] + torch.arange(capr, device=dev)           # (R, K, capr)
+    pos = sub[..., None] * 128 + torch.arange(128, device=dev)               # (R, K, capr, 128)
+    valid = (sub[..., None] >= 0) & (pos < m)
+    w = torch.gather(xp.reshape(R, W * 128), 1,
+                     pos.clamp(0, W * 128 - 1).reshape(R, -1)).view(pos.shape)
+    bucket = probes.shift_right(w, 32 - d)
+    keep = valid & (bucket == torch.arange(K, device=dev)[None, :, None, None])
+    return torch.where(keep, w, -1).permute(1, 0, 2, 3).contiguous()
+
+
+def msd_spread(s128: torch.Tensor, xp: torch.Tensor, m: int, d: int,
+               capr: int) -> torch.Tensor:
+    """E2: the spread step of the two-level MSD sort (the contract of
+    ``exp_sol_round2.build_msd``'s ``spread_kernel``).
+
+    ``xp`` (R, W, 128) holds R row-sorted rows of m keys (u32 in int32
+    carriers, padded to W * 128); ``s128`` (R, K) the first 128-key row of
+    each row's bucket k. Cell (k, r) of the (K, R, capr, 128) output is the
+    window of ``capr`` such rows from ``s128[r, k]``, holding the keys of
+    bucket k (top d bits equal to k) at positions below m and all-ones
+    elsewhere."""
+    _check_spread(s128, xp, m, d, capr)
+    if not use_gpu_routes(xp):
+        return msd_spread_plain(s128, xp, m, d, capr)
+    (R, K), W = s128.shape, xp.shape[1]
+    out = torch.empty((K, R, capr, 128), dtype=torch.int32, device=xp.device)
+    if R * K:
+        _launch("rst_msd_spread", xp.device, s128.data_ptr(), xp.data_ptr(), out.data_ptr(),
+                R, K, W, m, d, capr)
+        LAUNCHES["msd_spread"] += 1
     return out

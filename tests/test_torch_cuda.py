@@ -608,10 +608,22 @@ def test_bitonic_at_the_plane_budget_edge(cuda):
                                            & (k[1, 1:] >= k[1, :-1]))).all())
 
 
-def test_bitonic_refuses_more_than_32_planes_on_the_card(cuda):
-    xs = _bitonic_planes(100, 33, 1, 1, cuda)
-    with pytest.raises(ValueError, match="32"):
-        ck.bitonic(xs, 1)
+@pytest.mark.parametrize("n,planes,keys", [(100, 33, 1), (1024, 40, 34), (1024, 1536, 2),
+                                           (2048, 700, 1), (131_072, 12, 12)])
+def test_bitonic_sorts_every_plane_count_the_gate_admits(cuda, n, planes, keys):
+    from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem, vmem_sort_ok
+    assert vmem_sort_ok(n, planes)
+    xs = _bitonic_planes(n, planes, keys, n + planes, cuda)
+    if keys < planes:
+        xs[keys] = torch.arange(n, dtype=torch.int32, device=cuda)
+    before = ck.launch_counts()["bitonic"]
+    got = sort_planes_vmem(xs, keys)
+    assert ck.launch_counts()["bitonic"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.bitonic_plain(xs, keys)))
+    if keys < planes:           # R1: the index plane is a permutation, records whole
+        perm = got[keys].long()
+        assert torch.equal(torch.sort(perm).values, torch.arange(n, device=cuda))
+        assert all(torch.equal(x[perm], g) for x, g in zip(xs, got))
 
 
 def test_lsd_and_bitonic_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
@@ -648,3 +660,69 @@ def test_lsd_and_bitonic_entry_points_run_the_kernels(cuda, no_plain, monkeypatc
     sk, si = sort_planes_vmem((k, torch.arange(4097, dtype=torch.int32, device=cuda)), 2)
     assert np.array_equal(si.cpu().numpy(), np.argsort(x[:4097], kind="stable"))
     assert rt.launch_counts()["bitonic"] == 1
+
+
+@pytest.mark.parametrize("n", [1, 5, 8191, 8192, 8193, 1 << 24, (1 << 24) + 12_345])
+def test_dma_copy_matches_plain(cuda, n):
+    x = rand_plane(n, n, cuda)
+    before = ck.launch_counts()["dma_copy"]
+    got = ck.dma_copy(x)
+    assert ck.launch_counts()["dma_copy"] == before + 1
+    assert torch.equal(got, ck.dma_copy_plain(x)) and got.data_ptr() != x.data_ptr()
+
+
+def test_dma_copy_unaligned(cuda):
+    x = rand_plane(100_003, 2, cuda)[1:]           # 4-byte offset: word by word
+    assert torch.equal(ck.dma_copy(x), x)
+    assert ck.dma_copy(x[:0]).numel() == 0
+
+
+def _msd_operands(n, R, K, capr, seed, device, mask=0xFFFFFFFF):
+    from radix_sorting_tpu_torch.scripts import exp_sol_round2
+    _, shapes, st = exp_sol_round2.build_msd(n, R, K, capr)
+    xs = st["row_sort"](rand_plane(n, seed, device, mask))
+    s128, xp = st["spread_inputs"](xs, st["starts"](xs))
+    return s128, xp, shapes["m"], shapes["d"]
+
+
+@pytest.mark.parametrize("n,R,K,capr", [(1 << 16, 16, 16, 4), (1 << 20, 64, 32, 8),
+                                        (40_000_000, 128, 128, 24), (999_936, 128, 2, 40)])
+def test_msd_spread_matches_plain(cuda, n, R, K, capr):
+    s128, xp, m, d = _msd_operands(n, R, K, capr, n, cuda)
+    before = ck.launch_counts()["msd_spread"]
+    got = ck.msd_spread(s128, xp, m, d, capr)
+    assert ck.launch_counts()["msd_spread"] == before + 1
+    assert torch.equal(got, ck.msd_spread_plain(s128, xp, m, d, capr))
+
+
+def test_msd_spread_any_window(cuda):
+    # windows that start anywhere, past the rows too, and d = 32
+    s128, xp, m, d = _msd_operands(1 << 16, 16, 16, 4, 3, cuda)
+    W = xp.shape[1]
+    s = torch.randint(-6, W + 2, s128.shape, dtype=torch.int32, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(5))
+    for dd in (d, 32, 1):
+        assert torch.equal(ck.msd_spread(s, xp, m, dd, 4), ck.msd_spread_plain(s, xp, m, dd, 4))
+
+
+def test_measurement_entry_points_run_the_kernels(cuda, monkeypatch, capsys):
+    from radix_sorting_tpu_torch import cli
+    from radix_sorting_tpu_torch.scripts import exp_sol_probe, exp_sol_round2
+    from radix_sorting_tpu_torch.utils import keyfile
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    for name in ("hist_pext_plain", "regen_pdep_plain", "dma_copy_plain", "msd_spread_plain",
+                 "hist_plain", "regen_plain"):
+        monkeypatch.setattr(ck, name, boom)
+    rt.reset_launch_counts()
+    assert cli.main(["1000000", "u32", "0xF0F00000"]) == 0
+    assert '"verified": true' in capsys.readouterr().out
+    assert rt.launch_counts()["hist_pext"] == 2 and rt.launch_counts()["regen_pdep"] == 2
+    assert cli.main(["1000000", "f32"], device="cuda") == 0
+    assert '"verified": true' in capsys.readouterr().out
+    assert exp_sol_probe.probe_dma(cuda, n=1 << 20) > 0
+    assert rt.launch_counts()["dma_copy"] == 60          # a warm run and two timed, of 20
+    keys = keyfile.generate_keys(1 << 20)
+    assert exp_sol_round2.check_msd(keys, cuda, 64, 32, 8)["bit_exact"]
+    assert rt.launch_counts()["msd_spread"] == 1
