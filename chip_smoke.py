@@ -29,6 +29,9 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      16 values in the first key plane and an index plane, whose records
      must stay a permutation; dma_copy (E1) at 2^24 and 2^24 + 12,345
      keys; msd_spread (E2) on the n keys as 128 sorted rows, 128 buckets;
+     rdma_exchange (K13) at D = 2, 4 and 8 ranks on cuda:0: stacked (3, D,
+     c) u32 sends with c = 1, 37 and 10,000,000 / D (16-byte, word and
+     single-word rows) and (D, 37) int16 sends (74-byte rows: byte copies);
   4. run each case through the public entry points on CUDA tensors (byte
      strings: numpy) and compare with a numpy oracle: sort of full-entropy
      u32 (sorter), presorted u32 (guard), masked u32, u8, u16, bf16 and f32
@@ -67,8 +70,19 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      true), utils.verify on the card's sort, argsort and LSD rank outputs
      (and a broken permutation, which must fail), the probe script's
      probe_dma (E1) and the MSD pipeline of exp_sol_round2 (E2) on the n
-     keys against np.sort;
-  5. require every kernel's launch count from phase 4 to be non-zero;
+     keys against np.sort; then the distributed tier on a mesh of four
+     ranks on cuda:0 (parallel.dryrun.dryrun_multichip): distributed_sort
+     with the default method="balanced" of the n keys with exchange="xla"
+     and "rdma" (K13; the tier's main path), then the rest of the surface
+     at 2^20 keys (shuffle with each exchange, skewed balanced sorts
+     overlapped or not, argsort, record sorts with a payload tree and an S8
+     field, select, quantile, top_k, unique, group_reduce sort-backed and
+     dense (K10), distributed_bincount (K1), the overflow flag and
+     exact=True, a many-round exchange) and one sort on make_sort_mesh(),
+     the default mesh over the visible cards; each against numpy, with its
+     size, time, peak device memory and launches;
+  5. require every kernel's launch count from phase 4 to be non-zero, and
+     print the torch.sort calls of phase 4 (K0's stand-in);
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
      steady-state loops); K1 on keys of which 90% are one value; the range
@@ -82,13 +96,21 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      a key an iteration: two kernels) on the n keys, the evidence for R4; E2
      beside its plain version; K12 at the gate's top plane count; the probe
      script's stream, copy, sorter, gather and DMA figures; the MSD
-     pipeline's time in all and by stage.
+     pipeline's time in all and by stage; K13 at D = 4 ranks on cuda:0 and
+     rows of 10,000,000 / 4 u32 words beside its plain version and the
+     mesh's copy_ all-to-all (the "xla" exchange), with its one-card bound
+     (2 * D^2 * row bytes); distributed_sort of the n keys on four ranks of
+     cuda:0 with each exchange beside torch.sort of the same keys. The
+     distributed lines share one card among the D ranks and say nothing of
+     NVLink.
   7. with --profile: device time by kernel (torch.profiler, three calls)
      of each case of the range probes, the dense tier, the group-by slice,
-     the LSD sorts of u32 and u64, sort_planes_vmem and sort_batched.
+     the LSD sorts of u32 and u64, sort_planes_vmem and sort_batched, and of
+     the four-rank distributed_sort with each exchange.
 Then the card's name and power limit, one JSON line of kernels (each with
 its bound: bytes moved over the H100's 3.35 TB/s, or for K12 its
-compare-exchanges over 67 T operations/s where that is larger), and last
+compare-exchanges over 67 T operations/s where that is larger; for K13 the
+one-card bound of D ranks sharing cuda:0), and last
 {"ok": true, "device": {...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
@@ -222,6 +244,8 @@ def main() -> None:
     from radix_sorting_tpu_torch import cli
     from radix_sorting_tpu_torch.scripts import exp_sol_probe, exp_sol_round2
     from radix_sorting_tpu_torch.utils import timing, verify
+    from radix_sorting_tpu_torch.parallel import _mesh, distributed_sort, make_sort_mesh
+    from radix_sorting_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
     path, log = _build.build()
@@ -457,6 +481,35 @@ def main() -> None:
     print(f"[3 kernel] msd_spread R=K=128 capr=24 m={msd_shapes['m']} W={xp.shape[1]}: "
           f"equal to plain (max |err| 0), {kept} keys kept", flush=True)
     del got, ref, xs
+    # K13: D ranks on cuda:0, each rank's sends its own random words
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def rank_sends(D, shape, dtype):
+        lim = 1 << (15 if dtype == torch.int16 else 31)
+        return [torch.randint(-lim, lim, shape, dtype=dtype, device=dev, generator=gen)
+                for _ in range(D)]
+
+    for D in (2, 4, 8):
+        for c, dtype, label in ((1, torch.int32, "(3, D, 1) u32"),
+                                (37, torch.int32, "(3, D, 37) u32"),
+                                (10_000_000 // D, torch.int32, f"(3, D, {10_000_000 // D}) u32"),
+                                (37, torch.int16, "(D, 37) int16")):
+            if dtype == torch.int16:
+                sends = rank_sends(D, (D, c), dtype)
+            else:   # a rank's (3, D, c) send as rdma_all_to_all lays it out
+                sends = [s.movedim(1, 0).reshape(D, 3 * c).contiguous()
+                         for s in rank_sends(D, (3, D, c), dtype)]
+            got, ref = ck.rdma_exchange(sends), ck.rdma_exchange_plain(sends)
+            torch.cuda.synchronize()
+            err = max(max_err(g.int(), r.int()) for g, r in zip(got, ref))
+            errs["rdma_exchange"] = max(errs["rdma_exchange"], err)
+            if err or any(not torch.equal(got[d][s], sends[s][d])
+                          for d in range(D) for s in range(D)):
+                fail(f"rdma_exchange D={D} {label}: max |err| {err}")
+            print(f"[3 kernel] rdma_exchange D={D} ranks on cuda:0, {label} sends "
+                  f"({sends[0].shape[1] * sends[0].element_size()} bytes a row): equal "
+                  "to plain (max |err| 0)", flush=True)
+            del got, ref, sends
 
     # -- phase 4: the slice through the public entry points -----------------
     def u32_tensor(a):
@@ -798,6 +851,14 @@ def main() -> None:
               for name, make, run, host, oracle in cases]
     torch.cuda.synchronize()
     rt.reset_launch_counts()
+    # K0's stand-in is a library call with no counter of its own: count the
+    # torch.sort calls of the main path here (restored after phase 4)
+    real_sort, sort_calls = torch.sort, [0]
+
+    def counted_sort(*a, **k):
+        sort_calls[0] += 1
+        return real_sort(*a, **k)
+    torch.sort = counted_sort
     outputs, case_launches = [], []
     for _, x, run, _, _ in inputs:
         before = rt.launch_counts()
@@ -857,8 +918,14 @@ def main() -> None:
         _, counts = entry(lambda: exp_sol_round2.check_msd(keys[:n_msd], dev))
     print(f"[4 entry] exp_sol_round2.check_msd (E2) {n_msd} keys: "
           f"{buf.getvalue().strip()}; equal to np.sort; launches {counts}", flush=True)
+    # the distributed tier: four ranks on cuda:0, the main path at n keys
+    mesh4 = make_sort_mesh(devices=[dev] * 4)
+    dryrun_multichip(mesh4, n=n, seed=args.seed,
+                     log=lambda line: print(f"[4 dist] {line} (one card: its D ranks share it)",
+                                            flush=True))
     torch.cuda.synchronize()
     launches = rt.launch_counts()
+    torch.sort = real_sort
     # column skipping shows in the LSD cases' passes: one L1 and one L2 each
     lsd_passes = {"LSD u32 full entropy, r=8": 4, "LSD u32 full entropy, r=11": 3,
                   "LSD u32 value_mask=0xF0F00000": 2, "LSD u64 full entropy": 8}
@@ -895,7 +962,8 @@ def main() -> None:
               flush=True)
 
     # -- phase 5: the main path went through every kernel -------------------
-    print(f"[5 launches] {json.dumps(launches)}", flush=True)
+    print(f"[5 launches] {json.dumps(launches)}; torch.sort (K0's stand-in) calls "
+          f"{sort_calls[0]}", flush=True)
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was not launched by the main path")
@@ -1035,10 +1103,18 @@ def main() -> None:
     row("msd_spread", 128, xp.numel() * 4 + 128 * 128 * 24 * 128 * 4,
         lambda: ck.msd_spread(*spread_args), lambda: ck.msd_spread_plain(*spread_args),
         n=n_msd, capr=24)
+    # K13 at D = 4 ranks on cuda:0, rows of 10,000,000 / 4 u32 words, beside
+    # its plain version and the mesh's copy_ all-to-all; one-card bound: every
+    # rank reads and writes D rows, 2 * D^2 * row bytes in all
+    c4 = 10_000_000 // 4
+    sends4 = rank_sends(4, (4, c4), torch.int32)
+    row("rdma_exchange", None, 2 * 4 * 4 * c4 * 4, lambda: ck.rdma_exchange(sends4),
+        lambda: ck.rdma_exchange_plain(sends4), lambda: _mesh.all_to_all(sends4, mesh4),
+        n=4 * 4 * c4, ranks="4 on one card (one card, 4 ranks share it)")
     for name, rows in shapes.items():
         for r in rows:
             extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads",
-                                                     "tile", "planes", "capr")
+                                                     "tile", "planes", "capr", "ranks")
                             if k in r)
             bins = "" if r["bins"] is None else f" bins={r['bins']}"
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -1095,6 +1171,18 @@ def main() -> None:
     print(f"[6 time] exp_sol_round2 msd pipeline, {n_msd} keys: total "
           f"{msd_rec['ms']:.3f} ms; stages " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in msd_rec["stages"].items()), flush=True)
+    # the distributed sort of the n keys on four ranks of cuda:0, each
+    # exchange, beside torch.sort of the same keys, in turns
+    x40 = u32_tensor(keys)
+    dist_turns = {"xla": lambda: distributed_sort(x40, mesh4, exchange="xla"),
+                  "rdma": lambda: distributed_sort(x40, mesh4, exchange="rdma"),
+                  "torch.sort int32": lambda: torch.sort(w)}
+    dist_ms = {k: [] for k in dist_turns}
+    for k in list(dist_turns) + list(dist_turns)[::-1]:
+        dist_ms[k].append(time_ms(dist_turns[k], 3))
+    print(f"[6 time] distributed_sort balanced of {n} u32 on 4 ranks of cuda:0 (one card, "
+          f"4 ranks share it; nothing of NVLink), in turns: " + ", ".join(
+              f"{k} {sum(v) / len(v):.3f} ms" for k, v in dist_ms.items()), flush=True)
     rows_t = u32_tensor(rows_u32).view(torch.int32)
     ms = time_ms(lambda: torch.sort(rows_t, dim=-1), reps)
     print(f"[6 time] torch.sort(dim=-1) of ({n_rows}, 4096) int32 (reference point): "
@@ -1121,6 +1209,22 @@ def main() -> None:
             print(f"[7 profile] {name}: device {total:.3f} ms per call; " + "; ".join(
                 f"{kernel_label(e.key)} {e.self_device_time_total / calls / 1e3:.4f} ms "
                 f"x{e.count // calls}" for e in rows[:8]), flush=True)
+        for exchange in ("xla", "rdma"):
+            run = dist_turns[exchange]
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+            rows = sorted((e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda e: -e.self_device_time_total)
+            total = sum(e.self_device_time_total for e in rows) / calls / 1e3
+            print(f"[7 profile] distributed_sort 4 ranks on cuda:0 exchange={exchange}: "
+                  f"device {total:.3f} ms per call; " + "; ".join(
+                      f"{kernel_label(e.key)} {e.self_device_time_total / calls / 1e3:.4f} ms "
+                      f"x{e.count // calls}" for e in rows[:10]), flush=True)
 
     pk = "radix_sorting_tpu/ops/pallas_kernels.py"
     csrc = "radix_sorting_tpu_torch/csrc"
@@ -1145,6 +1249,7 @@ def main() -> None:
                         "(XLA, no Pallas kernel)"),
         "dma_copy": (f"{csrc}/sol.cu", "scripts/exp_sol_probe.py:117"),
         "msd_spread": (f"{csrc}/sol.cu", "scripts/exp_sol_round2.py:128"),
+        "rdma_exchange": (f"{csrc}/exchange.cu", "radix_sorting_tpu/parallel/rdma.py:90"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],

@@ -9,12 +9,15 @@ byte strings, float8 and int4/uint4, plus ``bitmap_unique_sort`` and
 ``bincount``, the group-by slice (``group_reduce``, ``value_counts``,
 ``unique_sorted``, ``histogram``, ``histogram_bin_edges`` and ``mode``), the
 batched sorts (``sort_batched``, ``argsort_batched``, ``sort_pairs_batched``),
-``Strategy.LSD``, ``ops.vmem_sort.sort_planes_vmem`` and the configured
-sorters of ``models``. The kernels (K1 digit histogram, K2/K3 PEXT
+``Strategy.LSD``, ``ops.vmem_sort.sort_planes_vmem``, the configured
+sorters of ``models`` and the distributed tier ``parallel`` (a mesh of
+ranks driven by one process, as in the JAX package, whose ``__init__``
+exports none of it either). The kernels (K1 digit histogram, K2/K3 PEXT
 histogram, K4/K7 dense regeneration, K5/K6/K8/K9 PDEP regeneration, K10/K11
-weighted histograms, K12 bitonic sort, L1/L2 the LSD radix passes) are
-written in CUDA under ``csrc/``. A numpy input goes to the CUDA device
-unless ``device=`` names another.
+weighted histograms, K12 bitonic sort, K13 the distributed exchange, L1/L2
+the LSD radix passes, E1/E2 the speed-of-light kernels) are written in CUDA
+under ``csrc/``. A numpy input goes to the CUDA device unless ``device=``
+names another.
 
 Public API: the entry points above, ``SortConfig`` / ``Strategy``, the
 kernel launch counters (``LAUNCHES``, ``launch_counts``,

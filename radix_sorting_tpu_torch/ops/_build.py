@@ -69,6 +69,10 @@ _SIGNATURES = {
     # s128, xp, out, R, K, W, m, d, capr, stream
     "rst_msd_spread": (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P),
+    # src, row bytes, output bases, ranks, rank, stream
+    "rst_rdma_exchange": (_P, ctypes.c_longlong, _PP, ctypes.c_int, ctypes.c_int, _P),
+    # device, peer
+    "rst_enable_peer_access": (ctypes.c_int, ctypes.c_int),
 }
 
 

@@ -33,6 +33,7 @@ lsd_hist                csrc/lsd.cu     L1, no Pallas kernel (LSD pass)
 lsd_scatter             csrc/lsd.cu     L2, no Pallas kernel (LSD pass)
 dma_copy                csrc/sol.cu     E1 ``scripts/exp_sol_probe.py``
 msd_spread              csrc/sol.cu     E2 ``scripts/exp_sol_round2.py``
+rdma_exchange           csrc/exchange.cu K13 ``parallel/rdma.py::_exchange_kernel``
 ======================  ==============  =====================================
 
 One histogram kernel counts digits (K1) or the PEXT-compacted live bits of
@@ -45,7 +46,9 @@ few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
 sort (per-tile digit histograms, stable scatter); the JAX package's LSD
 engine is XLA with no Pallas kernel, so they replace none. E1 and E2 are
 the kernels of the speed-of-light scripts (:mod:`..scripts`): a staged
-device-memory copy and the spread step of the two-level MSD sort. The source
+device-memory copy and the spread step of the two-level MSD sort. K13 is the
+all-to-all of the distributed tier (:mod:`..parallel.rdma`), one launch a
+rank of the mesh, each writing its rows into every rank's output. The source
 notes in ``csrc/`` say what bounds each kernel on the card.
 """
 
@@ -69,14 +72,15 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "WHIST_MAX_BITS", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
            "lsd_scatter_plain", "LSD_MAX_BITS", "bitonic", "bitonic_plain",
            "bitonic_pad_len", "BITONIC_MIN_PAD", "dma_copy", "dma_copy_plain",
-           "msd_spread", "msd_spread_plain"]
+           "msd_spread", "msd_spread_plain", "rdma_exchange", "rdma_exchange_plain",
+           "RDMA_MAX_RANKS"]
 
 LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
             "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
             "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0,
-            "dma_copy": 0, "msd_spread": 0}
+            "dma_copy": 0, "msd_spread": 0, "rdma_exchange": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
 HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bins
@@ -822,3 +826,106 @@ def msd_spread(s128: torch.Tensor, xp: torch.Tensor, m: int, d: int,
                 R, K, W, m, d, capr)
         LAUNCHES["msd_spread"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K13: the all-to-all exchange of the distributed tier
+
+RDMA_MAX_RANKS = 128     # csrc/exchange.cu: the pointer table's length
+# (device, peer) pairs with peer access on: a state of the process's CUDA
+# context, which enabling twice would report as an error
+_PEERS_ENABLED = set()
+
+
+def _check_exchange(sends: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    """(D, m) of D per-rank (D, m) sends of one dtype, or raise."""
+    D = len(sends)
+    if not 1 <= D <= RDMA_MAX_RANKS:
+        raise ValueError(f"rdma_exchange: 1 to {RDMA_MAX_RANKS} ranks, got {D}")
+    first = sends[0]
+    for s in sends:
+        if not torch.is_tensor(s) or s.ndim != 2 or s.shape[0] != D:
+            raise ValueError(f"rdma_exchange: every send must be a ({D}, m) tensor")
+        if s.shape != first.shape or s.dtype != first.dtype:
+            raise ValueError("rdma_exchange: the sends must share shape and dtype")
+        if not s.is_contiguous():
+            raise ValueError("rdma_exchange: expected contiguous sends")
+    return D, first.shape[1]
+
+
+def rdma_exchange_plain(sends: Sequence[torch.Tensor]) -> list:
+    """``out[d][s] = sends[s][d]`` by indexing, ``out[d]`` on ``sends[d]``'s
+    device: the function of :func:`..parallel._mesh.all_to_all`, written
+    apart so that the kernel has an oracle of its own."""
+    D, _ = _check_exchange(sends)
+    return [torch.stack([sends[s][d].to(sends[d].device) for s in range(D)])
+            for d in range(D)]
+
+
+def _enable_peers(devices) -> None:
+    """Peer access between every pair of distinct CUDA devices of the mesh,
+    or RuntimeError: a pair that cannot reach each other is never staged
+    through the host."""
+    from ._build import load_library
+    ids = sorted({d.index for d in devices})
+    for a in ids:
+        for b in ids:
+            if a == b or (a, b) in _PEERS_ENABLED:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(f"rdma_exchange: cuda:{a} cannot write to cuda:{b} "
+                                   "(no peer access)")
+            err = load_library().rst_enable_peer_access(a, b)
+            if err:
+                raise RuntimeError(f"rdma_exchange: enabling peer access cuda:{a} -> "
+                                   f"cuda:{b}: CUDA error {err}")
+            _PEERS_ENABLED.add((a, b))
+
+
+def _cross_barrier(streams) -> None:
+    """Every stream waits for what every other stream has enqueued so far
+    (nothing to do when the ranks share one stream)."""
+    if len(streams) < 2:
+        return
+    events = []
+    for st in streams:
+        ev = torch.cuda.Event()
+        ev.record(st)
+        events.append(ev)
+    for st in streams:
+        for ev in events:
+            st.wait_event(ev)
+
+
+def rdma_exchange(sends: Sequence[torch.Tensor]) -> list:
+    """K13: the all-to-all of D per-rank (D, m) tensors, rank d's on
+    ``sends[d].device``: ``out[d][s] = sends[s][d]``, any dtype.
+
+    On CUDA, one launch a rank on that rank's device and current stream,
+    each copying its D rows into the D outputs (its own row first, then the
+    ring (d + k) % D). The streams of the ranks meet in a barrier of events
+    before the launches and after them, so no write lands in a buffer its
+    owner still uses and no output is read before every write into it is
+    done. Distinct cards write to each other through peer access. CPU sends
+    take the plain version; a mesh that mixes the two raises."""
+    D, m = _check_exchange(sends)
+    on_gpu = [s.is_cuda for s in sends]
+    if not any(on_gpu):
+        return rdma_exchange_plain(sends)
+    if not all(on_gpu):
+        raise ValueError("rdma_exchange: the sends of one call are all on CUDA or all on the CPU")
+    outs = [torch.empty_like(s) for s in sends]
+    row_bytes = m * sends[0].element_size()
+    if row_bytes == 0:
+        return outs
+    devices = [s.device for s in sends]
+    _enable_peers(devices)
+    streams = list({(st.device, st.cuda_stream): st for st in
+                    (torch.cuda.current_stream(d) for d in devices)}.values())
+    _cross_barrier(streams)
+    table = _pointers(outs)
+    for d, s in enumerate(sends):
+        _launch("rst_rdma_exchange", s.device, s.data_ptr(), row_bytes, table, D, d)
+        LAUNCHES["rdma_exchange"] += 1
+    _cross_barrier(streams)
+    return outs

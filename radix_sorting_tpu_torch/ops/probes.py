@@ -24,6 +24,7 @@ __all__ = [
     "is_sorted_words",
     "shift_right",
     "or_reduce",
+    "and_reduce",
     "live_bit_mask",
     "live_digit_mask",
     "mask_runs",
@@ -85,9 +86,14 @@ def or_reduce(w: torch.Tensor) -> torch.Tensor:
     return _fold(w, torch.bitwise_or)
 
 
+def and_reduce(w: torch.Tensor) -> torch.Tensor:
+    """Bitwise AND of every element of a non-empty 1-D plane (0-d)."""
+    return _fold(w, torch.bitwise_and)
+
+
 def live_bit_mask(words: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Per-plane mask of the bits that vary across the input (OR ^ AND)."""
-    return tuple(or_reduce(w) ^ _fold(w, torch.bitwise_and) for w in words)
+    return tuple(or_reduce(w) ^ and_reduce(w) for w in words)
 
 
 def live_digit_mask(mask_words: Sequence, radix_bits: int) -> Tuple[bool, ...]:

@@ -23,6 +23,8 @@ from .ops import cuda_kernels, hw_engine, kdf
 
 __all__ = ["histogram", "histogram_bin_edges", "mode"]
 
+_Q_METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
+
 
 def _extent(xt: torch.Tensor, dtype) -> Tuple[float, float]:
     """(min, max) of the values, in one host read: integers of <= 32 bits
@@ -143,3 +145,45 @@ def mode(x, *, config: SortConfig = DEFAULT_CONFIG, device=None):
         return vals[w], np.int32(counts[w])
     win = torch.argmax(counts)
     return hw_engine.gather(vals, win), counts[win]
+
+
+# ---------------------------------------------------------------------------
+# quantile helpers, shared with ``parallel.distributed_quantile`` (the public
+# ``quantile`` is not ported yet: ROADMAP.md, port queue item 4)
+
+
+def _quantile_positions(qs, n: int, method: str):
+    """(lo_idx, hi_idx, frac) int64 / float64 take positions for quantiles
+    ``qs`` over ``n`` sorted elements."""
+    h = qs * (n - 1)
+    lo_i = np.floor(h).astype(np.int64)
+    hi_i = np.ceil(h).astype(np.int64)
+    frac = h - lo_i
+    if method == "lower":
+        hi_i = lo_i
+    elif method == "higher":
+        lo_i = hi_i
+    elif method == "nearest":
+        # numpy rounds half to the EVEN neighbouring index
+        lo_i = hi_i = np.rint(h).astype(np.int64)
+    return lo_i, hi_i, frac
+
+
+def _quantile_combine(lo, hi, frac, method: str):
+    """Interpolate gathered (lo, hi) order statistics. numpy arrays combine
+    in float64 with numpy's own ``_lerp`` rounding form; tensors combine in
+    float32 on their device."""
+    if method in ("lower", "higher", "nearest"):
+        return lo
+    if isinstance(lo, np.ndarray):
+        a, b = lo.astype(np.float64), hi.astype(np.float64)
+        if method == "midpoint":
+            return a * 0.5 + b * 0.5
+        t = frac
+        return np.where(t >= 0.5, b - (b - a) * (1.0 - t), a + (b - a) * t)
+    from .extras import _to_float
+    a, b = _to_float(lo, torch.float32), _to_float(hi, torch.float32)
+    if method == "midpoint":
+        return (a + b) * 0.5
+    f = torch.as_tensor(np.asarray(frac, np.float32), device=lo.device)
+    return a * (1.0 - f) + b * f

@@ -726,3 +726,76 @@ def test_measurement_entry_points_run_the_kernels(cuda, monkeypatch, capsys):
     keys = keyfile.generate_keys(1 << 20)
     assert exp_sol_round2.check_msd(keys, cuda, 64, 32, 8)["bit_exact"]
     assert rt.launch_counts()["msd_spread"] == 1
+
+
+# ---------------------------------------------------------------------------
+# K13: the exchange of the distributed tier, D ranks on one card
+
+
+def _rank_sends(D, m, dtype, cuda, seed, offset=0):
+    """D per-rank (D, m) sends; ``offset`` elements past a fresh allocation,
+    so that the rows start off the 16-byte grid."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lim = 1 << min(8 * torch.tensor([], dtype=dtype).element_size() - 1, 62)
+    out = []
+    for _ in range(D):
+        buf = torch.randint(-lim, lim, (D * m + offset,), dtype=dtype, device=cuda, generator=g)
+        out.append(buf[offset:].view(D, m))
+    return out
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("m,dtype,offset", [(1, torch.int32, 0), (37, torch.int32, 0),
+                                            (4096, torch.int32, 0), (4096, torch.int32, 1),
+                                            (1_250_001, torch.int32, 3), (37, torch.int16, 0),
+                                            (37, torch.int16, 1), (5, torch.int64, 0),
+                                            (0, torch.int32, 0)])
+def test_rdma_exchange_matches_plain(cuda, D, m, dtype, offset):
+    sends = _rank_sends(D, m, dtype, cuda, D * m + offset, offset)
+    before = ck.launch_counts()["rdma_exchange"]
+    got = ck.rdma_exchange(sends)
+    assert ck.launch_counts()["rdma_exchange"] == before + (D if m else 0)
+    for g, p in zip(got, ck.rdma_exchange_plain(sends)):
+        assert g.dtype == dtype and torch.equal(g, p)
+    for d in range(D):
+        for s in range(D):
+            assert torch.equal(got[d][s], sends[s][d])
+
+
+def test_rdma_exchange_refuses_a_mixed_mesh(cuda):
+    a = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="all on CUDA or all on the CPU"):
+        ck.rdma_exchange([a, a.to(cuda)])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_distributed_sorts_take_k13(cuda, overlap, monkeypatch):
+    from radix_sorting_tpu_torch import parallel as tpar
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ck, "rdma_exchange_plain", boom)
+    mesh = tpar.make_sort_mesh(devices=[cuda] * 4)
+    x = np.random.default_rng(7).integers(0, 1 << 32, size=1_000_003, dtype=np.uint32)
+    x[: 400_000] = 0xBEEF                        # skew: uneven runs, many rounds
+    before = ck.launch_counts()["rdma_exchange"]
+    # a small chunk: many rounds, each shipping other data, so a receive
+    # buffer reused before its placement would show
+    out = tpar.distributed_sort(x, mesh, exchange="rdma", overlap=overlap, chunk=20_000)
+    assert np.array_equal(tpar.gather_sorted(*out), np.sort(x))
+    balanced = ck.launch_counts()["rdma_exchange"] - before
+    assert balanced >= 4 * 10 and balanced % 4 == 0
+    out = tpar.distributed_sort(x, mesh, method="shuffle", exchange="rdma", exact=True)
+    assert np.array_equal(tpar.gather_sorted(*out), np.sort(x))
+    assert ck.launch_counts()["rdma_exchange"] - before == balanced + 4   # one exchange
+    assert all(s.device.type == "cuda" for s in out[0])
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    from radix_sorting_tpu_torch import parallel as tpar
+    from radix_sorting_tpu_torch.parallel.dryrun import dryrun_multichip
+    records = dryrun_multichip(tpar.make_sort_mesh(devices=[cuda] * 4), n=2_000_000,
+                               n_rest=1 << 16, log=None)
+    assert all(r["peak_mb"] is not None for r in records)
+    assert records[1]["launches"].get("rdma_exchange", 0) > 0
+    assert "rdma_exchange" not in records[0]["launches"]

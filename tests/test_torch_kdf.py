@@ -245,6 +245,24 @@ def test_split64_join64_match_jax():
     assert np.array_equal(raw(y), raw(x))
 
 
+@pytest.mark.parametrize("n", [0, 1, 2])
+def test_join64_of_few_keys(n):
+    # F2: one (hi, lo) pair once kept transposed strides that the 64-bit
+    # view refused, so sort_pairs and sort_u64_multipass of one 64-bit key
+    # raised where the JAX package returns it
+    import radix_sorting_tpu as rst
+    import radix_sorting_tpu_torch as rt
+    x = np.array([0x0123456789ABCDEF, 5], np.uint64)[:n]
+    hi, lo = tkdf.split64(tkdf.as_tensor(x, "cpu"))
+    assert np.array_equal(tkdf.to_numpy(tkdf.join64(hi, lo, torch.uint64)), x)
+    v = np.arange(n, dtype=np.int32)
+    keys, pay = rt.sort_pairs(x, v, device="cpu")
+    jkeys, jpay = rst.sort_pairs(x, v)
+    assert np.array_equal(keys, np.asarray(jkeys)) and np.array_equal(pay, np.asarray(jpay))
+    assert np.array_equal(rt.sort_u64_multipass(x, device="cpu"),
+                          np.asarray(rst.sort_u64_multipass(x)))
+
+
 @pytest.mark.parametrize("W", [1, 2, 4, 6, 9, 256])
 def test_pack_bytes_be_matches_jax(W):
     u8 = np.random.default_rng(W).integers(0, 256, size=(1001, W), dtype=np.uint8)
