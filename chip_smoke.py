@@ -27,8 +27,11 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      sort_planes_vmem (K12) past 32 planes: (n, planes, num_keys) of (100,
      33, 1), (1,024, 40, 34) and the gate's top plane count at 1,024 keys,
      16 values in the first key plane and an index plane, whose records
-     must stay a permutation; dma_copy (E1) at 2^24 and 2^24 + 12,345
-     keys; msd_spread (E2) on the n keys as 128 sorted rows, 128 buckets;
+     must stay a permutation; bitonic at 2^17 keys with 3 planes (the last
+     count one cluster holds) and 4 (the first past it: tiles), keys of 4
+     values; dma_copy (E1) at 2^24 and 2^24 + 12,345 keys and on views 1,
+     2, 3 and 4 words in (1-3 not 16 bytes aligned: word by word);
+     msd_spread (E2) on the n keys as 128 sorted rows, 128 buckets;
      rdma_exchange (K13) at D = 2, 4 and 8 ranks on cuda:0: stacked (3, D,
      c) u32 sends with c = 1, 37 and 10,000,000 / D (16-byte, word and
      single-word rows) and (D, 37) int16 sends (74-byte rows: byte copies);
@@ -91,8 +94,12 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      keys and the AUTO sort, in turns, with its byte bound (12 bytes a key
      for each live pass: L1 reads the plane, L2 reads and writes it); L1 and
      L2 per pass; K12 at 2^10, 2^14 and 2^17 keys beside torch.sort of the
-     same packed key; torch.sort(dim=-1) of the batched rows; E1 beside
-     copy_ (8 bytes a key each) and beside utils.timing.stream_gbps (16 bytes
+     same packed key, and at 2^17 with (key, index) key planes beside
+     torch.sort of the packed int64 key, each with its route, the kernels
+     one sort launches and the device time of K12 and of torch.sort
+     (torch.profiler); torch.sort(dim=-1) of the batched
+     rows; E1 at 2^24 and n keys beside copy_, in turns, (8 bytes a key
+     each) and beside utils.timing.stream_gbps (16 bytes
      a key an iteration: two kernels) on the n keys, the evidence for R4; E2
      beside its plain version; K12 at the gate's top plane count; the probe
      script's stream, copy, sorter, gather and DMA figures; the MSD
@@ -205,6 +212,12 @@ def bin_index_np(x: np.ndarray, edges: np.ndarray, nb: int) -> np.ndarray:
     lo, hi = np.float32(edges[0]), np.float32(edges[-1])
     idx = np.floor((x - lo) * np.float32(nb / (edges[-1] - edges[0])))
     return np.where((x >= lo) & (x <= hi), np.minimum(idx, nb - 1), nb).astype(np.int64)
+
+
+def k12_route(n: int, nplanes: int) -> str:
+    """K12's route for n keys of nplanes planes (the wrapper's choice)."""
+    from radix_sorting_tpu_torch.ops import cuda_kernels as ck
+    return {0: "tiles", 1: "one block"}.get(ck.bitonic_route(n, nplanes), "cluster")
 
 
 def bound_ms(nbytes: int) -> float:
@@ -457,15 +470,36 @@ def main() -> None:
         print(f"[3 kernel] sort_planes_vmem n={m} planes={nplanes} num_keys={nk}: equal "
               "to plain (max |err| 0), sorted, every record once", flush=True)
     top_planes = planes
-    # E1: the staged copy, a whole number of chunks and a ragged tail
-    for m in (1 << 24, (1 << 24) + 12_345):
-        got, ref = ck.dma_copy(w[:m]), ck.dma_copy_plain(w[:m])
+    # K12's route edges at 2^17: the last plane count one cluster holds (3)
+    # and the first past it (4: tiles and device-memory steps), keys of 4
+    # values so that ties decide where the payloads go
+    m = 1 << 17
+    for nplanes, nk in ((3, 2), (4, 3)):
+        words = rng.integers(0, 1 << 32, size=(nplanes, m), dtype=np.uint32)
+        words[:nk] &= 3
+        planes = tuple(torch.from_numpy(words.view(np.int32)).to(dev).unbind(0))
+        got, ref = ck.bitonic(planes, nk), ck.bitonic_plain(planes, nk)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got, ref))
+        errs["bitonic"] = max(errs["bitonic"], err)
+        if err or not probes.is_sorted_words(got[:nk]):
+            fail(f"bitonic n={m} planes={nplanes} num_keys={nk}: max |err| {err}")
+        print(f"[3 kernel] bitonic n={m} planes={nplanes} num_keys={nk} route "
+              f"{k12_route(m, nplanes)}: equal to plain (max |err| 0), sorted", flush=True)
+    # E1: the staged copy, a whole number of chunks, a ragged tail, and
+    # views 1 to 4 words in (1-3: not 16 bytes aligned, word by word)
+    for m, off in ((1 << 24, 0), ((1 << 24) + 12_345, 0), (1_000_003, 1), (1_000_003, 2),
+                   (1_000_003, 3), (1_000_003, 4)):
+        x = w[off:off + m]
+        got, ref = ck.dma_copy(x), ck.dma_copy_plain(x)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         errs["dma_copy"] = max(errs["dma_copy"], err)
-        if err or not torch.equal(got, w[:m]):
-            fail(f"dma_copy n={m}: max |err| {err}")
-        print(f"[3 kernel] dma_copy n={m}: equal to plain (max |err| 0)", flush=True)
+        if err or not torch.equal(got, x):
+            fail(f"dma_copy n={m} offset {off}: max |err| {err}")
+        route = "bulk copies" if x.data_ptr() % 16 == 0 else "word by word"
+        print(f"[3 kernel] dma_copy n={m} offset {off} words ({route}): equal to plain "
+              "(max |err| 0)", flush=True)
     # E2: the spread step on the keys as 128 sorted rows, 128 buckets
     n_msd = n // 128 * 128
     _, msd_shapes, msd = exp_sol_round2.build_msd(n_msd, 128, 128, 24)
@@ -1084,22 +1118,73 @@ def main() -> None:
             lambda: ck.lsd_scatter(w, (w, idx32), 0, bits, tile, bases),
             lambda: ck.lsd_scatter_plain(w, (w, idx32), 0, bits, tile, bases),
             tile=tile, planes=2)
+    def device_trace(fn, name=None, calls=8):
+        """(kernels named ``name`` that one call of fn launches on the card,
+        their device ms per call): torch.profiler over ``calls`` calls;
+        name None takes every device event. The tracer can drop a window's
+        events, so an empty window is traced again."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and (name is None or name in e.key)]
+            if events:
+                return (sum(e.count for e in events) / calls,
+                        sum(e.self_device_time_total for e in events) / calls / 1e3)
+        fail(f"no {name or 'device'} event traced in three windows of {calls} calls")
+
+    def k12_trace(kernel, library):
+        """K12's launches and device ms per sort, and torch.sort's device ms:
+        the comparison free of host time and of the timer's noise."""
+        launches, k_ms = device_trace(kernel, "bitonic")
+        return {"launches_per_sort": launches, "device_ms": k_ms,
+                "torch_sort_device_ms": device_trace(library)[1]}
+
+    def network_ops(m):
+        log_m = ck.bitonic_pad_len(m).bit_length() - 1
+        return log_m * (log_m + 1) // 2 * (1 << (log_m - 1))
+
     # K12, one key plane, beside torch.sort of the same packed key; its
-    # operations are the network's compare-exchanges
+    # operations are the network's compare-exchanges; each row with its
+    # route, the kernels one sort launches and both device times
     for m in (1 << 10, 1 << 14, 1 << 17):
-        km, log_m = w[:m].clone(), ck.bitonic_pad_len(m).bit_length() - 1
-        row("bitonic", m, m * 8, lambda: ck.bitonic((km,), 1),
-            lambda: ck.bitonic_plain((km,), 1), lambda: torch.sort(km ^ i32(1 << 31)),
-            ops=log_m * (log_m + 1) // 2 * (1 << (log_m - 1)), n=m)
-    # K12 at the gate's top plane count (two key planes); no one torch call
+        km = w[:m].clone()
+        kernel, library = lambda: ck.bitonic((km,), 1), lambda: torch.sort(km ^ i32(1 << 31))
+        row("bitonic", m, m * 8, kernel, lambda: ck.bitonic_plain((km,), 1), library,
+            ops=network_ops(m), n=m, planes=1, route=k12_route(m, 1),
+            **k12_trace(kernel, library))
+    # K12 at 2^17 with (key, index) key planes, the stable rank, beside
+    # torch.sort of the packed int64 key (key << 32 | index, made before)
+    m = 1 << 17
+    km, ki = w[:m].clone(), idx32[:m].clone()
+    packed = ((km ^ i32(1 << 31)).long() << 32) | ki.long()
+    kernel, library = lambda: ck.bitonic((km, ki), 2), lambda: torch.sort(packed)
+    row("bitonic", m, m * 16, kernel, lambda: ck.bitonic_plain((km, ki), 2), library,
+        ops=network_ops(m), n=m, planes=2, route=k12_route(m, 2),
+        **k12_trace(kernel, library))
+    del packed
+    # K12 at the gate's top plane count (two key planes; the payloads ride an
+    # index plane, so the kernel sees three); no one torch call
     row("bitonic", 1024, 1024 * 4 * len(top_planes) * 2, lambda: ck.bitonic(top_planes, 2),
-        lambda: ck.bitonic_plain(top_planes, 2), ops=55 * 512, n=1024, planes=len(top_planes))
+        lambda: ck.bitonic_plain(top_planes, 2), ops=network_ops(1024), n=1024,
+        planes=len(top_planes), route=k12_route(1024, 3),
+        launches_per_sort=device_trace(lambda: ck.bitonic(top_planes, 2), "bitonic")[0])
     # E1 at the probe's 2^24 keys beside copy_; E2 beside its plain version
     # (the bound: xp read once, the cells written once; no one torch call)
     xd = w[: 1 << 24]
     copy_buf = torch.empty_like(xd)
     row("dma_copy", None, xd.numel() * 8, lambda: ck.dma_copy(xd),
         lambda: ck.dma_copy_plain(xd), lambda: copy_buf.copy_(xd), n=xd.numel())
+    copy_buf = torch.empty_like(w)
+    row("dma_copy", None, n * 8, lambda: ck.dma_copy(w), lambda: ck.dma_copy_plain(w),
+        lambda: copy_buf.copy_(w), n=n)
+    del copy_buf
     row("msd_spread", 128, xp.numel() * 4 + 128 * 128 * 24 * 128 * 4,
         lambda: ck.msd_spread(*spread_args), lambda: ck.msd_spread_plain(*spread_args),
         n=n_msd, capr=24)
@@ -1114,7 +1199,9 @@ def main() -> None:
     for name, rows in shapes.items():
         for r in rows:
             extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads",
-                                                     "tile", "planes", "capr", "ranks")
+                                                     "tile", "planes", "capr", "ranks",
+                                                     "route", "launches_per_sort",
+                                                     "device_ms", "torch_sort_device_ms")
                             if k in r)
             bins = "" if r["bins"] is None else f" bins={r['bins']}"
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

@@ -55,6 +55,7 @@ notes in ``csrc/`` say what bounds each kernel on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -71,7 +72,11 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "whist", "whist_plain", "whist_f32", "whist_f32_plain", "low32",
            "WHIST_MAX_BITS", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
            "lsd_scatter_plain", "LSD_MAX_BITS", "bitonic", "bitonic_plain",
-           "bitonic_pad_len", "BITONIC_MIN_PAD", "dma_copy", "dma_copy_plain",
+           "bitonic_pad_len", "BITONIC_MIN_PAD", "bitonic_route", "bitonic_trips",
+           "bitonic_swizzle", "bitonic_trip_dims", "BITONIC_REGISTER_PLANES",
+           "BITONIC_TRIP_WORDS", "BITONIC_RESIDENT_MAX_PAD",
+           "dma_copy", "dma_copy_plain",
+           "DMA_BULK_CHUNK_WORDS", "DMA_BULK_STAGES", "DMA_BULK_STORE_LAG",
            "msd_spread", "msd_spread_plain", "rdma_exchange", "rdma_exchange_plain",
            "RDMA_MAX_RANKS"]
 
@@ -689,6 +694,153 @@ def _exchange(x: torch.Tensor, num_keys: int, lo: torch.Tensor, hi: torch.Tensor
     x[:, hi] = torch.where(gt, a, b)
 
 
+_CLUSTER = 8                  # blocks of the cluster route: a portable cluster
+_CLUSTER_MIN_PAD = 8 * 1024   # at least 1,024 records a block
+_BLOCK_BYTES = 227 * 1024     # a block's shared memory on the H100
+BITONIC_REGISTER_PLANES = 4   # the resident route's planes; more take tiles
+BITONIC_TRIP_WORDS = 19       # head, coset bits, a code per basis vector and coset bit
+BITONIC_RESIDENT_MAX_PAD = 1 << (BITONIC_TRIP_WORDS - 2)   # a trip of 2^17 records fills 19 words
+
+
+def bitonic_route(n: int, nplanes: int) -> int:
+    """Blocks that run the whole network of n keys and ``nplanes`` planes
+    in one launch, every plane resident in their shared memory: 8 (one
+    cluster) when the padded size is at least 8 x 1,024, else 1; 0, and
+    the sort takes tiles plus steps through device memory, past 4 planes,
+    when the planes do not fit, or past a padded size of 2^17 (the gate's
+    largest, and the largest whose trips fit the kernel's table). Chosen
+    from the shape alone."""
+    size = bitonic_pad_len(n)
+    if nplanes > BITONIC_REGISTER_PLANES or size > BITONIC_RESIDENT_MAX_PAD:
+        return 0
+    blocks = _CLUSTER if size >= _CLUSTER_MIN_PAD else 1
+    return blocks if nplanes * (size // blocks) * 4 <= _BLOCK_BYTES else 0
+
+
+def bitonic_trip_dims(n: int, nplanes: int) -> int:
+    """Dimensions of a trip of the resident route: 2^5 records a thread
+    for one plane whose slice keeps 512 threads busy (2^14 records a
+    block), else 2^4. On the H100 the longer trips (fewer of them) won
+    only there; two planes, and smaller slices (fewer threads), ran faster
+    in 4."""
+    blocks = bitonic_route(n, nplanes)
+    return 5 if nplanes == 1 and blocks and bitonic_pad_len(n) // blocks >= 1 << 14 else 4
+
+
+def bitonic_swizzle(i: int) -> int:
+    """Shared-memory word of a block's record i: bits 5-9 and 10-14
+    folded into the bank bits (bijective below 2^15, and linear)."""
+    return i ^ ((i >> 5) & 31) ^ ((i >> 10) & 31)
+
+
+def _reduced_basis(vecs):
+    """The reduced row echelon basis of ``vecs`` over GF(2), as {pivot: vector}."""
+    basis = {}
+    for v in vecs:
+        for p, b in basis.items():
+            if v >> p & 1:
+                v ^= b
+        if not v:
+            return None
+        p = v.bit_length() - 1
+        for q in basis:
+            if basis[q] >> p & 1:
+                basis[q] ^= v
+        basis[p] = v
+    return basis
+
+
+@functools.lru_cache(maxsize=None)
+def bitonic_trips(log_n: int, blocks: int, dims: int) -> tuple:
+    """The network of 2^log_n records cut into trips for the kernel's
+    resident route, as int32 words (``BITONIC_TRIP_WORDS`` a trip).
+
+    A trip is a run of consecutive steps whose masks (i ^ (2^k - 1) for a
+    mirror, 2^j for a stride) are linearly independent over GF(2), at most
+    ``dims``, padded with unit vectors to a ``dims``-dimensional space V.
+    The records split into cosets r + V, closed under every step of the
+    trip, so one thread loads a coset's 2^dims records into registers, runs
+    the trip's steps on them in order and stores them: the same pairs in the
+    same order. In the reduced echelon basis w_0, w_1, .. of V (pivots
+    ascending), record e of a coset is r ^ (xor of the w_b with bit b of e
+    set); a stride is then the pair (e, e ^ 2^b) and a mirror (e, e ^
+    (2^(b+1) - 1)), lo the record with bit b clear, b the step's lead. A
+    trip whose cosets span blocks has no pivot below bit 5. Coset
+    representatives have zeros at the pivots; coset c sets the other bits
+    from c's bits, its five lowest on positions below the block size whose
+    bank bits (after :func:`bitonic_swizzle`) are independent where they can
+    be, so that a warp's 32 loads fall in 32 banks (and, crossing blocks, on
+    bits 0-4).
+
+    Words of a trip: the head (step s in bits 5s to 5s + 4: 1 | mirror << 1
+    | b << 2; bit 31: the trip crosses blocks), the number of coset bits,
+    then the codes of the w_b and of the coset bits, a code being (block <<
+    16) | swizzled word of the block's slice; codes are linear, so a
+    record's code is the xor of its bits' codes."""
+    log_s = log_n - (blocks.bit_length() - 1)
+    slice_mask = (1 << log_s) - 1
+
+    def code(v):
+        return (v >> log_s) << 16 | bitonic_swizzle(v & slice_mask)
+
+    steps = []
+    for k in range(1, log_n + 1):
+        steps.append((True, k - 1))
+        steps += [(False, j) for j in range(k - 2, -1, -1)]
+
+    def one_trip(run):
+        basis = _reduced_basis([v for _, _, v in run])
+        # a trip that crosses blocks keeps bits 0-4 for the lanes, so that
+        # a warp's remote reads are 128 contiguous bytes
+        return basis is not None and (max(basis) < log_s or min(basis) >= 5)
+
+    runs, cur = [], []
+    for mirror, lead in steps:
+        step = (mirror, lead, (2 << lead) - 1 if mirror else 1 << lead)
+        if len(cur) == dims or not one_trip(cur + [step]):
+            runs.append(cur)
+            cur = []
+        cur.append(step)
+    runs.append(cur)
+    words = []
+    for run in runs:
+        pivots = set(_reduced_basis([v for _, _, v in run]))
+        free = [q for q in range(min(log_s, 15)) if q not in pivots]
+        lanes = []
+        for q in free:                     # distinct bank bits first
+            if len(lanes) < 5 and q % 5 not in {p % 5 for p in lanes}:
+                lanes.append(q)
+        lanes += [q for q in free if q not in lanes][:5 - len(lanes)]
+        pads = [q for q in free if q not in lanes][:dims - len(run)]
+        basis = _reduced_basis([v for _, _, v in run] + [1 << q for q in pads])
+        order = sorted(basis)
+        head = 0
+        for s, (mirror, lead, _) in enumerate(run):
+            head |= (1 | mirror << 1 | order.index(lead) << 2) << (5 * s)
+        if order[-1] >= log_s:
+            head |= 1 << 31
+        coset_bits = lanes + sorted(set(range(log_n)) - set(order) - set(lanes))
+        trip = [head, len(coset_bits)] + [code(basis[p]) for p in order] + \
+            [code(1 << q) for q in coset_bits]
+        if len(trip) > BITONIC_TRIP_WORDS:
+            raise ValueError(f"bitonic_trips: 2^{log_n} records need {len(trip)} words "
+                             f"a trip, the kernel takes {BITONIC_TRIP_WORDS}")
+        words += trip + [0] * (BITONIC_TRIP_WORDS - len(trip))
+    return tuple(i32(w) for w in words)
+
+
+@functools.lru_cache(maxsize=None)
+def _bitonic_plan(size: int, nplanes: int):
+    """The route's blocks for a network of ``size`` and, on the resident
+    route, its trips as a ctypes array (else None): what the launch needs
+    besides pointers and n."""
+    blocks = bitonic_route(size, nplanes)
+    if not blocks:
+        return blocks, None
+    words = bitonic_trips(size.bit_length() - 1, blocks, bitonic_trip_dims(size, nplanes))
+    return blocks, (ctypes.c_int32 * len(words))(*words)
+
+
 def bitonic_plain(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
     """The network of csrc/bitonic.cu in torch, pair for pair: the planes
     stacked and padded to :func:`bitonic_pad_len` (all-ones keys, zero
@@ -721,7 +873,10 @@ def bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
     of :func:`bitonic_plain`).
 
     On the card the key planes go to the kernel as one stacked (planes, n)
-    array, so one launch takes every plane count the gate admits. Two or
+    array, so one call takes every plane count the gate admits: one launch
+    where the planes fit the shared memory of one block or one cluster
+    (:func:`bitonic_route`), tiles and steps through device memory past
+    that, the route chosen from the shape before the launch. Two or
     more payload planes ride one index plane through the network and are
     gathered once after it: the swaps depend on the keys alone, so the
     output is the same, and each exchange moves one word in place of
@@ -736,11 +891,14 @@ def bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
     if ride:
         planes = planes[:num_keys] + (torch.arange(n, dtype=torch.int32, device=planes[0].device),)
     src = planes[0] if len(planes) == 1 else torch.stack(planes)
-    out = torch.empty((len(planes), n), dtype=torch.int32, device=src.device)
+    out = torch.empty_like(src)
     if n:
+        blocks, words = _bitonic_plan(bitonic_pad_len(n), len(planes))
         _launch("rst_bitonic", src.device, src.data_ptr(), out.data_ptr(), len(planes),
-                num_keys, n)
+                num_keys, n, blocks, words, len(words) if words is not None else 0)
         LAUNCHES["bitonic"] += 1
+    if len(planes) == 1:
+        return (out,)
     if ride:
         return tuple(out[:num_keys].unbind(0)) + \
             tuple(torch.stack(payloads)[:, out[num_keys].long()].unbind(0))
@@ -751,6 +909,11 @@ def bitonic(planes: Sequence[torch.Tensor], num_keys: int) -> tuple:
 # E1 / E2: the kernels of the speed-of-light scripts
 
 
+DMA_BULK_CHUNK_WORDS = 4096   # E1's bulk copies: 16 KB chunks (csrc/sol.cu)
+DMA_BULK_STAGES = 12          # the ring's stages, one block per SM
+DMA_BULK_STORE_LAG = 4        # stores in flight before a stage is refilled
+
+
 def dma_copy_plain(x: torch.Tensor) -> torch.Tensor:
     """A copy of ``x``."""
     return x.clone()
@@ -759,7 +922,9 @@ def dma_copy_plain(x: torch.Tensor) -> torch.Tensor:
 def dma_copy(x: torch.Tensor) -> torch.Tensor:
     """E1: a copy of the plane ``x`` staged through shared memory in chunks
     (the contract of ``exp_sol_probe.probe_dma``'s DMA round trip, device
-    memory to on-chip memory and back); any length."""
+    memory to on-chip memory and back); any length. On the card, TMA bulk
+    copies through a ring of stages where both pointers are 16 bytes
+    aligned, word by word where one is not (``csrc/sol.cu``)."""
     _check_plane("dma_copy", x)
     if not use_gpu_routes(x):
         return dma_copy_plain(x)

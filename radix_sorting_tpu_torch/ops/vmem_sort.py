@@ -3,10 +3,11 @@
 The counterpart of ``radix_sorting_tpu.ops.vmem_sort``, whose Pallas kernel
 runs the whole bitonic network in one invocation with every plane resident
 in VMEM. Here :func:`.cuda_kernels.bitonic` runs it on the card
-(`csrc/bitonic.cu`): every step whose pairs lie inside a tile in shared
-memory in one launch per run of such steps, the wider steps through device
-memory. On a CPU tensor :func:`.cuda_kernels.bitonic_plain` runs the same
-pairs in torch.
+(`csrc/bitonic.cu`): in one launch where every plane fits the shared memory
+of one block or of one cluster of 8 (:func:`.cuda_kernels.bitonic_route`),
+else in tiles in shared memory with the wider steps through device memory.
+On a CPU tensor :func:`.cuda_kernels.bitonic_plain` runs the same pairs in
+torch.
 
 The gate and the errors are the JAX package's. Planes are the port's int32
 carriers of u32 bit patterns, compared unsigned. One difference, by design

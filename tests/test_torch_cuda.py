@@ -626,12 +626,43 @@ def test_bitonic_sorts_every_plane_count_the_gate_admits(cuda, n, planes, keys):
         assert all(torch.equal(x[perm], g) for x, g in zip(xs, got))
 
 
+@pytest.mark.parametrize("planes,keys", [(1, 1), (2, 1), (2, 2), (3, 2), (4, 3)])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 8191, 8193, (1 << 14) - 1, (1 << 14) + 1,
+                               (1 << 17) - 3, 1 << 17])
+def test_bitonic_routes_match_plain_with_ties(cuda, n, planes, keys):
+    # key words of 4 values: ties decide where the payloads go
+    xs = _bitonic_planes(n, planes, keys, 3 * n + planes, cuda, distinct=4)
+    blocks = ck.bitonic_route(n, planes)
+    size = ck.bitonic_pad_len(n)
+    # one cluster from 8,192 keys, one block below; 4 planes of 2^17 fill no cluster
+    assert blocks == (0 if (size, planes) == (1 << 17, 4) else 8 if size >= 8192 else 1)
+    before = ck.launch_counts()["bitonic"]
+    got = ck.bitonic(xs, keys)
+    assert ck.launch_counts()["bitonic"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.bitonic_plain(xs, keys)))
+
+
+@pytest.mark.parametrize("n,planes,keys,blocks", [
+    (1 << 17, 3, 1, 8), (1 << 17, 3, 3, 8),      # the last plane count in one cluster
+    (1 << 17, 4, 3, 0), (1 << 17, 12, 12, 0),    # past it: tiles and device-memory steps
+    (1 << 16, 4, 2, 8), (1 << 16, 7, 2, 0),      # past 4 planes: tiles
+    (4096, 4, 4, 1), (1024, 35, 34, 0), (4096, 14, 5, 0),
+    ((1 << 17) + 1, 1, 1, 0), (1 << 18, 1, 1, 0)])   # past 2^17 padded keys: tiles
+def test_bitonic_route_edges(cuda, n, planes, keys, blocks):
+    assert ck.bitonic_route(n, planes) == blocks
+    xs = _bitonic_planes(n, planes, keys, n + planes, cuda, distinct=4)
+    before = ck.launch_counts()["bitonic"]
+    got = ck.bitonic(xs, keys)
+    assert ck.launch_counts()["bitonic"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ck.bitonic_plain(xs, keys)))
+
+
 def test_lsd_and_bitonic_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
     from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem
 
     def boom(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
-    for name in ("lsd_hist_plain", "lsd_scatter_plain", "bitonic_plain"):
+    for name in ("lsd_hist_plain", "lsd_scatter_plain", "bitonic_plain", "dma_copy_plain"):
         monkeypatch.setattr(ck, name, boom)
     rng = np.random.Generator(np.random.PCG64(12))
     n = 1_000_003
@@ -660,6 +691,8 @@ def test_lsd_and_bitonic_entry_points_run_the_kernels(cuda, no_plain, monkeypatc
     sk, si = sort_planes_vmem((k, torch.arange(4097, dtype=torch.int32, device=cuda)), 2)
     assert np.array_equal(si.cpu().numpy(), np.argsort(x[:4097], kind="stable"))
     assert rt.launch_counts()["bitonic"] == 1
+    assert torch.equal(ck.dma_copy(k), k) and torch.equal(ck.dma_copy(k[3:]), k[3:])
+    assert rt.launch_counts()["dma_copy"] == 2
 
 
 @pytest.mark.parametrize("n", [1, 5, 8191, 8192, 8193, 1 << 24, (1 << 24) + 12_345])
@@ -669,6 +702,37 @@ def test_dma_copy_matches_plain(cuda, n):
     got = ck.dma_copy(x)
     assert ck.launch_counts()["dma_copy"] == before + 1
     assert torch.equal(got, ck.dma_copy_plain(x)) and got.data_ptr() != x.data_ptr()
+
+
+def _ring_words():
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ck.DMA_BULK_STAGES * ck.DMA_BULK_CHUNK_WORDS
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 8191, 8192, 8193, "ring-1", "ring", "ring+1",
+                               1 << 24, 40_000_000, (1 << 24) + 12_345])
+def test_dma_copy_sizes(cuda, n):
+    # below one 16-byte vector; chunk counts below, at and past SMs x stages
+    ring = _ring_words()
+    n = {"ring-1": ring - ck.DMA_BULK_CHUNK_WORDS, "ring": ring,
+         "ring+1": ring + ck.DMA_BULK_CHUNK_WORDS + 5}.get(n, n)
+    x = rand_plane(n, n + 1, cuda)
+    before = ck.launch_counts()["dma_copy"]
+    got = ck.dma_copy(x)
+    assert ck.launch_counts()["dma_copy"] == before + 1
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [5, 8193, 1_000_003])
+def test_dma_copy_offset_views(cuda, offset, n):
+    # offsets 1-3 words: misaligned, word by word; 4 words: aligned again
+    x = rand_plane(n + offset, offset, cuda)[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 4)
+    before = ck.launch_counts()["dma_copy"]
+    got = ck.dma_copy(x)
+    assert ck.launch_counts()["dma_copy"] == before + 1
+    assert torch.equal(got, x)
 
 
 def test_dma_copy_unaligned(cuda):

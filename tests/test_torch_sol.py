@@ -61,6 +61,52 @@ def test_dma_copy_rejects_bad_planes():
             ck.dma_copy(bad)
 
 
+def bulk_copy_issues(n, grid):
+    """The issuing thread of each block of E1's bulk-copy kernel, modelled:
+    per block, the (op, chunk) sequence it issues (csrc/sol.cu), with the
+    stage ring and the bulk groups' read waits checked as it goes."""
+    chunk, stages, lag = (ck.DMA_BULK_CHUNK_WORDS * 4, ck.DMA_BULK_STAGES,
+                          ck.DMA_BULK_STORE_LAG)
+    nbytes = (n >> 2) << 4
+    chunks = -(-nbytes // chunk)
+    out = []
+    for b in range(grid):
+        mine = -(-(chunks - b) // grid) if chunks > b else 0
+        ops, stage_of, stored_read = [], {}, -1
+        def load(j):
+            s = j % stages
+            prev = stage_of.get(s)
+            assert prev is None or prev <= stored_read       # its store has read it
+            stage_of[s] = j
+            ops.append(("load", b + j * grid))
+        for j in range(min(mine, stages)):
+            load(j)
+        for j in range(mine):
+            assert stage_of[j % stages] == j                  # loaded, not overwritten
+            ops.append(("store", b + j * grid))
+            if j >= lag and j - lag + stages < mine:
+                stored_read = j - lag                         # wait_group.read lag
+                load(j - lag + stages)
+        out.append(ops)
+    return out, chunks, nbytes
+
+
+@pytest.mark.parametrize("n,grid", [(1, 1), (3, 1), (4, 1), (5, 1), (8193, 2), (4096 * 12 * 3, 3),
+                                    (4096 * 12 * 3 + 7, 3), ((1 << 24) + 12_345, 132),
+                                    (40_000_000, 132)])
+def test_dma_bulk_copy_issues_every_chunk_once(n, grid):
+    issues, chunks, nbytes = bulk_copy_issues(n, grid)
+    for op in ("load", "store"):
+        got = sorted(c for ops in issues for o, c in ops if o == op)
+        assert got == list(range(chunks))
+    for ops in issues:                                    # each chunk loaded before its store
+        seen = set()
+        for o, c in ops:
+            assert o == "load" or c in seen
+            seen.add(c)
+    assert nbytes <= 4 * n < nbytes + 16                  # the tail: under 4 words, word by word
+
+
 # ---------------------------------------------------------------------------
 # E2
 

@@ -129,3 +129,150 @@ def test_gates_and_errors_match_jax():
                 lambda: tvs.sort_planes_vmem((x, torch.zeros(32, dtype=torch.int32)), 1)]:
         with pytest.raises(ValueError):
             bad()
+
+
+# ---------------------------------------------------------------------------
+# K12's resident route on the card, modelled in numpy: the trips of
+# cuda_kernels.bitonic_trips run as the kernel runs them (codes, swizzled
+# words, cosets of 2^dims records a thread, blocks of one cluster), held
+# against bitonic_plain
+
+
+def _resident_slices(planes, num_keys, blocks):
+    """The (blocks, planes, slice) shared memory after the kernel's load:
+    each block's slice at its swizzled words, padding keys all-ones."""
+    x = np.stack([p.numpy().view(np.uint32) for p in planes]).astype(np.uint64)
+    nplanes, n = x.shape
+    size = ck.bitonic_pad_len(n)
+    full = np.zeros((nplanes, size), np.uint64)
+    full[:, :n] = x
+    full[:num_keys, n:] = 0xFFFFFFFF
+    S = size // blocks
+    sw = np.array([ck.bitonic_swizzle(i) for i in range(S)])
+    smem = np.zeros((blocks, nplanes, S), np.uint64)
+    for r in range(blocks):
+        smem[r][:, sw] = full[:, r * S:(r + 1) * S]
+    return smem, sw, n
+
+
+def _unload(smem, sw, n):
+    return np.concatenate([s[:, sw] for s in smem], axis=1)[:, :n].astype(np.uint32)
+
+
+def _exchange_np(v, e, f, num_keys):
+    """Swap records e, f (axis 1 of (cosets, records, planes)) where key(e) > key(f)."""
+    a, b = v[:, e, :].copy(), v[:, f, :].copy()
+    gt, eq = np.zeros(len(a), bool), np.ones(len(a), bool)
+    for p in range(num_keys):
+        gt |= eq & (a[:, p] > b[:, p])
+        eq &= a[:, p] == b[:, p]
+    v[:, e, :] = np.where(gt[:, None], b, a)
+    v[:, f, :] = np.where(gt[:, None], a, b)
+
+
+def run_trips_np(planes, num_keys):
+    """The resident route: for each trip, every coset's records gathered by
+    code (block << 16 | swizzled word), the steps run in the coset's
+    coordinates, the records put back."""
+    nplanes, n = len(planes), planes[0].shape[0]
+    blocks = ck.bitonic_route(n, nplanes)
+    dims = ck.bitonic_trip_dims(n, nplanes)
+    smem, sw, n = _resident_slices(planes, num_keys, blocks)
+    size = ck.bitonic_pad_len(n)
+    words = np.array(ck.bitonic_trips(size.bit_length() - 1, blocks, dims), np.int64)
+    R = 1 << dims
+    for t in (words & 0xFFFFFFFF).reshape(-1, ck.BITONIC_TRIP_WORDS):
+        head, bits = int(t[0]), int(t[1])
+        c = np.arange(size // R)
+        code = np.zeros_like(c)
+        for b in range(bits):
+            code ^= np.where((c >> b) & 1, t[2 + dims + b], 0)
+        rel = np.zeros(R, np.int64)
+        for e in range(1, R):
+            rel[e] = rel[e & (e - 1)] ^ t[2 + (e & -e).bit_length() - 1]
+        at = code[:, None] ^ rel[None, :]
+        blk, word = at >> 16, at & 0xFFFF
+        assert np.unique(at).size == size          # every record once a trip
+        if not head >> 31:                         # a local trip stays in its block
+            assert (blk == (c * R // (size // blocks))[:, None]).all()
+        v = smem[blk, :, word]
+        for s in range(dims):
+            field = head >> (5 * s) & 31
+            if field & 1:
+                b, mirror = field >> 2, field >> 1 & 1
+                for e in range(R):
+                    if not e >> b & 1:
+                        _exchange_np(v, e, e ^ ((2 << b) - 1 if mirror else 1 << b), num_keys)
+        smem[blk, :, word] = v
+    return _unload(smem, sw, n)
+
+
+@pytest.mark.parametrize("n,nplanes,num_keys", [
+    (1, 1, 1), (1000, 2, 1), (1024, 1, 1), (1025, 2, 2), (4097, 3, 2), (8191, 1, 1),
+    (8193, 4, 3), (20_000, 2, 1), (1 << 14, 3, 3), (1 << 17, 1, 1), (3000, 4, 4),
+    ((1 << 16) - 5, 4, 1), ((1 << 17) - 3, 3, 2)])
+def test_resident_trips_run_the_network(n, nplanes, num_keys):
+    rng = rng_of(n + nplanes)
+    planes = [torch.from_numpy(rng.integers(0, 4 if p < num_keys else 1 << 32, size=n)
+                               .astype(np.uint32).view(np.int32)) for p in range(nplanes)]
+    assert ck.bitonic_route(n, nplanes) in (1, 8)
+    want = np.stack([p.numpy().view(np.uint32) for p in ck.bitonic_plain(planes, num_keys)])
+    assert np.array_equal(run_trips_np(planes, num_keys), want)
+
+
+def test_resident_route_is_chosen_by_shape():
+    # one cluster of 8 from 8 x 1,024 keys, one block below, up to 4 planes
+    # whose slices fit a block's 227 KB; past that, tiles (0)
+    assert ck.bitonic_route(8191, 1) == ck.bitonic_route(1 << 17, 3) == 8
+    assert ck.bitonic_route(1, 1) == ck.bitonic_route(4096, 4) == 1
+    assert ck.bitonic_route(1 << 17, 4) == ck.bitonic_route(4096, 5) == 0
+    assert ck.bitonic_route(1 << 16, 4) == 8 and ck.bitonic_route(1 << 16, 5) == 0
+    assert ck.bitonic_route(1024, 35) == ck.bitonic_route(1024, 1536) == 0
+    # past 2^17 padded keys the trips would not fit the kernel's table: tiles
+    assert ck.bitonic_route((1 << 17) + 1, 1) == ck.bitonic_route(1 << 18, 1) == 0
+    assert ck.bitonic_trip_dims(1 << 17, 1) == 5
+    assert ck.bitonic_trip_dims(1 << 16, 1) == ck.bitonic_trip_dims(1 << 17, 2) == 4
+
+
+@pytest.mark.parametrize("log_n", range(10, 18))
+def test_trip_tables_fit_the_kernel(log_n):
+    # at most 48 trips (the kernel's parameter block); a trip that crosses
+    # blocks keeps bits 0-4 for the lanes (128 contiguous bytes a warp)
+    blocks = 8 if log_n >= 13 else 1
+    for dims in (4, 5):
+        t = (np.array(ck.bitonic_trips(log_n, blocks, dims), np.int64)
+             & 0xFFFFFFFF).reshape(-1, ck.BITONIC_TRIP_WORDS)
+        assert len(t) <= 48 and (t[:, 1] == log_n - dims).all()
+        for trip in t[t[:, 0] >> 31 == 1]:
+            assert [int(c) for c in trip[2 + dims:7 + dims]] == [1, 2, 4, 8, 16]
+
+
+@pytest.mark.parametrize("dims", [4, 5])
+def test_trip_tables_past_the_kernel_are_refused(dims):
+    # 2^18 records take 20 words a trip; the kernel reads 19
+    with pytest.raises(ValueError, match="20 words"):
+        ck.bitonic_trips(18, 8, dims)
+
+
+def test_every_trip_shape_has_straight_line_code():
+    # csrc/bitonic.cu runs each trip shape it lists (RST_TRIP_SHAPES) as
+    # straight-line code and refuses a table with any other; every shape the
+    # schedules of the resident route's sizes make is listed
+    import re
+    from pathlib import Path
+    src = (Path(ck.__file__).resolve().parent.parent / "csrc" / "bitonic.cu").read_text()
+    body = re.search(r"#define RST_TRIP_SHAPES\(X\)((?:.*\\\n)*.*)", src).group(1)
+    listed = set()
+    for fields in re.findall(r"X\(([\d, ]+)\)", body):
+        listed.add(sum(int(f) << (5 * s) for s, f in enumerate(fields.split(","))))
+    assert len(listed) == 15
+    made = set()
+    for log_n in range(10, 18):
+        size = 1 << log_n
+        for nplanes in (1, 2, 3, 4):
+            blocks = ck.bitonic_route(size, nplanes)
+            if blocks:
+                dims = ck.bitonic_trip_dims(size, nplanes)
+                made |= {w & 0x1FFFFFF for w in ck.bitonic_trips(log_n, blocks, dims)
+                         [::ck.BITONIC_TRIP_WORDS]}
+    assert made and made <= listed
