@@ -20,7 +20,14 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      counts at 1,024 bins and without at 32,768 bins (f32 sums to the bound
      sum|w| * 2^-14 + 1e-5 of a float64 sum, printing the largest relative
      error); the LSD passes lsd_hist (L1) and lsd_scatter (L2) for one pass
-     at r = 8, 11 and 16 (key and index planes; the pass must be stable);
+     at r = 8, 11 and 16 (key and index planes; the pass must be stable),
+     and at the other shapes a caller may give them: tiles of 1,000 (r =
+     8), 4,096 and 8,191 (r = 11; with 1,000 each of L2's three staged
+     shapes), 3 keys (r = 1) and 65,536 keys (r = 12: eight stages of L2's
+     largest shape a tile), keys of which 90% share one
+     digit (r = 8 and 16), all keys one digit (r = 16: whole tiles of
+     65,536 keys in one bin), and three planes 1, 2 and 3 words off the
+     16-byte grid (r = 8 and 11);
      bitonic (K12) at 1,024, 4,097 and 131,072 keys: one key plane, (hi, lo)
      keys, (key, index) keys with a payload, and 16 key values with a
      payload and num_keys=1, whose records must stay a permutation (R1);
@@ -90,10 +97,14 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      torch call computes the same function, beside that call (CUDA events,
      steady-state loops); K1 on keys of which 90% are one value; the range
      probe's cost on full-entropy u32; torch.sort of int32 and int64 keys;
-     the LSD sort of u32 at r = 8 and 11 beside torch.sort of the same int32
-     keys and the AUTO sort, in turns, with its byte bound (12 bytes a key
-     for each live pass: L1 reads the plane, L2 reads and writes it); L1 and
-     L2 per pass; K12 at 2^10, 2^14 and 2^17 keys beside torch.sort of the
+     the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
+     beside torch.sort of the same int32 keys and the AUTO sort, in turns,
+     with its byte bound (12 bytes a key for each live pass: L1 reads the
+     plane, L2 reads and writes it); L1 and
+     L2 per pass, L2 with key and index planes and with the key plane
+     alone (the LSD sort's own pass), L1 also on keys of which 90% share
+     one digit, each with its kernel's device time (torch.profiler); K12
+     at 2^10, 2^14 and 2^17 keys beside torch.sort of the
      same packed key, and at 2^17 with (key, index) key planes beside
      torch.sort of the packed int64 key, each with its route, the kernels
      one sort launches and the device time of K12 and of torch.sort
@@ -426,6 +437,49 @@ def main() -> None:
         del got, ref, gk, gi, rk, ri, d
         print(f"[3 kernel] lsd_hist and lsd_scatter r={bits} tile={tile}: equal to plain "
               "(max |err| 0), one stable pass", flush=True)
+    # L1 and L2 at the other shapes a caller may give them, at n keys: short
+    # and odd tiles, skewed keys (at r = 16 whole tiles of 65,536 keys in one
+    # bin), and key and payload planes 1, 2 and 3 words off the 16-byte grid
+    skew90 = w.clone()
+    skew90[: n * 9 // 10] = 0x5A5A5A5A
+    one_digit = torch.full_like(w, 0x5A5A5A5A)
+    grid = torch.empty(4 * (n + 4), dtype=torch.int32, device=dev)
+    views = [grid[k * (n + 4) + k: k * (n + 4) + k + n] for k in (1, 2, 3)]
+    for v, src in zip(views, (w, idx32, lo64)):
+        v.copy_(src)
+    lsd_cases = [("short tile", w, 8, 1000, (w, idx32)),
+                 ("mid tile", w, 11, 4096, (w, idx32)),
+                 ("odd tile", w, 11, 8191, (w, idx32)),
+                 ("tiny tile", w, 1, 3, (w, idx32)),
+                 ("several stages a tile", w, 12, 65_536, (w, idx32)),
+                 ("90% one digit", skew90, 8, lsd_engine.lsd_tile(8192, 8), (skew90, idx32)),
+                 ("90% one digit", skew90, 16, lsd_engine.lsd_tile(8192, 16), (skew90, idx32)),
+                 ("all one digit", one_digit, 16, lsd_engine.lsd_tile(8192, 16),
+                  (one_digit, idx32)),
+                 ("planes 1-3 words off the grid", views[0], 8, lsd_engine.lsd_tile(8192, 8),
+                  tuple(views)),
+                 ("planes 1-3 words off the grid", views[0], 11,
+                  lsd_engine.lsd_tile(8192, 11), tuple(views))]
+    for label, keys_in, bits, tile, planes in lsd_cases:
+        got, ref = ck.lsd_hist(keys_in, 0, bits, tile), ck.lsd_hist_plain(keys_in, 0, bits, tile)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        errs["lsd_hist"] = max(errs["lsd_hist"], err)
+        if err or int(got.long().sum()) != n:
+            fail(f"lsd_hist r={bits} tile={tile} {label}: max |err| {err}")
+        bases = scan.scatter_bases(got)
+        del got, ref
+        gp = ck.lsd_scatter(keys_in, planes, 0, bits, tile, bases)
+        rp = ck.lsd_scatter_plain(keys_in, planes, 0, bits, tile, bases)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(gp, rp))
+        errs["lsd_scatter"] = max(errs["lsd_scatter"], err)
+        if err:
+            fail(f"lsd_scatter r={bits} tile={tile} {label}: max |err| {err}")
+        del gp, rp, bases
+        print(f"[3 kernel] lsd_hist and lsd_scatter r={bits} tile={tile} {label}, "
+              f"{len(planes)} planes: equal to plain (max |err| 0)", flush=True)
+    del skew90, one_digit, grid, views
     # K12: the records of equal key tuples must stay a permutation (R1)
     for m in (1024, 4097, 131_072):
         dup, iota = w[:m] & 15, idx32[:m]
@@ -1105,19 +1159,6 @@ def main() -> None:
                                 device=dev).index_add_(0, idx, weights),
             reads=max(1, bins * per_bin >> 17))
     del idx
-    # L1 beside torch.bincount of the precomputed tile-major digits; L2
-    # (keys and an index plane) has no one torch call
-    for bits, (tile, bases) in lsd_inputs.items():
-        bins, tiles = 1 << bits, -(-n // tile)
-        g = (torch.arange(n, device=dev) // tile) * bins + (w.long() & (bins - 1))
-        row("lsd_hist", bins, n * 4 + tiles * bins * 4,
-            lambda: ck.lsd_hist(w, 0, bits, tile), lambda: ck.lsd_hist_plain(w, 0, bits, tile),
-            lambda: torch.bincount(g, minlength=tiles * bins), tile=tile)
-        del g
-        row("lsd_scatter", bins, n * 16 + tiles * bins * 4,
-            lambda: ck.lsd_scatter(w, (w, idx32), 0, bits, tile, bases),
-            lambda: ck.lsd_scatter_plain(w, (w, idx32), 0, bits, tile, bases),
-            tile=tile, planes=2)
     def device_trace(fn, name=None, calls=8):
         """(kernels named ``name`` that one call of fn launches on the card,
         their device ms per call): torch.profiler over ``calls`` calls;
@@ -1139,6 +1180,39 @@ def main() -> None:
                         sum(e.self_device_time_total for e in events) / calls / 1e3)
         fail(f"no {name or 'device'} event traced in three windows of {calls} calls")
 
+    # L1 beside torch.bincount of the precomputed tile-major digits; L2 with
+    # keys and an index plane (as argsort carries) and with the key plane
+    # alone (the LSD sort's own pass), no one torch call; each with the
+    # device time of its kernel
+    for bits, (tile, bases) in lsd_inputs.items():
+        bins, tiles = 1 << bits, -(-n // tile)
+        g = (torch.arange(n, device=dev) // tile) * bins + (w.long() & (bins - 1))
+        kernel = lambda: ck.lsd_hist(w, 0, bits, tile)
+        row("lsd_hist", bins, n * 4 + tiles * bins * 4, kernel,
+            lambda: ck.lsd_hist_plain(w, 0, bits, tile),
+            lambda: torch.bincount(g, minlength=tiles * bins), tile=tile,
+            device_ms=device_trace(kernel, "lsd_hist")[1])
+        del g
+        for planes in ((w, idx32), (w,)):
+            kernel = lambda: ck.lsd_scatter(w, planes, 0, bits, tile, bases)
+            row("lsd_scatter", bins, n * 8 * len(planes) + tiles * bins * 4, kernel,
+                lambda: ck.lsd_scatter_plain(w, planes, 0, bits, tile, bases),
+                tile=tile, planes=len(planes),
+                device_ms=device_trace(kernel, "lsd_scatter")[1])
+    # L1 where 90% of the keys share one digit (one shared address a warp)
+    skew90 = w.clone()
+    skew90[: n * 9 // 10] = 0x5A5A5A5A
+    for bits in (8, 16):
+        tile = lsd_engine.lsd_tile(8192, bits)
+        bins, tiles = 1 << bits, -(-n // tile)
+        g = (torch.arange(n, device=dev) // tile) * bins + (skew90.long() & (bins - 1))
+        kernel = lambda: ck.lsd_hist(skew90, 0, bits, tile)
+        row("lsd_hist", bins, n * 4 + tiles * bins * 4, kernel,
+            lambda: ck.lsd_hist_plain(skew90, 0, bits, tile),
+            lambda: torch.bincount(g, minlength=tiles * bins), tile=tile,
+            keys="90% one digit", device_ms=device_trace(kernel, "lsd_hist")[1])
+        del g
+    del skew90
     def k12_trace(kernel, library):
         """K12's launches and device ms per sort, and torch.sort's device ms:
         the comparison free of host time and of the timer's noise."""
@@ -1223,7 +1297,11 @@ def main() -> None:
 
     # the LSD sort against torch.sort of the same int32 keys and the AUTO
     # sort, in turns; bound: 12 bytes a key for each live pass
+    # (and at r = 8 without the live-digit read, skip_trivial_digits=False:
+    # the passes alone)
     turns = {"AUTO": lambda: rt.sort(xf), "LSD r=8": lambda: rt.sort(xf, config=lsd8),
+             "LSD r=8 passes alone": lambda: rt.sort(
+                 xf, config=lsd8.replace(skip_trivial_digits=False)),
              "LSD r=11": lambda: rt.sort(xf, config=lsd11),
              "torch.sort int32": lambda: torch.sort(w)}
     got_ms = {k: [] for k in turns}

@@ -18,50 +18,105 @@
 //     With bases from scan.scatter_bases this is one stable pass: within a
 //     tile the j-th key of a digit takes the j-th slot the bases give it.
 //
-// Bound on the H100: a pass must read each plane once and write it once;
-// L1 reads the digit plane once more. Design, simple first:
-//   * L1: one block of 256 threads per tile, a private histogram in shared
-//     memory (shared atomics) written out whole, zeros included. At 2^16
-//     bins the 256 KB table does not fit a block: the block adds into its
-//     own row of the output with global atomics (zeroed before the launch).
-//   * L2, staged (digits of up to 11 bits, tiles of up to 8,192 keys): one
-//     block of W warps per tile (W = 8 up to 2^8 bins, else 4), each warp
-//     taking a contiguous W-th of the tile. The warps count their digits
-//     (shared atomics into a row of their own), one scan turns the counts
-//     into each warp's first slot per digit in the tile sorted by digit,
-//     and each warp then walks its keys in input order, 32 at a time:
-//     __match_any_sync on the digit gives the lanes of the same digit, a
-//     lane's rank among them is the popcount of the lower lanes, and the
-//     lowest lane moves the warp's running slot on by the group's size. The
-//     keys land in shared memory in the tile's stable digit order, and the
-//     block writes them out in that order: slot j of digit d goes to
-//     bases[t][d] + j - (the tile's first slot of d), so neighbouring
-//     threads write runs of one digit. Every other plane takes the same
-//     slots through the same buffer. The first version wrote each key
-//     straight to its slot from the warp step, 32 digits a store; on the
-//     H100 those scattered 4-byte writes ran at about 16 G a second
-//     (PERF.md, section 6), a tenth of the bound.
-//   * L2, direct (wider digits or longer tiles): that first version, one
-//     warp per tile, its running counters the tile's base row in shared
-//     memory up to 2^12 bins, else in a global-memory copy of the row.
-//     Uncoalesced 4-byte writes. Both forms take at most 32 planes a launch.
-//   * The tile bounds the histogram: tiles * 2^bits int32 are written, scanned
-//     and read once per pass, so the caller takes tiles of at least 2^bits
-//     keys.
+// Bound on the H100: bytes. A pass must read each plane once and write it
+// once; L1 reads the digit plane once more and writes tiles * 2^bits
+// counters. Neither does arithmetic worth counting.
+//
+// L1 (per-tile histogram). One block of 256 threads per (tile, counter
+// range). What held the first version back: one scalar load a thread a
+// step, every thread of the block adding into one shared table, and past
+// 2^15 bins a cudaMemsetAsync of the whole (tiles x 2^16) output followed
+// by one global atomic a key. Now:
+//   * the tile is read in 16-byte loads, four in flight a thread (a head of
+//     up to 3 words brings the read onto the 16-byte grid, whatever the
+//     tile's start; a tail of up to 3 words ends it);
+//   * counters in shared memory only: 2^bits of them, or ranges of 2^14
+//     (64 KB) when 2^bits is larger, one grid block per (tile, range), the
+//     ranges of a tile neighbours in the grid so that their re-reads of the
+//     tile (256 KB at 16 bits) come from the L2 cache;
+//   * while copies x range <= 8,192 counters, each warp (or group of warps)
+//     adds into a sub-histogram of its own (8 at r = 8, 4 at r = 11), and
+//     the copies are summed as the row is written;
+//   * the block writes its whole row (or range of it), zeros included: no
+//     memset and no global atomic at any digit width.
+//
+// L2 (stable scatter), staged form (digits of up to 12 bits, any tile). What
+// held the first staged version back: the key plane read from device memory
+// twice (count, then rank), every other plane read one scalar word a thread,
+// one key a lane per rank step, 8 warps and 74 KB of shared memory a block,
+// 4 warps at r = 11, and the rank's __match_any_sync, which takes a pass per
+// distinct digit. Now one block per tile, in stages of S = threads x
+// keys-a-thread keys (the host picks the shape, cuda_kernels.
+// lsd_scatter_shape; the entry refuses any other):
+//   * a thread loads its K keys of the stage into registers once (warp w
+//     holds stage positions [w * 32K, (w + 1) * 32K), lane l the positions
+//     w * 32K + k * 32 + l: coalesced words at any alignment, K loads in
+//     flight), and the first payload plane's K words right after them, so
+//     that they land while the keys are ranked;
+//   * count and rank in one pass over the keys in registers (Onesweep's
+//     block rank, Adinets & Merrill 2022, without its look-back): for k in
+//     order, one ballot a digit bit gives the lanes of the same digit
+//     (peers_of; unrolled for the engine's 8- and 11-bit digits), a lane's
+//     rank among them the popcount of the lower lanes, and the group's
+//     highest lane moves the warp's counter of the digit on; one scan over
+//     (digit, warp), digit-major, then gives each key its slot in the
+//     stage's stable digit order;
+//   * the keys land in shared memory at their slots and the block writes
+//     them out in slot order, so that neighbouring threads write runs of one
+//     digit: slot j of digit d goes to run[d] + j - first[d], where run[d]
+//     is bases[t][d] plus the keys of d in the tile's earlier stages
+//     (kept in shared memory across the stages of a long tile);
+//   * each write-out thread keeps its K destinations in registers, and
+//     every payload plane goes through the same slots: its words (loaded
+//     while the previous plane was written) to the slots, one barrier, out
+//     to the destinations. Each plane of a tile is read from device memory
+//     once; a group of planes without the digit plane still reads the keys
+//     once, for the digits, and does not write them;
+//   * the slots' indices are kept two to a register, 16 bits each, so a
+//     stage holds at most 65,536 keys.
+// What bounds it now: the SM's issue and shared-memory pipes, not device
+// memory. Trial builds (scratch copies, not kept) with the pass's reads or
+// its writes taken out ran no faster; with the rank taken out, several times
+// faster. The ballots are the rank's largest part, then the staging into
+// slots, the writes and the scan. Tried and dropped: a block-local LSD sort
+// of the stage in 4- to 6-bit passes with per-thread counters (no votes, but
+// about four times the shared-memory traffic: slower); a returning shared
+// atomic in place of the leader's update; folding the digits' first slots
+// into the per-warp counters; issuing the payload loads after the rank;
+// staging the first payload plane in a second row of slots beside the keys.
+// L2, direct form (digits of 13 to 16 bits): one warp per tile walks the
+// tile in input order, 32 keys a step, peers_of on the digit, and
+// stores each key and payload word straight to its destination; the
+// running counters are a device-memory copy of the bases (cudaMemcpyAsync),
+// a tile's row (256 KB at 16 bits) staying in the L2 cache.
+// At 16 bits and 40M keys a (tile, digit) run averages about one key, so the
+// pass is a scatter of 4-byte words whatever its form: the bytes bound is
+// out of reach there. Both forms take at most 32 planes a launch.
+//
+// The tile bounds the histogram: tiles * 2^bits int32 are written, scanned
+// and read once per pass, so the caller takes tiles of at least 2^bits keys.
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <utility>
 
 namespace {
 
-constexpr int kHistThreads = 256;
-constexpr int kHistSharedMaxBits = 15;     // 128 KB of counters in one block
-constexpr int kScatterSharedMaxBits = 12;  // 16 KB of counters per warp
-constexpr int kStageMaxBits = 11;          // staged L2: W * bins <= 8,192 counters
-constexpr int kStageMaxTile = 8192;        // staged L2: the tile in shared memory
 constexpr int kMaxPlanes = 32;
-constexpr int kUnroll = 4;                 // key loads in flight per lane
+constexpr int kBlockSmemMax = 232448;       // a block's shared memory on the H100
+
+// L1
+constexpr int kHistThreads = 256;
+constexpr int kHistRangeMaxBits = 14;       // 2^14 int32 counters (64 KB) a block
+constexpr int kHistCopyCounters = 8192;     // sub-histograms while copies x range fit
+constexpr int kHistUnroll = 4;              // 16-byte loads in flight a thread
+
+// L2
+constexpr int kStageMaxBits = 12;           // staged form: digits of up to 12 bits; direct past
+constexpr int kUnroll = 4;                  // direct form: key loads in flight a lane
+
+// The staged L2's shapes (threads, keys a thread); cuda_kernels.py
+// LSD_STAGE_SHAPES lists the same.
+#define RST_LSD_SHAPES(X) X(256, 8) X(256, 16) X(256, 32)
 
 struct Planes {
   const uint32_t* in[kMaxPlanes];
@@ -70,47 +125,108 @@ struct Planes {
   int digit;  // the index of the digit plane among them, or -1
 };
 
+// Shared-memory bytes of a staged L2 block: per-warp counters, the digits'
+// first slots, destination offsets and running bases, 32 warp sums, and the
+// stage's slots.
+constexpr long long stage_smem(int threads, int keys, int bits) {
+  return 4LL * ((threads / 32 + 3) * (1LL << bits) + 32 + static_cast<long long>(threads) * keys);
+}
+
 __global__ void __launch_bounds__(kHistThreads)
 lsd_hist_kernel(const uint32_t* __restrict__ w, long long n, int shift, int bits,
-                long long tile, int* __restrict__ hist) {
+                long long tile, int range_bits, int copies, int* __restrict__ hist) {
   extern __shared__ int local[];
-  const int bins = 1 << bits;
-  const uint32_t digit_mask = static_cast<uint32_t>(bins) - 1u;
-  const bool in_shared = bits <= kHistSharedMaxBits;
-  int* row = hist + static_cast<long long>(blockIdx.x) * bins;
-  int* counters = in_shared ? local : row;
-  if (in_shared) {
-    for (int b = threadIdx.x; b < bins; b += blockDim.x) local[b] = 0;
-    __syncthreads();
+  const int ranges = 1 << (bits - range_bits);
+  const long long t = blockIdx.x / ranges;
+  const uint32_t range = blockIdx.x % ranges;
+  const int size = 1 << range_bits;
+  const uint32_t digit_mask = (1u << bits) - 1u;
+  int4* local4 = reinterpret_cast<int4*>(local);
+  for (int c = threadIdx.x; c < (copies * size) / 4; c += blockDim.x) {
+    local4[c] = make_int4(0, 0, 0, 0);
   }
-  const long long first = static_cast<long long>(blockIdx.x) * tile;
+  __syncthreads();
+  int* mine = local + ((threadIdx.x >> 5) % copies) * size;
+  auto add = [&](uint32_t v) {
+    const uint32_t d = (v >> shift) & digit_mask;
+    if ((d >> range_bits) == range) atomicAdd(mine + (d & (size - 1)), 1);
+  };
+  const long long first = t * tile;
   const long long end = min(n, first + tile);
-  for (long long i = first + threadIdx.x; i < end; i += blockDim.x) {
-    atomicAdd(counters + ((__ldg(w + i) >> shift) & digit_mask), 1);
+  const long long lead = (4 - ((reinterpret_cast<uintptr_t>(w + first) >> 2) & 3)) & 3;
+  const long long body = min(end, first + lead);
+  for (long long i = first + threadIdx.x; i < body; i += blockDim.x) add(__ldg(w + i));
+  const long long quads = (end - body) >> 2;
+  const uint4* w4 = reinterpret_cast<const uint4*>(w + body);
+  for (long long q0 = threadIdx.x; q0 < quads; q0 += kHistUnroll * blockDim.x) {
+    uint4 v[kHistUnroll];
+#pragma unroll
+    for (int u = 0; u < kHistUnroll; ++u) {
+      const long long q = q0 + u * blockDim.x;
+      if (q < quads) v[u] = __ldg(w4 + q);
+    }
+#pragma unroll
+    for (int u = 0; u < kHistUnroll; ++u) {
+      if (q0 + u * blockDim.x < quads) {
+        add(v[u].x);
+        add(v[u].y);
+        add(v[u].z);
+        add(v[u].w);
+      }
+    }
   }
-  if (in_shared) {
-    __syncthreads();
-    for (int b = threadIdx.x; b < bins; b += blockDim.x) row[b] = local[b];
+  for (long long i = body + 4 * quads + threadIdx.x; i < end; i += blockDim.x) {
+    add(__ldg(w + i));
   }
+  __syncthreads();
+  int* row = hist + (t << bits) + (static_cast<long long>(range) << range_bits);
+  for (int b = threadIdx.x; b < size; b += blockDim.x) {
+    int sum = 0;
+    for (int c = 0; c < copies; ++c) sum += local[c * size + b];
+    row[b] = sum;
+  }
+}
+
+// The lanes of the warp whose bit b of `label` equals this lane's: one
+// ballot (CUB's MatchAny, bit by bit).
+__device__ __forceinline__ unsigned same_bit(uint32_t label, int b) {
+  unsigned mask;
+  asm("{\n .reg .pred p;\n and.b32 %0, %1, %2;\n setp.ne.u32 p, %0, 0;\n"
+      " vote.ballot.sync.b32 %0, p, 0xffffffff;\n @!p not.b32 %0, %0;\n}\n"
+      : "=r"(mask) : "r"(label), "r"(1u << b));
+  return mask;
+}
+
+// The lanes of the warp whose digit d (its low `bits` bits; B > 0: B bits
+// known when compiled, the ballots unrolled) equals this lane's, from one
+// ballot a digit bit: the native __match_any_sync takes a pass per distinct
+// value, and at 2^8 bins and more a warp's 32 digits are nearly all distinct
+// (the first L2 spent most of its time there). Lanes with ok false group
+// only with each other; every lane of the warp calls it.
+template <int B>
+__device__ __forceinline__ unsigned peers_of(uint32_t d, int bits, bool ok, bool all_ok) {
+  unsigned peers = 0xFFFFFFFFu;
+  if (!all_ok) {
+    const unsigned vote = __ballot_sync(0xFFFFFFFFu, ok);
+    peers = ok ? vote : ~vote;
+  }
+  if (B > 0) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) peers &= same_bit(d, b);
+  } else {
+    for (int b = 0; b < bits; ++b) peers &= same_bit(d, b);
+  }
+  return peers;
 }
 
 __global__ void __launch_bounds__(32)
 lsd_scatter_kernel(const uint32_t* __restrict__ w, Planes planes, long long n, int shift,
-                   int bits, long long tile, const int* __restrict__ bases,
-                   int* __restrict__ global_counters) {
-  extern __shared__ int local[];
+                   int bits, long long tile, int* __restrict__ counters_all) {
   const int bins = 1 << bits;
   const uint32_t digit_mask = static_cast<uint32_t>(bins) - 1u;
   const int lane = threadIdx.x;
   const long long t = blockIdx.x;
-  int* counters;
-  if (global_counters != nullptr) {
-    counters = global_counters + t * bins;   // the caller's copy of the bases
-  } else {
-    counters = local;
-    for (int b = lane; b < bins; b += 32) local[b] = bases[t * bins + b];
-    __syncwarp();
-  }
+  int* counters = counters_all + t * bins;   // the tile's row of the caller's copy of the bases
   const unsigned below = (1u << lane) - 1u;
   const long long first = t * tile;
   const long long end = min(n, first + tile);
@@ -125,10 +241,10 @@ lsd_scatter_kernel(const uint32_t* __restrict__ w, Planes planes, long long n, i
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = chunk + u * 32 + lane;
       const bool valid = i < end;
-      // past the tile's end: a digit no key has (bins <= 2^16), so those
-      // lanes group only with each other and take no counter
-      const uint32_t d = valid ? (v[u] >> shift) & digit_mask : 0xFFFFFFFFu;
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+      // lanes past the tile's end group only with each other and take no
+      // counter
+      const uint32_t d = (v[u] >> shift) & digit_mask;
+      const unsigned peers = peers_of<0>(d, bits, valid, chunk + 32 * (u + 1) <= end);
       const int leader = __ffs(peers) - 1;
       int start = 0;
       if (lane == leader && valid) start = counters[d];
@@ -170,92 +286,225 @@ __device__ int block_exclusive_sum(int x, int* warp_sums) {
   return v - x + warp_sums[warp];
 }
 
-// Staged L2: one block of blockDim / 32 warps per tile; shared memory (ints):
-// per-warp counters (warps * bins), each digit's destination offset (bins),
-// 32 warp sums, then the tile's slots (tile words), each input key's slot and
-// each slot's digit (tile 16-bit words each).
-__global__ void lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes,
-                                          long long n, int shift, int bits, int tile,
-                                          const int* __restrict__ bases) {
+// K 16-bit values, two to a register; k is a compile-time index once the
+// loops that use it are unrolled.
+template <int K>
+struct Halves {
+  uint32_t word[(K + 1) / 2];
+  __device__ __forceinline__ uint32_t get(int k) const {
+    return (word[k >> 1] >> ((k & 1) * 16)) & 0xFFFFu;
+  }
+  __device__ __forceinline__ void set(int k, uint32_t v) {
+    const int s = (k & 1) * 16;
+    word[k >> 1] = (word[k >> 1] & ~(0xFFFFu << s)) | (v << s);
+  }
+};
+
+// The staged L2's rank: for each of a thread's K keys (stage position
+// own_first + 32k) its rank among the earlier keys of its digit in its warp
+// (input order: step k, then the lanes), the warp's counters `own` moved on
+// by each step's group. The group is one ballot a digit bit (peers_of<B>; B
+// = 0: the width at run time); its highest lane moves the counter on.
+template <int B, int K>
+__device__ __forceinline__ void warp_rank(const uint32_t (&key)[K], Halves<K>& rank, int* own,
+                                          int shift, int bits, int own_first, int valid,
+                                          bool full) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const uint32_t digit_mask = (1u << bits) - 1u;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool ok = full || own_first + k * 32 < valid;
+    const uint32_t d = (key[k] >> shift) & digit_mask;
+    const unsigned peers = peers_of<B>(d, bits, ok, full);
+    const int leader = 31 - __clz(peers);
+    int start = 0;
+    if (lane == leader && ok) {
+      start = own[d];
+      own[d] = start + __popc(peers);
+    }
+    start = __shfl_sync(0xFFFFFFFFu, start, leader);
+    rank.set(k, static_cast<uint32_t>(start + __popc(peers & below)));
+    __syncwarp();  // the next step's leaders see the moved counters
+  }
+}
+
+// The first plane after p that is not the digit plane (planes.count: none).
+__device__ __forceinline__ int next_payload(const Planes& planes, int p) {
+  ++p;
+  return p == planes.digit ? p + 1 : p;
+}
+
+// Blocks an SM the registers allow: a thread holds 3K words (its keys or
+// destinations, the carried plane, its slots two to a word) and about 32
+// more.
+template <int T, int K>
+constexpr int stage_blocks_per_sm() {
+  return 65536 / (T * (3 * K + 32));
+}
+
+// Staged L2: one block of T threads per tile, the tile in stages of T * K
+// keys; shared memory (ints): counters [T / 32][bins], first [bins],
+// dest_off [bins], run [bins], 32 warp sums, slots [T * K].
+template <int T, int K>
+__global__ void __launch_bounds__(T, stage_blocks_per_sm<T, K>())
+lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long long n,
+                          int shift, int bits, long long tile, const int* __restrict__ bases) {
+  constexpr int kWarps = T / 32;
+  constexpr int kStage = T * K;
   extern __shared__ int smem[];
   const int bins = 1 << bits;
   const uint32_t digit_mask = static_cast<uint32_t>(bins) - 1u;
-  const int warps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int* counters = smem;                      // [warps][bins]
-  int* dest = counters + warps * bins;       // [bins]
-  int* warp_sums = dest + bins;              // [32]
-  uint32_t* slots = reinterpret_cast<uint32_t*>(warp_sums + 32);
-  uint16_t* slot_of = reinterpret_cast<uint16_t*>(slots + tile);
-  uint16_t* digit_of = slot_of + tile;
+  int* counters = smem;                       // [kWarps][bins]
+  int* first = counters + kWarps * bins;      // [bins]: the stage's counts, then first slots
+  int* dest_off = first + bins;               // [bins]: destination of slot j is dest_off + j
+  int* run = dest_off + bins;                 // [bins]: the tile's bases past earlier stages
+  int* warp_sums = run + bins;                // [32]
+  uint32_t* slots = reinterpret_cast<uint32_t*>(warp_sums + 32);  // [kStage]
   const long long t = blockIdx.x;
-  const long long first = t * tile;
-  const int valid = static_cast<int>(min(static_cast<long long>(tile), n - first));
-  const int span = ((tile + warps - 1) / warps + 31) & ~31;
-  const int lo = min(valid, warp * span), hi = min(valid, lo + span);
-
-  for (int c = threadIdx.x; c < warps * bins; c += blockDim.x) counters[c] = 0;
-  __syncthreads();
+  const long long tile_first = t * tile;
+  const long long tile_end = min(n, tile_first + tile);
+  const bool staged_run = tile_end - tile_first > kStage;
+  const int* base_row = bases + t * bins;
+  if (staged_run) {
+    for (int d = threadIdx.x; d < bins; d += T) run[d] = base_row[d];
+  }
+  const int own_first = warp * 32 * K + lane;  // the thread's first stage position
   int* own = counters + warp * bins;
-  for (int i = lo + lane; i < hi; i += 32) {
-    atomicAdd(own + ((__ldg(w + first + i) >> shift) & digit_mask), 1);
-  }
-  __syncthreads();
-  // each warp's first slot per digit: the tile's first slot of the digit
-  // plus the digit's keys in the earlier warps
-  const int per = (bins + blockDim.x - 1) / blockDim.x;
-  const int d0 = min(bins, threadIdx.x * per), d1 = min(bins, d0 + per);
-  int sum = 0;
-  for (int d = d0; d < d1; ++d) {
-    int running = 0;
-    for (int v = 0; v < warps; ++v) {
-      const int c = counters[v * bins + d];
-      counters[v * bins + d] = running;
-      running += c;
+  const int payload0 = next_payload(planes, -1);
+  uint32_t* key_out = planes.digit >= 0 ? planes.out[planes.digit] : nullptr;
+  for (long long s0 = tile_first; s0 < tile_end; s0 += kStage) {
+    const int valid = static_cast<int>(min(static_cast<long long>(kStage), tile_end - s0));
+    uint32_t key[K], carried[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int p = own_first + k * 32;
+      key[k] = p < valid ? __ldg(w + s0 + p) : 0u;
     }
-    dest[d] = running;
-    sum += running;
-  }
-  int start = block_exclusive_sum(sum, warp_sums);
-  for (int d = d0; d < d1; ++d) {
-    const int count = dest[d];
-    dest[d] = bases[t * bins + d] - start;
-    for (int v = 0; v < warps; ++v) counters[v * bins + d] += start;
-    start += count;
-  }
-  __syncthreads();
-  const unsigned below = (1u << lane) - 1u;
-  for (int i0 = lo; i0 < hi; i0 += 32) {
-    const int i = i0 + lane;
-    const bool ok = i < hi;
-    const uint32_t v = ok ? __ldg(w + first + i) : 0u;
-    const uint32_t d = ok ? (v >> shift) & digit_mask : 0xFFFFFFFFu;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    const int leader = __ffs(peers) - 1;
-    int slot = 0;
-    if (lane == leader && ok) slot = own[d];
-    slot = __shfl_sync(0xFFFFFFFFu, slot, leader);
-    if (lane == leader && ok) own[d] = slot + __popc(peers);
-    __syncwarp();
-    if (ok) {
-      slot += __popc(peers & below);
-      slots[slot] = v;
-      digit_of[slot] = static_cast<uint16_t>(d);
-      slot_of[i] = static_cast<uint16_t>(slot);
+    if (payload0 < planes.count) {
+      const uint32_t* in = planes.in[payload0] + s0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int p = own_first + k * 32;
+        carried[k] = p < valid ? __ldg(in + p) : 0u;
+      }
     }
-  }
-  __syncthreads();
-  for (int p = 0; p < planes.count; ++p) {
-    if (p != planes.digit) {
-      __syncthreads();   // the last plane's slots are written out
-      for (int i = threadIdx.x; i < valid; i += blockDim.x) {
-        slots[slot_of[i]] = __ldg(planes.in[p] + first + i);
+    int4* counters4 = reinterpret_cast<int4*>(counters);
+    for (int c = threadIdx.x; c < kWarps * bins / 4; c += T) counters4[c] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+
+    // each key's rank among the earlier keys of its digit in its warp; the
+    // engine's digit widths with their ballots unrolled
+    Halves<K> slot;
+#pragma unroll
+    for (int k = 0; k < K; ++k) slot.word[k >> 1] = 0u;
+    const bool full = valid == kStage;
+    switch (bits) {
+      case 8: warp_rank<8>(key, slot, own, shift, bits, own_first, valid, full); break;
+      case 11: warp_rank<11>(key, slot, own, shift, bits, own_first, valid, full); break;
+      default: warp_rank<0>(key, slot, own, shift, bits, own_first, valid, full); break;
+    }
+    __syncthreads();
+
+    // per digit: each warp's first rank within the digit, and its count;
+    // the destination base of the digit
+    for (int d = threadIdx.x; d < bins; d += T) {
+      int sum = 0;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        const int c = counters[v * bins + d];
+        counters[v * bins + d] = sum;
+        sum += c;
+      }
+      first[d] = sum;
+      dest_off[d] = staged_run ? run[d] : base_row[d];
+    }
+    __syncthreads();
+    // the digits' first slots: an exclusive scan of the counts, a run of
+    // digits a thread
+    {
+      const int per = (bins + T - 1) / T;
+      const int d0 = min(bins, static_cast<int>(threadIdx.x) * per);
+      const int d1 = min(bins, d0 + per);
+      int sum = 0;
+      for (int d = d0; d < d1; ++d) sum += first[d];
+      int start = block_exclusive_sum(sum, warp_sums);
+      for (int d = d0; d < d1; ++d) {
+        const int count = first[d];
+        const int base = dest_off[d];
+        first[d] = start;
+        dest_off[d] = base - start;
+        if (staged_run) run[d] = base + count;
+        start += count;
+      }
+    }
+    __syncthreads();
+
+    // the keys to their slots: the stage in stable digit order
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (own_first + k * 32 < valid) {
+        const uint32_t d = (key[k] >> shift) & digit_mask;
+        const uint32_t s = static_cast<uint32_t>(first[d] + own[d]) + slot.get(k);
+        slot.set(k, s);
+        slots[s] = key[k];
+      }
+    }
+    __syncthreads();
+    // out in slot order, so that neighbouring threads write runs of one
+    // digit; each slot's destination kept
+    int dest[K];
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const int j = m * T + threadIdx.x;
+      dest[m] = 0;
+      if (j < valid) {
+        const uint32_t v = slots[j];
+        dest[m] = dest_off[(v >> shift) & digit_mask] + j;
+        if (key_out != nullptr) key_out[dest[m]] = v;
+      }
+    }
+    // every other plane through the same slots, the next one's loads in
+    // flight while this one is written
+    for (int p = payload0; p < planes.count;) {
+      __syncthreads();  // the slots' last readers are done
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (own_first + k * 32 < valid) slots[slot.get(k)] = carried[k];
+      }
+      const int after = next_payload(planes, p);
+      if (after < planes.count) {
+        const uint32_t* in = planes.in[after] + s0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int q = own_first + k * 32;
+          carried[k] = q < valid ? __ldg(in + q) : 0u;
+        }
       }
       __syncthreads();
+      uint32_t* out = planes.out[p];
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const int j = m * T + threadIdx.x;
+        if (j < valid) out[dest[m]] = slots[j];
+      }
+      p = after;
     }
-    uint32_t* out = planes.out[p];
-    for (int j = threadIdx.x; j < valid; j += blockDim.x) out[dest[digit_of[j]] + j] = slots[j];
+    __syncthreads();  // before the next stage reuses the counters and slots
   }
+}
+
+template <int T, int K>
+cudaError_t launch_staged(const uint32_t* keys, const Planes& p, long long n, int shift,
+                          int bits, long long tile, long long tiles, const int* bases,
+                          int smem, cudaStream_t s) {
+  auto kernel = lsd_scatter_staged_kernel<T, K>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(tiles), T, smem, s>>>(keys, p, n, shift, bits, tile, bases);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -264,33 +513,41 @@ __global__ void lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes
 extern "C" int rst_lsd_hist(const void* keys, long long n, int shift, int bits,
                             long long tile, void* hist, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bits < 1 || bits > 16 || tile < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (n + tile - 1) / tile;
   if (tiles == 0) return 0;
-  const size_t bins = size_t{1} << bits;
-  int smem = 0;
-  cudaError_t err = cudaSuccess;
-  if (bits <= kHistSharedMaxBits) {
-    smem = static_cast<int>(sizeof(int) * bins);
-    err = cudaFuncSetAttribute(lsd_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  } else {
-    err = cudaMemsetAsync(hist, 0, sizeof(int) * bins * static_cast<size_t>(tiles), s);
-  }
+  const int range_bits = bits < kHistRangeMaxBits ? bits : kHistRangeMaxBits;
+  const long long blocks = tiles << (bits - range_bits);
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_copy = kHistCopyCounters >> range_bits;
+  const int copies = per_copy < 1 ? 1 : (per_copy > kHistThreads / 32 ? kHistThreads / 32
+                                                                       : per_copy);
+  const int smem = static_cast<int>(sizeof(int)) * (copies << range_bits);
+  cudaError_t err = cudaFuncSetAttribute(lsd_hist_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lsd_hist_kernel<<<static_cast<unsigned>(tiles), kHistThreads, smem, s>>>(
-      static_cast<const uint32_t*>(keys), n, shift, bits, tile, static_cast<int*>(hist));
+  lsd_hist_kernel<<<static_cast<unsigned>(blocks), kHistThreads, smem, s>>>(
+      static_cast<const uint32_t*>(keys), n, shift, bits, tile, range_bits, copies,
+      static_cast<int*>(hist));
   return static_cast<int>(cudaGetLastError());
 }
 
 // L2: the stable scatter of `planes` planes (at most 32) by one digit of
-// `keys`. `counters` is scratch of tiles * 2^bits int32 when bits > 12 (the
-// bases are copied into it), else null.
+// `keys`. Digits of up to 12 bits take the staged form, with
+// (threads, keys_per_thread) one of RST_LSD_SHAPES and `smem` its
+// shared-memory bytes; digits of 13 to 16 bits the direct form, with
+// threads = 0 and `counters` scratch of tiles * 2^bits int32 (the bases are
+// copied into it). Any other shape is refused before the launch.
 extern "C" int rst_lsd_scatter(const void* keys, const void* const* in, void* const* out,
                                int planes, long long n, int shift, int bits, long long tile,
-                               const void* bases, void* counters, void* stream) {
+                               const void* bases, void* counters, int threads,
+                               int keys_per_thread, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (planes < 1 || planes > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (planes < 1 || planes > kMaxPlanes || bits < 1 || bits > 16 || tile < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long tiles = (n + tile - 1) / tile;
+  if (tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   if (tiles == 0) return 0;
   Planes p{};
   p.count = planes;
@@ -300,39 +557,27 @@ extern "C" int rst_lsd_scatter(const void* keys, const void* const* in, void* co
     p.out[i] = static_cast<uint32_t*>(out[i]);
     if (in[i] == keys) p.digit = i;
   }
-  const size_t bins = size_t{1} << bits;
-  int smem = 0;
-  int* global_counters = nullptr;
-  cudaError_t err = cudaSuccess;
-  if (bits <= kStageMaxBits && tile <= kStageMaxTile) {
-    // the slots hold the keys' own plane first: put it first
-    if (p.digit > 0) {
-      std::swap(p.in[0], p.in[p.digit]);
-      std::swap(p.out[0], p.out[p.digit]);
-      p.digit = 0;
+  const uint32_t* k = static_cast<const uint32_t*>(keys);
+  const int* b = static_cast<const int*>(bases);
+  if (bits <= kStageMaxBits) {
+    if (smem > kBlockSmemMax || smem != stage_smem(threads, keys_per_thread, bits)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int warps = bits <= 8 ? 8 : 4;
-    smem = static_cast<int>(sizeof(int) * ((warps + 1) * bins + 32) +
-                            static_cast<size_t>(tile) * (sizeof(uint32_t) + 2 * sizeof(uint16_t)));
-    err = cudaFuncSetAttribute(lsd_scatter_staged_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    lsd_scatter_staged_kernel<<<static_cast<unsigned>(tiles), 32 * warps, smem, s>>>(
-        static_cast<const uint32_t*>(keys), p, n, shift, bits, static_cast<int>(tile),
-        static_cast<const int*>(bases));
-    return static_cast<int>(cudaGetLastError());
+#define RST_LSD_LAUNCH(T, K)                                                              \
+  if (threads == T && keys_per_thread == K) {                                             \
+    return static_cast<int>(launch_staged<T, K>(k, p, n, shift, bits, tile, tiles, b, smem, s)); \
   }
-  if (bits <= kScatterSharedMaxBits) {
-    smem = static_cast<int>(sizeof(int) * bins);
-  } else {
-    if (counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    global_counters = static_cast<int*>(counters);
-    err = cudaMemcpyAsync(counters, bases, sizeof(int) * bins * static_cast<size_t>(tiles),
-                          cudaMemcpyDeviceToDevice, s);
+    RST_LSD_SHAPES(RST_LSD_LAUNCH)
+#undef RST_LSD_LAUNCH
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (threads != 0 || counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bins = size_t{1} << bits;
+  const cudaError_t err = cudaMemcpyAsync(counters, bases,
+                                          sizeof(int) * bins * static_cast<size_t>(tiles),
+                                          cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lsd_scatter_kernel<<<static_cast<unsigned>(tiles), 32, smem, s>>>(
-      static_cast<const uint32_t*>(keys), p, n, shift, bits, tile,
-      static_cast<const int*>(bases), global_counters);
+  lsd_scatter_kernel<<<static_cast<unsigned>(tiles), 32, 0, s>>>(
+      k, p, n, shift, bits, tile, static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,9 +59,11 @@ _SIGNATURES = {
     # keys, n, shift, bits, tile, hist, stream
     "rst_lsd_hist": (_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                      _P, _P),
-    # keys, in planes, out planes, planes, n, shift, bits, tile, bases, counters, stream
+    # keys, in planes, out planes, planes, n, shift, bits, tile, bases, counters,
+    # threads, keys a thread, shared-memory bytes, stream
     "rst_lsd_scatter": (_P, _PP, _PP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_longlong, _P, _P, _P),
+                        ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _P),
     # (planes, n) in, (planes, n) out, planes, keys, n, blocks, trip words, words, stream
     "rst_bitonic": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                     _P, ctypes.c_int, _P),

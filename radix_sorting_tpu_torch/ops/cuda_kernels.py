@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -71,7 +71,10 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain",
            "whist", "whist_plain", "whist_f32", "whist_f32_plain", "low32",
            "WHIST_MAX_BITS", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
-           "lsd_scatter_plain", "LSD_MAX_BITS", "bitonic", "bitonic_plain",
+           "lsd_scatter_plain", "LSD_MAX_BITS", "LSD_STAGE_MAX_BITS", "LSD_STAGE_SHAPES",
+           "LSD_SLOT_BITS", "LsdStageShape", "lsd_stage_smem", "lsd_stage_shapes",
+           "lsd_scatter_shape",
+           "bitonic", "bitonic_plain",
            "bitonic_pad_len", "BITONIC_MIN_PAD", "bitonic_route", "bitonic_trips",
            "bitonic_swizzle", "bitonic_trip_dims", "BITONIC_REGISTER_PLANES",
            "BITONIC_TRIP_WORDS", "BITONIC_RESIDENT_MAX_PAD",
@@ -548,8 +551,70 @@ def whist_f32(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
 # L1 / L2: one pass of the LSD radix sort (Strategy.LSD)
 
 LSD_MAX_BITS = 16        # SortConfig's widest digit
-_LSD_SHARED_MAX_BITS = 12  # csrc/lsd.cu: L2 counters in shared memory up to 2^12 bins
 _MAX_PLANES = 32         # planes one L2 launch takes (csrc/lsd.cu)
+LSD_STAGE_MAX_BITS = 12  # csrc/lsd.cu: the staged L2 takes digits of up to 12 bits, the
+                         # direct form the wider ones
+# (threads, keys a thread) of the staged L2, as csrc/lsd.cu's RST_LSD_SHAPES
+# compiles them; the C entry refuses any other
+LSD_STAGE_SHAPES = ((256, 8), (256, 16), (256, 32))
+LSD_SLOT_BITS = 16       # a thread keeps its keys' slots two to a register
+
+
+class LsdStageShape(NamedTuple):
+    """The launch shape of the staged L2: a block of ``threads`` threads
+    takes one tile, in stages of ``threads * keys`` keys (``keys`` a thread
+    in registers), with ``smem`` bytes of dynamic shared memory."""
+    threads: int
+    keys: int
+    smem: int
+
+    @property
+    def stage(self) -> int:
+        return self.threads * self.keys
+
+
+def lsd_stage_smem(threads: int, keys: int, radix_bits: int) -> int:
+    """Shared-memory bytes of a staged L2 block (``stage_smem`` in
+    csrc/lsd.cu), all 4-byte words: per-warp digit counters, three
+    per-digit rows (first slots, destination offsets, running bases), 32
+    warp sums and the stage's slots."""
+    return 4 * ((threads // 32 + 3) * (1 << radix_bits) + 32 + threads * keys)
+
+
+def lsd_stage_shapes(radix_bits: int) -> list:
+    """The staged L2's shapes, in the order of ``LSD_STAGE_SHAPES``, whose
+    block fits 232,448 bytes of shared memory at ``radix_bits``-bit digits;
+    none past ``LSD_STAGE_MAX_BITS``."""
+    if radix_bits > LSD_STAGE_MAX_BITS:
+        return []
+    shapes = (LsdStageShape(t, k, lsd_stage_smem(t, k, radix_bits)) for t, k in LSD_STAGE_SHAPES)
+    return [s for s in shapes if s.smem <= _BLOCK_BYTES]
+
+
+def lsd_scatter_shape(radix_bits: int, tile: int):
+    """The staged L2's launch shape for ``radix_bits``-bit digits and tiles
+    of ``tile`` keys, or None: digits past ``LSD_STAGE_MAX_BITS`` take the
+    direct form (per-warp counters of 2^13 bins and more leave no room).
+    Chosen from the shape alone, among :func:`lsd_stage_shapes`: the
+    smallest stage that holds the whole tile, else the largest (a long tile
+    in several stages); among stages of one size, the first of
+    ``LSD_STAGE_SHAPES``. On the H100 (``scripts/lsd_shapes.py`` at tiles
+    of 1,000 to 16,384 keys and 8- to 12-bit digits) this shape was the
+    fastest in all but one case: a whole tile in one stage beat two blocks
+    an SM of half-tile stages, also at 11-bit digits where its 123 KB leave
+    room for one block, and a stage much larger than the tile leaves warps
+    with no keys. Raises ValueError for a digit outside 1 to 16 bits or a
+    tile below one key."""
+    if not 1 <= radix_bits <= LSD_MAX_BITS:
+        raise ValueError(f"lsd_scatter_shape: radix_bits must be in [1, {LSD_MAX_BITS}]")
+    if tile < 1:
+        raise ValueError("lsd_scatter_shape: tile must be positive")
+    fits = lsd_stage_shapes(radix_bits)
+    if not fits:
+        return None
+    whole = [s.stage for s in fits if s.stage >= tile]
+    size = min(whole) if whole else max(s.stage for s in fits)
+    return next(s for s in fits if s.stage == size)
 
 
 def _check_lsd(name: str, w: torch.Tensor, shift: int, radix_bits: int, tile: int) -> None:
@@ -646,22 +711,38 @@ def lsd_scatter(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
     ``radix_bits`` bits at ``shift``) and rank r among the earlier keys of
     tile t with digit d, sends every plane's element i to ``bases[t, d] +
     r``. ``bases`` (tiles, 2^radix_bits) int32, as ``scan.scatter_bases``
-    gives them. Returns the new planes."""
+    gives them. Returns the new planes.
+
+    On the card: the staged form in the shape :func:`lsd_scatter_shape`
+    picks (each plane of a tile read once, written in digit runs), the
+    direct form past ``LSD_STAGE_MAX_BITS``; 32 planes a launch."""
     _check_lsd("lsd_scatter", w, shift, radix_bits, tile)
     _check_planes("lsd_scatter", planes, w.shape[0], w.device)
     _check_bases(w, bases, radix_bits, tile)
     if not use_gpu_routes(w):
         return lsd_scatter_plain(w, planes, shift, radix_bits, tile, bases)
+    return _lsd_scatter_launch(w, planes, shift, radix_bits, tile, bases,
+                               lsd_scatter_shape(radix_bits, tile))
+
+
+def _lsd_scatter_launch(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+                        radix_bits: int, tile: int, bases: torch.Tensor, shape) -> tuple:
+    """L2's launches on the card: the staged form in ``shape``, or the direct
+    form (digits past ``LSD_STAGE_MAX_BITS``) where ``shape`` is None, its
+    running counters a device-memory copy of ``bases``; 32 planes a launch."""
     n = w.shape[0]
     out = tuple(torch.empty_like(p) for p in planes)
     if n == 0:
         return out
-    counters = torch.empty_like(bases) if radix_bits > _LSD_SHARED_MAX_BITS else None
+    counters = torch.empty_like(bases) if shape is None else None
+    threads, keys, smem = (0, 0, 0) if shape is None else (shape.threads, shape.keys,
+                                                            shape.smem)
     for g in range(0, len(planes), _MAX_PLANES):
         group = slice(g, g + _MAX_PLANES)
         _launch("rst_lsd_scatter", w.device, w.data_ptr(), _pointers(planes[group]),
                 _pointers(out[group]), len(planes[group]), n, shift, radix_bits, tile,
-                bases.data_ptr(), None if counters is None else counters.data_ptr())
+                bases.data_ptr(), None if counters is None else counters.data_ptr(),
+                threads, keys, smem)
         LAUNCHES["lsd_scatter"] += 1
     return out
 

@@ -576,6 +576,69 @@ def test_lsd_scatter_small_tiles_and_skew(cuda):
                            ck.lsd_scatter_plain(w, [w], 0, 8, tile, bases)[0])
 
 
+def _lsd_pass_matches_plain(w, planes, shift, bits, tile):
+    """L1 and L2 of one pass against their plain versions, bit for bit,
+    one launch each (L2: one a 32 planes)."""
+    before = ck.launch_counts()
+    hist = ck.lsd_hist(w, shift, bits, tile)
+    assert torch.equal(hist, ck.lsd_hist_plain(w, shift, bits, tile))
+    bases = _bases(w, shift, bits, tile)
+    got = ck.lsd_scatter(w, planes, shift, bits, tile, bases)
+    after = ck.launch_counts()
+    assert after["lsd_hist"] == before["lsd_hist"] + 1
+    assert after["lsd_scatter"] == before["lsd_scatter"] + -(-len(planes) // 32)
+    want = ck.lsd_scatter_plain(w, planes, shift, bits, tile, bases)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("tile", [1, 3, 1000, 4096, 8191, 16384, 65536, None])
+@pytest.mark.parametrize("bits", [1, 4, 8, 11, 12, 16])
+def test_lsd_pass_at_every_tile_matches_plain(cuda, bits, tile):
+    """Each staged shape serves some tile (1,000: 256 x 8;
+    4,096: 256 x 16; 8,191: 256 x 32); tiles of 16,384 and 65,536 keys take
+    several stages of the largest, the last one short (n is no multiple of
+    a stage)."""
+    tile = tile or _tile(bits)
+    n = 1_001 if tile < 1000 else 100_003          # n % 4 != 0; tiles x 2^bits stay small
+    w = rand_plane(n, bits * 7 + tile, cuda)
+    w[::3] = w[2]                                  # ties inside every tile
+    _lsd_pass_matches_plain(w, [rand_plane(n, 5, cuda), w], 2, bits, tile)
+
+
+@pytest.mark.parametrize("share", [1.0, 0.9])
+@pytest.mark.parametrize("bits", [8, 11, 16])
+def test_lsd_pass_skewed_matches_plain(cuda, bits, share):
+    n = 3 * 65_536 + 5                             # at r = 16: whole tiles in one bin
+    w = rand_plane(n, bits, cuda)
+    w[: int(n * share)] = 0x5A5A5A5A
+    idx = torch.arange(n, dtype=torch.int32, device=cuda)
+    _lsd_pass_matches_plain(w, [w, idx], 0, bits, _tile(bits))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("bits", [8, 11, 16])
+def test_lsd_pass_on_views_matches_plain(cuda, bits, offset):
+    n = 200_003
+    w = rand_plane(n + 4, offset, cuda)[offset:offset + n]   # keys off the 16-byte grid
+    views = [rand_plane(n + 4, 10 + k, cuda)[k:k + n] for k in (1, 2, 3)]
+    _lsd_pass_matches_plain(w, [w] + views, 5, bits, _tile(bits))
+
+
+def test_lsd_scatter_refuses_other_shapes(cuda):
+    w = rand_plane(10_000, 1, cuda)
+    bases = _bases(w, 0, 8, 8192)
+    good = ck.lsd_scatter_shape(8, 8192)
+    for shape in (ck.LsdStageShape(192, 16, ck.lsd_stage_smem(192, 16, 8)),
+                  good._replace(smem=good.smem + 4), None):   # None: the direct form
+        with pytest.raises(RuntimeError):
+            ck._lsd_scatter_launch(w, (w,), 0, 8, 8192, bases, shape)
+    bases13 = _bases(w, 0, 13, 8192)                 # past the staged form's digits
+    with pytest.raises(RuntimeError):
+        ck._lsd_scatter_launch(w, (w,), 0, 13, 8192, bases13,
+                               good._replace(smem=ck.lsd_stage_smem(good.threads,
+                                                                    good.keys, 13)))
+
+
 def _bitonic_planes(n, planes, keys, seed, device, distinct=16):
     rng = np.random.Generator(np.random.PCG64(seed))
     out = [rng.integers(0, distinct, size=n).astype(np.uint32) for _ in range(keys)]

@@ -261,3 +261,95 @@ def test_lsd_wrappers_check_their_inputs():
             bad()
     with pytest.raises(TypeError):
         ck.lsd_hist(w.long(), 0, 8, 16)
+
+
+# ---------------------------------------------------------------------------
+# L2's launch shape, and what its staged form rests on
+
+LSD_TILES = [1, 3, 1000, 2048, 4096, 8191, 8192, 16384, 65536, None]   # None: lsd_tile(8192, r)
+
+
+@pytest.mark.parametrize("tile", LSD_TILES)
+@pytest.mark.parametrize("radix_bits", range(1, 17))
+def test_lsd_scatter_shape_serves_the_tile(radix_bits, tile):
+    tile = tile or lsd_engine.lsd_tile(8192, radix_bits)
+    shape = ck.lsd_scatter_shape(radix_bits, tile)
+    if radix_bits > ck.LSD_STAGE_MAX_BITS:
+        assert shape is None                     # the direct form takes it
+        return
+    assert (shape.threads, shape.keys) in ck.LSD_STAGE_SHAPES and shape.threads % 32 == 0
+    assert shape.smem == ck.lsd_stage_smem(shape.threads, shape.keys, radix_bits) <= 232_448
+    assert shape in ck.lsd_stage_shapes(radix_bits)
+    assert shape.stage <= 1 << ck.LSD_SLOT_BITS  # slot indices fit their 16 bits
+    stages = -(-tile // shape.stage)
+    assert stages * shape.stage >= tile          # the stages cover the tile
+    fits = [s.stage for s in ck.lsd_stage_shapes(radix_bits)]
+    if tile <= max(fits):
+        assert stages == 1                       # a tile that fits one stage takes one
+        assert all(f >= shape.stage or f < tile for f in fits)   # the smallest such stage
+
+
+def test_lsd_scatter_shape_refuses_what_it_cannot_serve():
+    for bad in ((0, 8192), (17, 8192), (8, 0), (8, -5)):
+        with pytest.raises(ValueError):
+            ck.lsd_scatter_shape(*bad)
+
+
+@pytest.mark.parametrize("radix_bits,tile", [(1, 3), (8, 256), (11, 1000), (16, 65536)])
+def test_scatter_bases_of_consecutive_tiles_abut(radix_bits, tile):
+    """The identity behind runs that continue from one tile into the next:
+    digit d of tile t + 1 starts where tile t's keys of d end."""
+    x = keys("uint32", N, radix_bits + tile)
+    x[::4] = x[1]
+    h = ck.lsd_hist_plain(plane(x), 3, radix_bits, tile).numpy()
+    bases = np.asarray(jscan.scatter_bases(jnp.asarray(h)))
+    assert np.array_equal(bases[1:], bases[:-1] + h[:-1])
+    assert np.array_equal(tscan.scatter_bases(torch.from_numpy(h)).numpy(), bases)
+
+
+def _staged_model(x, shift, radix_bits, tile, bases, threads, keys_per_thread):
+    """csrc/lsd.cu's staged L2 step by step, in numpy: each key's
+    destination. Warp w holds the stage positions [w * 32K, (w + 1) * 32K)
+    and ranks them in input order (step k, lanes in order) against counters
+    of its own; one scan over (digit, warp), digit-major, gives the slots;
+    slot j of digit d goes to run[d] + j - first[d]."""
+    n, bins = len(x), 1 << radix_bits
+    stage, warps = threads * keys_per_thread, threads // 32
+    digits = ((x >> np.uint32(shift)) & np.uint32(bins - 1)).astype(np.int64)
+    dest = np.full(n, -1, np.int64)
+    for t in range(-(-n // tile)):
+        lo, hi = t * tile, min(n, (t + 1) * tile)
+        run = bases[t].astype(np.int64)
+        for s0 in range(lo, hi, stage):
+            valid = min(stage, hi - s0)
+            d = digits[s0:s0 + valid]
+            warp = np.arange(valid) // (32 * keys_per_thread)
+            counters = np.zeros((warps, bins), np.int64)
+            rank = np.empty(valid, np.int64)
+            for p in range(valid):               # a warp's steps: k, then lanes
+                rank[p] = counters[warp[p], d[p]]
+                counters[warp[p], d[p]] += 1
+            count = counters.sum(0)
+            first = np.cumsum(count) - count
+            slot = first[d] + (np.cumsum(counters, 0) - counters)[warp, d] + rank
+            assert sorted(slot) == list(range(valid)) and valid <= 1 << ck.LSD_SLOT_BITS
+            at = np.empty(valid, np.int64)
+            at[slot] = np.arange(valid)          # the stage in stable digit order
+            dest[s0 + at] = (run - first)[d[at]] + np.arange(valid)
+            run = run + count
+    return dest
+
+
+@pytest.mark.parametrize("threads,keys_per_thread", ck.LSD_STAGE_SHAPES)
+@pytest.mark.parametrize("radix_bits,tile", [(4, 1000), (8, 3000), (11, 2048)])
+def test_staged_scatter_model_is_one_stable_pass(radix_bits, tile, threads, keys_per_thread):
+    n = 5003
+    x = keys("uint32", n, radix_bits * tile)
+    x[::5] = x[2]                                             # ties
+    w = plane(x)
+    bases = tscan.scatter_bases(ck.lsd_hist_plain(w, 2, radix_bits, tile))
+    dest = _staged_model(x, 2, radix_bits, tile, bases.numpy(), threads, keys_per_thread)
+    got = np.empty_like(x)
+    got[dest] = x
+    want = ck.lsd_scatter_plain(w, (w,), 2, radix_bits, tile, bases)[0]
+    assert np.array_equal(got, want.numpy().view(np.uint32))
