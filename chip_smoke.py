@@ -9,12 +9,19 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
      and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, bit for
-     bit, at n keys: hist_pext (K2) at masks 0xF0F00000, 0xFF and 0xFFFF;
+     bit, at n keys: hist_pext (K2) at masks 0xF0F00000, 0xFF, 0xFFFF and
+     0x1FFFF;
      regen_pdep at 256 bins (K5 contract) and 65,536 bins (K8 contract);
      hist_pext2 (K3) at the 64-bit masks 0xF000000000000F00,
-     0x00FF00000000FF00 and 0x0000000000FFFF00; regen_pdep2 at 256 bins (K6
-     contract) and 65,536 bins (K9 contract), with dead bits in both planes;
-     hist (K1) and hist_multi, regen (K4, K7); whist (K10) at 1,024 bins
+     0x00FF00000000FF00, 0x0000000000FFFF00 and 0x01FF00000000FF00;
+     regen_pdep2 at 256 bins (K6 contract) and 65,536 bins (K9 contract),
+     with dead bits in both planes; hist (K1) at r = 8, 16, 17 and 18 and
+     hist_multi at r = 8, 11, 16 and 18 (so every form the launch-shape
+     rule picks runs once: 32-bit sub-histograms, 16-bit counters in one
+     block and in 2, 4 and 8 grid rows; its shape printed), and K1 r = 16
+     and 18 and K2 0xFFFF on keys of which 90% or all are one value (each
+     block hands a 16-bit counter to the output several times); regen (K4,
+     K7); whist (K10) at 1,024 bins
      with i32 values, 65,536 bins with u8 values (four counter ranges) and
      1,024 bins with 90% of the rows in one group; whist_f32 (K11) with
      counts at 1,024 bins and without at 32,768 bins (f32 sums to the bound
@@ -95,7 +102,10 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      print the torch.sort calls of phase 4 (K0's stand-in);
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
-     steady-state loops); K1 on keys of which 90% are one value; the range
+     steady-state loops); K1, K2 and K3 with the launch shape each ran, the
+     device time of one call (torch.profiler) and torch.bincount of the
+     precomputed digits or PEXT values; K1 on keys of which 90% are one
+     value; the range
      probe's cost on full-entropy u32; torch.sort of int32 and int64 keys;
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
@@ -231,6 +241,12 @@ def k12_route(n: int, nplanes: int) -> str:
     return {0: "tiles", 1: "one block"}.get(ck.bitonic_route(n, nplanes), "cluster")
 
 
+def hist_label(total: int) -> str:
+    """The launch shape the histogram wrappers take for ``total`` counters."""
+    from radix_sorting_tpu_torch.ops import cuda_kernels as ck
+    return ck.hist_shape(total).label()
+
+
 def bound_ms(nbytes: int) -> float:
     """Least time to move ``nbytes`` through device memory (every kernel
     here does a few integer operations per 4-byte key: bound by bytes)."""
@@ -288,15 +304,15 @@ def main() -> None:
 
     # -- phase 3: kernels against their plain versions ----------------------
     errs = {name: 0 for name in ck.LAUNCHES}
-    for mask in (0xF0F00000, 0xFF, 0xFFFF):
+    for mask in (0xF0F00000, 0xFF, 0xFFFF, 0x1FFFF):
         got, ref = ck.hist_pext(w, mask), ck.hist_pext_plain(w, mask)
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max())
         errs["hist_pext"] = max(errs["hist_pext"], err)
         if err or int(got.long().sum()) != n:
             fail(f"hist_pext mask 0x{mask:X}: max |err| {err}")
-        print(f"[3 kernel] hist_pext mask=0x{mask:08X} bins={got.numel()} "
-              f"equal to plain (max |err| 0)", flush=True)
+        print(f"[3 kernel] hist_pext mask=0x{mask:08X} bins={got.numel()} shape "
+              f"{hist_label(got.numel())} equal to plain (max |err| 0)", flush=True)
     regen_inputs = {}
     for mask, dead, name in ((0xF0F00000, 0x00010003, "regen_pdep"),
                              (0xFFFF, 0, "regen_pdep_windowed")):
@@ -311,7 +327,8 @@ def main() -> None:
         regen_inputs[name] = (cum, mask, plane)
         print(f"[3 kernel] {name} bins={cum.numel()} dead=0x{dead:X} equal to "
               "plain (max |err| 0)", flush=True)
-    for m64 in (0xF000000000000F00, 0x00FF00000000FF00, 0x0000000000FFFF00):
+    for m64 in (0xF000000000000F00, 0x00FF00000000FF00, 0x0000000000FFFF00,
+                0x01FF00000000FF00):
         mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
         got, ref = ck.hist_pext2(hi64, lo64, mh, ml), ck.hist_pext2_plain(hi64, lo64, mh, ml)
         torch.cuda.synchronize()
@@ -319,8 +336,8 @@ def main() -> None:
         errs["hist_pext2"] = max(errs["hist_pext2"], err)
         if err or int(got.long().sum()) != n:
             fail(f"hist_pext2 mask 0x{m64:016X}: max |err| {err}")
-        print(f"[3 kernel] hist_pext2 mask=0x{m64:016X} bins={got.numel()} "
-              f"equal to plain (max |err| 0)", flush=True)
+        print(f"[3 kernel] hist_pext2 mask=0x{m64:016X} bins={got.numel()} shape "
+              f"{hist_label(got.numel())} equal to plain (max |err| 0)", flush=True)
     regen2_inputs = {}
     for m64, dead, name in ((0xF000000000000F00, 0x0001000300000005, "regen_pdep2"),
                             (0x00FF00000000FF00, 0x8000000100000003,
@@ -342,24 +359,44 @@ def main() -> None:
     # the dense tier: K1 drops the top quarter of the keys (drop_ge); K4/K7
     # add the range probe's offset on the store
     drop_ge, offset = 0xC0000000, 0x9E3779B9
-    for bits in (8, 16, 18):
+    for bits in (8, 16, 17, 18):
         got, ref = ck.hist(w, 0, bits, drop_ge=drop_ge), ck.hist_plain(w, 0, bits, drop_ge)
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max())
         errs["hist"] = max(errs["hist"], err)
         if err or int(got.long().sum()) != int((w.long() & 0xFFFFFFFF).lt(drop_ge).sum()):
             fail(f"hist r={bits}: max |err| {err}")
-        print(f"[3 kernel] hist r={bits} drop_ge=0x{drop_ge:X} equal to plain "
-              "(max |err| 0)", flush=True)
-    for bits in (8, 11):
+        print(f"[3 kernel] hist r={bits} drop_ge=0x{drop_ge:X} shape {hist_label(1 << bits)} "
+              "equal to plain (max |err| 0)", flush=True)
+    for bits in (8, 11, 16, 18):
         got, ref = ck.hist_multi(w, bits), ck.hist_multi_plain(w, bits)
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max())
         errs["hist_multi"] = max(errs["hist_multi"], err)
         if err or got.shape != (-(-32 // bits), 1 << bits):
             fail(f"hist_multi r={bits}: max |err| {err}, shape {tuple(got.shape)}")
-        print(f"[3 kernel] hist_multi r={bits} passes={got.shape[0]} equal to plain "
-              "(max |err| 0)", flush=True)
+        print(f"[3 kernel] hist_multi r={bits} passes={got.shape[0]} shape "
+              f"{hist_label(got.numel())} equal to plain (max |err| 0)", flush=True)
+    # 16-bit counters on skewed keys: every block's counter of the common
+    # value crosses 2^15 several times, so each hand-off to the output runs
+    # under contention
+    for label, share in (("90% one value", 9), ("all one value", 10)):
+        same = w.clone()
+        same[: n * share // 10] = 0x155
+        for name, got, ref in (
+                ("hist r=16", ck.hist(same, 0, 16), ck.hist_plain(same, 0, 16)),
+                ("hist r=18", ck.hist(same, 0, 18), ck.hist_plain(same, 0, 18)),
+                ("hist_pext mask=0xFFFF", ck.hist_pext(same, 0xFFFF),
+                 ck.hist_pext_plain(same, 0xFFFF))):
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            kernel = name.split()[0]
+            errs[kernel] = max(errs[kernel], err)
+            if err or int(got.long().sum()) != n:
+                fail(f"{name} on {label}: max |err| {err}")
+            print(f"[3 kernel] {name} {label} shape {hist_label(got.numel())} equal to plain "
+                  "(max |err| 0)", flush=True)
+        del same
     dense_inputs = {}
     for bits, name in ((10, "regen"), (16, "regen_windowed")):
         c = w & i32((1 << bits) - 1)
@@ -1086,10 +1123,37 @@ def main() -> None:
                              "bound_ms": max(bound_ms(nbytes), ops / OPS_PER_MS),
                              "bound_by": "operations" if by_ops else "bytes"})
 
+    def device_trace(fn, name=None, calls=8):
+        """(kernels named ``name`` that one call of fn launches on the card,
+        their device ms per call): torch.profiler over ``calls`` calls;
+        name None takes every device event. The tracer can drop a window's
+        events, so an empty window is traced again."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and (name is None or name in e.key)]
+            if events:
+                return (sum(e.count for e in events) / calls,
+                        sum(e.self_device_time_total for e in events) / calls / 1e3)
+        fail(f"no {name or 'device'} event traced in three windows of {calls} calls")
+
+    # K2 / K3 beside torch.bincount of the precomputed PEXT values, each with
+    # its launch shape and the device time of one call (memset and kernel)
     for mask in (0xF0F00000, 0xFFFF):
         bins = 1 << bin(mask).count("1")
-        row("hist_pext", bins, n * 4 + bins * 4, lambda: ck.hist_pext(w, mask),
-            lambda: ck.hist_pext_plain(w, mask))
+        pext = probes.compact_live_bits(w, mask).long()
+        kernel = lambda: ck.hist_pext(w, mask)
+        row("hist_pext", bins, n * 4 + bins * 4, kernel, lambda: ck.hist_pext_plain(w, mask),
+            lambda: torch.bincount(pext, minlength=bins), shape=hist_label(bins),
+            device_ms=device_trace(kernel)[1])
+        del pext
     for name, (cum, mask, plane) in regen_inputs.items():
         row(name, cum.numel(), n * 4 + cum.numel() * 4 + 4,
             lambda: ck.regen_pdep(cum, n, mask, plane),
@@ -1097,8 +1161,13 @@ def main() -> None:
     for m64 in (0xF000000000000F00, 0x00FF00000000FF00):
         mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
         bins = 1 << bin(m64).count("1")
-        row("hist_pext2", bins, n * 8 + bins * 4, lambda: ck.hist_pext2(hi64, lo64, mh, ml),
-            lambda: ck.hist_pext2_plain(hi64, lo64, mh, ml))
+        pext = probes.compact_word_planes((hi64, lo64), (mh, ml)).long()
+        kernel = lambda: ck.hist_pext2(hi64, lo64, mh, ml)
+        row("hist_pext2", bins, n * 8 + bins * 4, kernel,
+            lambda: ck.hist_pext2_plain(hi64, lo64, mh, ml),
+            lambda: torch.bincount(pext, minlength=bins), shape=hist_label(bins),
+            device_ms=device_trace(kernel)[1])
+        del pext
     for name, (cum, mh, ml, phi, plo) in regen2_inputs.items():
         row(name, cum.numel(), n * 8 + cum.numel() * 4 + 8,
             lambda: ck.regen_pdep2(cum, n, mh, ml, phi, plo),
@@ -1117,19 +1186,22 @@ def main() -> None:
         uk = keys_in.long() & 0xFFFFFFFF
         digits = uk & (bins - 1) if drop is None else torch.where(
             uk < drop, uk & (bins - 1), bins)
-        row("hist", bins, n * 4 + bins * 4,
-            lambda: ck.hist(keys_in, 0, bits, drop_ge=drop),
+        kernel = lambda: ck.hist(keys_in, 0, bits, drop_ge=drop)
+        row("hist", bins, n * 4 + bins * 4, kernel,
             lambda: ck.hist_plain(keys_in, 0, bits, drop),
             lambda: torch.bincount(digits, minlength=bins + 1),
-            keys=label, drop_ge=drop)
+            keys=label, drop_ge=drop, shape=hist_label(bins),
+            device_ms=device_trace(kernel)[1])
         del digits, uk
     for bits in (8, 11):
         passes, bins = -(-32 // bits), 1 << bits
         flat = torch.cat([(p << bits) + ((u >> (p * bits)) & ((1 << bits) - 1))
                           for p in range(passes)])
+        kernel = lambda: ck.hist_multi(w, bits)
         row("hist_multi", bins, n * 4 + passes * bins * 4,
-            lambda: ck.hist_multi(w, bits), lambda: ck.hist_multi_plain(w, bits),
-            lambda: torch.bincount(flat, minlength=passes * bins), passes=passes)
+            kernel, lambda: ck.hist_multi_plain(w, bits),
+            lambda: torch.bincount(flat, minlength=passes * bins), passes=passes,
+            shape=hist_label(passes * bins), device_ms=device_trace(kernel)[1])
         del flat
     del u, skewed
     # K4 / K7 beside torch.searchsorted(cum, arange(n), right=True)
@@ -1159,27 +1231,6 @@ def main() -> None:
                                 device=dev).index_add_(0, idx, weights),
             reads=max(1, bins * per_bin >> 17))
     del idx
-    def device_trace(fn, name=None, calls=8):
-        """(kernels named ``name`` that one call of fn launches on the card,
-        their device ms per call): torch.profiler over ``calls`` calls;
-        name None takes every device event. The tracer can drop a window's
-        events, so an empty window is traced again."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and (name is None or name in e.key)]
-            if events:
-                return (sum(e.count for e in events) / calls,
-                        sum(e.self_device_time_total for e in events) / calls / 1e3)
-        fail(f"no {name or 'device'} event traced in three windows of {calls} calls")
-
     # L1 beside torch.bincount of the precomputed tile-major digits; L2 with
     # keys and an index plane (as argsort carries) and with the key plane
     # alone (the LSD sort's own pass), no one torch call; each with the
@@ -1272,7 +1323,7 @@ def main() -> None:
         n=4 * 4 * c4, ranks="4 on one card (one card, 4 ranks share it)")
     for name, rows in shapes.items():
         for r in rows:
-            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "reads",
+            extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "shape", "reads",
                                                      "tile", "planes", "capr", "ranks",
                                                      "route", "launches_per_sort",
                                                      "device_ms", "torch_sort_device_ms")

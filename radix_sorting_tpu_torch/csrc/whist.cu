@@ -120,7 +120,8 @@ int launch_whist(const void* keys, const void* vals, long long n, int bits,
   const int ranges = bins >> local_bits;
   const int smem = kBinBytes << local_bits;
   dim3 grid;
-  err = rst::wave_grid(whist_kernel<Sum, kCounts>, kThreads, smem, n, ranges, &grid);
+  err = rst::wave_grid(whist_kernel<Sum, kCounts>, kThreads, smem, n, 4LL * kThreads, ranges,
+                       &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   whist_kernel<Sum, kCounts><<<grid, kThreads, smem, s>>>(
       static_cast<const uint32_t*>(keys), static_cast<const Sum*>(vals), n, drop_ge,

@@ -35,17 +35,21 @@ LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
+_I = ctypes.c_int
+# a histogram's launch shape (cuda_kernels.HistShape: threads, local_bits,
+# ranges, copies, half)
+_HIST_SHAPE = (_I, _I, _I, _I, _I)
 _SIGNATURES = {
-    # keys, n, offset, shift, bits, passes, drop_ge, hist, stream
+    # keys, n, offset, shift, bits, passes, drop_ge, hist, shape, stream
     "rst_hist": (_P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_ulonglong, _P, _P),
+                 ctypes.c_int, ctypes.c_ulonglong, _P, *_HIST_SHAPE, _P),
     # cum, bins, n, offset, out, stream
     "rst_regen": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint, _P, _P),
-    # keys, n, mask, hist, stream
-    "rst_hist_pext": (_P, ctypes.c_longlong, ctypes.c_uint, _P, _P),
-    # hi, lo, n, mask_hi, mask_lo, hist, stream
+    # keys, n, mask, hist, shape, stream
+    "rst_hist_pext": (_P, ctypes.c_longlong, ctypes.c_uint, _P, *_HIST_SHAPE, _P),
+    # hi, lo, n, mask_hi, mask_lo, hist, shape, stream
     "rst_hist_pext2": (_P, _P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
-                       _P, _P),
+                       _P, *_HIST_SHAPE, _P),
     # cum, bins, n, mask, plane, out, stream
     "rst_regen_pdep": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint, _P, _P, _P),
     # cum, bins, n, mask_hi, mask_lo, plane_hi, plane_lo, out_hi, out_lo, stream

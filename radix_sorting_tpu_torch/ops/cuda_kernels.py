@@ -65,6 +65,8 @@ from .kdf import INT32_MIN, i32
 
 __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "use_gpu_routes", "pick_window", "MAX_BITS", "HIST_MAX_BITS",
+           "HistShape", "hist_shape", "hist_shape_ok", "hist_shape_candidates",
+           "HIST_BLOCK_BITS", "HIST_HALF_BITS", "HIST_THREADS",
            "hist", "hist_plain", "hist_multi", "hist_multi_plain",
            "regen", "regen_plain",
            "hist_pext", "hist_pext_plain", "regen_pdep", "regen_pdep_plain",
@@ -95,6 +97,7 @@ HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bin
 _HIST_MAX_COUNTERS = 1 << 19   # K1: passes * 2^radix_bits
 _K5_MAX_BINS = 1 << 10   # counting_engine._REGEN_MAX_BINS: the K4/K7, K5/K8, K6/K9 split
 _NO_DROP = 1 << 32       # K1's drop_ge when no key is dropped
+_BLOCK_BYTES = 227 * 1024     # a block's shared memory on the H100
 
 
 def launch_counts() -> dict:
@@ -175,6 +178,104 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The launch shape of the histogram kernel (K1, K2, K3: csrc/hist.cu)
+
+HIST_BLOCK_BITS = 15       # a block's 32-bit counters: 2^15, 128 KB of shared memory
+HIST_HALF_BITS = 16        # a block's 16-bit counters: 2^16, 128 KB
+HIST_THREADS = (256, 512, 1024)
+
+
+class HistShape(NamedTuple):
+    """One launch shape of ``csrc/hist.cu``: blocks of ``threads`` threads;
+    grid row y owns counters ``[y << local_bits, (y + 1) << local_bits)``
+    and reads every key (``ranges`` rows). A block keeps ``copies``
+    sub-histograms of 32-bit counters (one row), or one histogram of 16-bit
+    counters (``half``, two a word, so 2^16 fit a block)."""
+    threads: int
+    local_bits: int
+    ranges: int
+    copies: int
+    half: int
+
+    def smem(self, total: int) -> int:
+        """Shared-memory bytes of one block (``smem_bytes`` in csrc/hist.cu)."""
+        counters = min(1 << self.local_bits, total)
+        return 4 * ((counters + 1) // 2) if self.half else 4 * self.copies * counters
+
+    def label(self) -> str:
+        return (f"t{self.threads} b{self.local_bits} r{self.ranges} x{self.copies}"
+                f"{' half' if self.half else ''}")
+
+
+def hist_shape_ok(shape: HistShape, total: int) -> bool:
+    """The checks ``rst_hist`` makes before a launch (``shape_ok`` in
+    csrc/hist.cu): every counter of ``[0, total)`` has exactly one owner, no
+    row owns none, the block fits 232,448 bytes; 32-bit counters in one
+    row, 16-bit counters in one copy."""
+    per = 1 << shape.local_bits
+    return (shape.threads in HIST_THREADS and shape.half in (0, 1)
+            and shape.ranges >= 1 and shape.copies >= 1
+            and (shape.copies == 1 if shape.half else shape.ranges == 1)
+            and 1 <= shape.local_bits <= HIST_BLOCK_BITS + shape.half
+            and (shape.ranges - 1) * per < total <= shape.ranges * per
+            and shape.smem(total) <= _BLOCK_BYTES)
+
+
+def _ceil_log2(x: int) -> int:
+    return max(0, (x - 1).bit_length())
+
+
+def hist_shape(total: int) -> HistShape:
+    """The launch shape for a histogram of ``total`` counters
+    (``passes * 2^radix_bits`` for K1, ``2^nbits`` for K2 / K3), chosen from
+    the shape alone before the launch.
+
+    Up to 2^15 counters: one block of 1,024 threads holds the whole
+    histogram in two sub-histograms of 32-bit counters (one past 2^14
+    counters). More: 16-bit counters, up to 2^16 in one block, so each key
+    is read once, past that ``ceil(total / 2^16)`` grid rows of 2^16, each
+    reading every key; a warp whose chunk repeats counters adds a thread's
+    runs once. On the H100 (``scripts/hist_shapes.py``) the copies and 512
+    threads against 1,024 moved the narrow rows by a few percent; 16-bit
+    counters beat rows of 32-bit ones and both cluster forms, and without
+    the runs 90% of the keys on one value serialise on one counter."""
+    if not 1 <= total <= _HIST_MAX_COUNTERS:
+        raise ValueError(f"hist_shape: {total} counters; 1 to {_HIST_MAX_COUNTERS} are taken")
+    if total <= 1 << HIST_BLOCK_BITS:
+        copies = 2 if 8 * total <= _BLOCK_BYTES else 1
+        return HistShape(1024, max(1, _ceil_log2(total)), 1, copies, 0)
+    ranges = -(-total >> HIST_HALF_BITS)
+    return HistShape(1024, HIST_HALF_BITS if ranges > 1 else _ceil_log2(total), ranges, 1, 1)
+
+
+def hist_shape_candidates(total: int) -> list:
+    """Every shape ``scripts/hist_shapes.py`` times for ``total`` counters,
+    :func:`hist_shape`'s first: 512 or 1,024 threads; up to 2^15 counters,
+    1 to 32 copies of 32-bit counters that fit; past 2^13, 16-bit counters
+    in one block or in grid rows of 2^16."""
+    out = [hist_shape(total)]
+    lb = max(1, _ceil_log2(total))
+    for threads in (512, 1024):
+        if total <= 1 << HIST_BLOCK_BITS:
+            for copies in (1, 2, 4, 8, 32):
+                if copies <= threads // 32 and 4 * copies * total <= _BLOCK_BYTES:
+                    out.append(HistShape(threads, lb, 1, copies, 0))
+        if total > 1 << 13:
+            rows = -(-total >> HIST_HALF_BITS)
+            out.append(HistShape(threads, HIST_HALF_BITS if rows > 1 else lb, rows, 1, 1))
+    seen = set()
+    return [s for s in out if hist_shape_ok(s, total) and not (s in seen or seen.add(s))]
+
+
+def _hist_launch(fn_name: str, device: torch.device, total: int, shape: HistShape,
+                 *args) -> torch.Tensor:
+    """Launch one histogram entry in ``shape``; its (total,) int32 output."""
+    out = torch.empty(total, dtype=torch.int32, device=device)
+    _launch(fn_name, device, *args, out.data_ptr(), *shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K1: digit histograms, one digit or every digit in one read
 
 
@@ -224,9 +325,9 @@ def hist(w: torch.Tensor, pass_index: int, radix_bits: int, drop_ge=None,
     bound = _drop_bound(drop_ge)
     if not use_gpu_routes(w):
         return hist_plain(w, pass_index, radix_bits, drop_ge, offset)
-    out = torch.empty(1 << radix_bits, dtype=torch.int32, device=w.device)
-    _launch("rst_hist", w.device, w.data_ptr(), w.shape[0], offset & 0xFFFFFFFF,
-            pass_index * radix_bits, radix_bits, 1, bound, out.data_ptr())
+    out = _hist_launch("rst_hist", w.device, 1 << radix_bits, hist_shape(1 << radix_bits),
+                       w.data_ptr(), w.shape[0], offset & 0xFFFFFFFF,
+                       pass_index * radix_bits, radix_bits, 1, bound)
     LAUNCHES["hist"] += 1
     return out
 
@@ -251,11 +352,11 @@ def hist_multi(w: torch.Tensor, radix_bits: int) -> torch.Tensor:
     _check_digits("hist_multi", 0, radix_bits, passes)
     if not use_gpu_routes(w):
         return hist_multi_plain(w, radix_bits)
-    out = torch.empty((passes, 1 << radix_bits), dtype=torch.int32, device=w.device)
-    _launch("rst_hist", w.device, w.data_ptr(), w.shape[0], 0, 0, radix_bits,
-            passes, _NO_DROP, out.data_ptr())
+    total = passes << radix_bits
+    out = _hist_launch("rst_hist", w.device, total, hist_shape(total), w.data_ptr(),
+                       w.shape[0], 0, 0, radix_bits, passes, _NO_DROP)
     LAUNCHES["hist_multi"] += 1
-    return out
+    return out.view(passes, 1 << radix_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +412,8 @@ def hist_pext(w: torch.Tensor, mask: int) -> torch.Tensor:
     nbits = _popcount_checked(mask)
     if not use_gpu_routes(w):
         return hist_pext_plain(w, mask)
-    out = torch.empty(1 << nbits, dtype=torch.int32, device=w.device)
-    _launch("rst_hist_pext", w.device, w.data_ptr(), w.shape[0], int(mask),
-            out.data_ptr())
+    out = _hist_launch("rst_hist_pext", w.device, 1 << nbits, hist_shape(1 << nbits),
+                       w.data_ptr(), w.shape[0], int(mask))
     LAUNCHES["hist_pext"] += 1
     return out
 
@@ -394,9 +494,8 @@ def hist_pext2(hi: torch.Tensor, lo: torch.Tensor, mask_hi: int,
     nbits = _popcount2_checked(mask_hi, mask_lo)
     if not use_gpu_routes(hi):
         return hist_pext2_plain(hi, lo, mask_hi, mask_lo)
-    out = torch.empty(1 << nbits, dtype=torch.int32, device=hi.device)
-    _launch("rst_hist_pext2", hi.device, hi.data_ptr(), lo.data_ptr(),
-            hi.shape[0], int(mask_hi), int(mask_lo), out.data_ptr())
+    out = _hist_launch("rst_hist_pext2", hi.device, 1 << nbits, hist_shape(1 << nbits),
+                       hi.data_ptr(), lo.data_ptr(), hi.shape[0], int(mask_hi), int(mask_lo))
     LAUNCHES["hist_pext2"] += 1
     return out
 
@@ -777,7 +876,6 @@ def _exchange(x: torch.Tensor, num_keys: int, lo: torch.Tensor, hi: torch.Tensor
 
 _CLUSTER = 8                  # blocks of the cluster route: a portable cluster
 _CLUSTER_MIN_PAD = 8 * 1024   # at least 1,024 records a block
-_BLOCK_BYTES = 227 * 1024     # a block's shared memory on the H100
 BITONIC_REGISTER_PLANES = 4   # the resident route's planes; more take tiles
 BITONIC_TRIP_WORDS = 19       # head, coset bits, a code per basis vector and coset bit
 BITONIC_RESIDENT_MAX_PAD = 1 << (BITONIC_TRIP_WORDS - 2)   # a trip of 2^17 records fills 19 words

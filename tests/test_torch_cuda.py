@@ -313,6 +313,147 @@ def test_hist_skewed_single_value_and_unaligned(cuda, bits):
     assert torch.equal(ck.hist_multi(w[3:], 8), ck.hist_multi_plain(w[3:], 8))
 
 
+# the histogram kernel's launch shapes (csrc/hist.cu): every shape the rule
+# picks and every shape scripts/hist_shapes.py times, bit for bit
+
+# (radix_bits, passes): totals from 256 to 2^19 counters, narrow and wide
+HIST_TOTALS = [(8, 1), (8, 4), (11, 3), (15, 1), (14, 3), (16, 1), (15, 3), (17, 1),
+               (16, 2), (18, 1), (17, 2), (18, 2)]
+
+
+def _digits_plain(w, bits, passes, drop_ge=None, offset=0):
+    return torch.stack([ck.hist_plain(w, p, bits, drop_ge, offset) for p in range(passes)])
+
+
+def _digits_launch(w, bits, passes, shape, drop_ge=None, offset=0):
+    return ck._hist_launch("rst_hist", w.device, passes << bits, shape, w.data_ptr(),
+                           w.shape[0], offset & 0xFFFFFFFF, 0, bits, passes,
+                           ck._drop_bound(drop_ge)).view(passes, -1)
+
+
+@pytest.mark.parametrize("skew", ["uniform", "90% one value"])
+@pytest.mark.parametrize("bits,passes", HIST_TOTALS)
+def test_hist_every_shape_matches_plain(cuda, bits, passes, skew):
+    w = rand_plane(1_000_003, bits * passes, cuda)[1:]       # a word off the 16-byte grid
+    if skew != "uniform":
+        w[: w.shape[0] * 9 // 10] = 0x5A5A5A5A
+    want = _digits_plain(w, bits, passes)
+    shapes = ck.hist_shape_candidates(passes << bits)
+    assert shapes[0] == ck.hist_shape(passes << bits)
+    for shape in shapes:
+        assert torch.equal(_digits_launch(w, bits, passes, shape), want), shape.label()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 4097, 4098, 4099, 70_001])
+@pytest.mark.parametrize("bits", [8, 16, 17, 18])
+def test_hist_short_inputs_in_every_row_count(cuda, n, bits):
+    w = rand_plane(n + 3, n + bits, cuda)
+    for start in range(4):                      # planes 0 to 3 words off the grid
+        v = w[start: start + n]
+        before = ck.launch_counts()["hist"]
+        got = ck.hist(v, 0, bits)
+        assert ck.launch_counts()["hist"] == before + 1
+        assert torch.equal(got, ck.hist_plain(v, 0, bits))
+        got = ck.hist_multi(v, bits)
+        assert torch.equal(got, ck.hist_multi_plain(v, bits))
+
+
+@pytest.mark.parametrize("bits,passes", [(16, 1), (18, 1), (8, 2), (11, 3), (16, 2), (17, 2)])
+@pytest.mark.parametrize("drop_ge,offset", [(1 << 17, 0x7FFFFF00), (0, 5),
+                                            ((1 << 32) - 1, 0x9E3779B9)])
+def test_hist_drop_and_offset_when_wide(cuda, bits, passes, drop_ge, offset):
+    mask = (1 << min(32, bits * passes + 1)) - 1
+    w = rand_plane(1_000_002, bits, cuda, mask=mask) + i32(offset)
+    for shape in ck.hist_shape_candidates(passes << bits):
+        got = _digits_launch(w[2:], bits, passes, shape, drop_ge, offset)
+        want = _digits_plain(w[2:], bits, passes, drop_ge, offset)
+        assert torch.equal(got, want), shape.label()
+
+
+@pytest.mark.parametrize("share", [9, 10])
+def test_hist_16_bit_hand_off_under_contention(cuda, share):
+    # 16M keys, 90% or all of them one value: in every block the common
+    # value's 16-bit counter crosses 2^15 several times, so its hand-offs to
+    # the output run while every thread keeps adding to it
+    n = 1 << 24
+    w = rand_plane(n + 3, share, cuda)[3:]
+    w[: n * share // 10] = 0x2A55
+    hi = rand_plane(n + 3, share + 1, cuda)[:n]
+    hi[: n * share // 10] = 0x1C0
+    cases = [("hist", lambda: ck.hist(w, 0, 16), lambda: ck.hist_plain(w, 0, 16)),
+             ("hist", lambda: ck.hist(w, 0, 18), lambda: ck.hist_plain(w, 0, 18)),
+             ("hist_multi", lambda: ck.hist_multi(w, 16), lambda: ck.hist_multi_plain(w, 16)),
+             ("hist_multi", lambda: ck.hist_multi(w, 18), lambda: ck.hist_multi_plain(w, 18)),
+             ("hist_pext", lambda: ck.hist_pext(w, 0xFFFF),
+              lambda: ck.hist_pext_plain(w, 0xFFFF)),
+             ("hist_pext", lambda: ck.hist_pext(w, 0x1FFFF),
+              lambda: ck.hist_pext_plain(w, 0x1FFFF)),
+             ("hist_pext2", lambda: ck.hist_pext2(hi, w, 0xC0, 0x3FFF),
+              lambda: ck.hist_pext2_plain(hi, w, 0xC0, 0x3FFF))]
+    for name, kernel, plain in cases:
+        before = ck.launch_counts()[name]
+        got = kernel()
+        assert ck.launch_counts()[name] == before + 1
+        assert torch.equal(got, plain()), name
+
+
+@pytest.mark.parametrize("bits", [8, 11, 16, 18])
+def test_hist_multi_skewed_and_one_value(cuda, bits):
+    n = 1_000_001
+    w = rand_plane(n, bits, cuda)
+    w[: n * 9 // 10] = 0x155
+    before = ck.launch_counts()["hist_multi"]
+    assert torch.equal(ck.hist_multi(w, bits), ck.hist_multi_plain(w, bits))
+    assert ck.launch_counts()["hist_multi"] == before + 1
+    same = torch.full((n,), -7, dtype=torch.int32, device=cuda)
+    assert torch.equal(ck.hist_multi(same, bits), ck.hist_multi_plain(same, bits))
+
+
+@pytest.mark.parametrize("mask", [0xFF, 0x7FFF, 0xFFFF, 0x1FFFF, 0xF0F00000])
+def test_hist_pext_every_shape_matches_plain(cuda, mask):
+    bins = 1 << bin(mask).count("1")
+    w = rand_plane(1_000_005, mask & 0xFFFF, cuda)[3:]
+    for keys in (w, torch.where(w & 7 != 0, i32(0x1234567), w)):
+        want = ck.hist_pext_plain(keys, mask)
+        for shape in ck.hist_shape_candidates(bins):
+            got = ck._hist_launch("rst_hist_pext", cuda, bins, shape, keys.data_ptr(),
+                                  keys.shape[0], mask)
+            assert torch.equal(got, want), shape.label()
+
+
+@pytest.mark.parametrize("mask_hi,mask_lo", [(0x1FFFF, 0), (0, 0x1FFFF), (0xF00, 0xFF00F),
+                                             (0xF0000000, 0xF00), (0xFF, 0xFF00)])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 2), (3, 3)])
+def test_hist_pext2_every_shape_matches_plain(cuda, mask_hi, mask_lo, offsets):
+    bins = 1 << (bin(mask_hi).count("1") + bin(mask_lo).count("1"))
+    hi = rand_plane(700_007, 1, cuda)[offsets[0]: 700_000 + offsets[0]]
+    lo = rand_plane(700_007, 2, cuda)[offsets[1]: 700_000 + offsets[1]]
+    before = ck.launch_counts()["hist_pext2"]
+    want = ck.hist_pext2_plain(hi, lo, mask_hi, mask_lo)
+    assert torch.equal(ck.hist_pext2(hi, lo, mask_hi, mask_lo), want)
+    assert ck.launch_counts()["hist_pext2"] == before + 1
+    for shape in ck.hist_shape_candidates(bins):
+        got = ck._hist_launch("rst_hist_pext2", cuda, bins, shape, hi.data_ptr(),
+                              lo.data_ptr(), hi.shape[0], mask_hi, mask_lo)
+        assert torch.equal(got, want), shape.label()
+
+
+def test_hist_refuses_shapes_the_rule_cannot_give(cuda):
+    w = rand_plane(1000, 0, cuda)
+    bad = [(ck.HistShape(1024, 16, 2, 1, 1), 18, 1),    # counters without an owner
+           (ck.HistShape(1024, 16, 4, 1, 1), 17, 1),    # rows that own none
+           (ck.HistShape(1024, 15, 2, 1, 0), 16, 1),    # rows of 32-bit counters
+           (ck.HistShape(1024, 15, 1, 2, 0), 15, 1),    # 256 KB a block
+           (ck.HistShape(1024, 16, 1, 1, 0), 16, 1),    # 2^16 32-bit counters
+           (ck.HistShape(1024, 17, 1, 1, 1), 17, 1),    # 2^17 16-bit counters
+           (ck.HistShape(1024, 16, 1, 2, 1), 16, 1),    # copies of 16-bit counters
+           (ck.HistShape(768, 8, 1, 1, 0), 8, 1)]       # threads
+    for shape, bits, passes in bad:
+        assert not ck.hist_shape_ok(shape, passes << bits)
+        with pytest.raises(RuntimeError):
+            _digits_launch(w, bits, passes, shape)
+
+
 def _dense_cum(n, bins, seed, device):
     c = rand_plane(n, seed, device, mask=bins - 1)
     return torch.cumsum(ck.hist_plain(c, 0, bins.bit_length() - 1), 0, dtype=torch.int32)

@@ -32,7 +32,7 @@ from radix_sorting_tpu_torch.ops import counting_engine as tce
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
 from radix_sorting_tpu_torch.ops import histogram as thist
 
-from test_torch_kernels import plane, u32
+from test_torch_kernels import digit_counters, hist_kernel_model, plane, u32
 from test_torch_sort import forced_tpu_routes  # noqa: F401  (class fixture)
 
 
@@ -82,6 +82,56 @@ def test_hist_offset_is_the_unfused_composite(offset, drop_ge):
     want = np.bincount(kept & 0x3FF, minlength=1024)
     got = ck.hist(plane(x), 0, 10, drop_ge=drop_ge, offset=offset)
     assert np.array_equal(got.numpy(), want)
+
+
+# K1's launch shapes (csrc/hist.cu) in the numpy model of the kernel's index
+# arithmetic (tests/test_torch_kernels.py), at 256 threads so that a few tens
+# of thousands of keys fill several chunks: copies of 32-bit counters, 16-bit
+# counters in one block and in 2, 4 and 8 grid rows
+K1_MODEL_SHAPES = [(8, 1, ck.HistShape(256, 8, 1, 8, 0)),
+                   (8, 4, ck.HistShape(256, 10, 1, 2, 0)),
+                   (11, 3, ck.HistShape(256, 13, 1, 1, 1)),
+                   (16, 1, ck.HistShape(256, 15, 2, 1, 1)),
+                   (16, 1, ck.HistShape(256, 16, 1, 1, 1)),
+                   (17, 1, ck.HistShape(256, 16, 2, 1, 1)),
+                   (18, 1, ck.HistShape(256, 16, 4, 1, 1)),
+                   (18, 2, ck.HistShape(256, 16, 8, 1, 1))]
+
+
+@pytest.mark.parametrize("lo_words", [0, 1, 2, 3])
+@pytest.mark.parametrize("bits,passes,shape", K1_MODEL_SHAPES,
+                         ids=[f"r{b}p{p}r{s.ranges}h{s.half}" for b, p, s in K1_MODEL_SHAPES])
+def test_hist_model_matches_plain(bits, passes, shape, lo_words):
+    n = 30_011 + lo_words
+    x = rng_of(bits * passes + lo_words).integers(0, 1 << 32, size=n, dtype=np.uint32)
+    x[: n // 4] = 0x9E3779BE                        # a quarter of the keys one value
+    if passes == 1:                                 # the range probe's offset, drop_ge
+        drop_ge, offset = 0xC0000000, 0x9E3779B9
+        want = ck.hist_plain(plane(x), 0, bits, drop_ge, offset).numpy()[None]
+    else:
+        drop_ge, offset = None, 0
+        want = ck.hist_multi_plain(plane(x), bits).numpy()
+    counters = digit_counters(0, bits, passes, drop_ge, offset)
+    for blocks in (1, 3):
+        got = hist_kernel_model(x, None, counters, passes << bits, shape, blocks, lo_words)
+        assert np.array_equal(got.reshape(passes, -1), want), blocks
+
+
+@pytest.mark.parametrize("radix_bits,passes", [(16, 1), (18, 1), (8, 4)])
+def test_hist_model_of_the_picked_shape_matches_pallas(radix_bits, passes):
+    n = 20_007
+    x = rng_of(radix_bits).integers(0, 1 << 32, size=n, dtype=np.uint32)
+    total = passes << radix_bits
+    shape = ck.hist_shape(total)
+    if passes == 1:
+        drop_ge = 3 << 30
+        want = np.asarray(pk.histogram_tpu(jnp.asarray(x), 0, radix_bits, drop_ge=drop_ge))
+    else:
+        drop_ge = None
+        want = np.asarray(pk.multi_digit_histogram_tpu(jnp.asarray(x), radix_bits))
+    got = hist_kernel_model(x, None, digit_counters(0, radix_bits, passes, drop_ge), total,
+                            shape, 2, 1)
+    assert np.array_equal(got.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("bins", [256, 1024])

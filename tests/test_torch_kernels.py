@@ -199,7 +199,164 @@ def test_no_jax_in_the_port():
 
 
 # ---------------------------------------------------------------------------
-# engine pieces around the kernels, against their JAX counterparts
+# the histogram kernel's launch shapes (csrc/hist.cu): the rule, and a numpy
+# model of the kernel's index arithmetic held against the plain versions
+
+
+def _hist_totals():
+    """Every total a wrapper sends: K1's P * 2^r for P = 1 (hist) and P =
+    ceil(32 / r) (hist_multi), K2 / K3's 2^nbits."""
+    totals = {1 << b: 1 for b in range(1, 19)}
+    totals.update({-(-32 // r) << r: -(-32 // r) for r in range(1, 19)})
+    return sorted(totals.items())
+
+
+def test_hist_shape_rule_gives_each_counter_one_owner():
+    sent = _hist_totals()
+    for total, passes in sent + [(t, 1) for t in range(2, 1 << 19, 997)]:
+        shapes = [ck.hist_shape(total)]
+        if (total, passes) in sent:
+            shapes += ck.hist_shape_candidates(total)
+        for shape in shapes:
+            assert ck.hist_shape_ok(shape, total), (total, shape)
+            # row y owns [y << local_bits, (y + 1) << local_bits) of [0, total)
+            rows = np.arange(shape.ranges + 1) << shape.local_bits
+            owned = np.diff(np.minimum(total, rows))
+            assert owned.sum() == total and owned.min() >= 1, (total, shape)
+            assert shape.smem(total) <= 232_448
+        picked = shapes[0]
+        if total <= 1 << 15:                           # 32-bit counters in one block
+            assert picked.ranges == 1 and not picked.half
+        else:                                          # 16-bit counters, 2^16 a row
+            assert picked.half and picked.ranges == -(-total >> 16)
+        if total <= 1 << 16:
+            assert picked.ranges == 1                  # each key read once
+    assert ck.hist_shape(1 << 19).ranges == 8
+    with pytest.raises(ValueError):
+        ck.hist_shape((1 << 19) + 1)
+
+
+def _pext_np(x, mask):
+    out = np.zeros(x.shape, np.int64)
+    k = 0
+    for b in range(32):
+        if mask >> b & 1:
+            out |= ((x.astype(np.int64) >> b) & 1) << k
+            k += 1
+    return out
+
+
+def hist_kernel_model(lo, hi, counters_of, total, shape, blocks, lo_words=0, unroll=4):
+    """What ``hist_kernel`` computes, from its index arithmetic, in numpy.
+
+    ``lo`` (and ``hi``, or None) are the planes as u32; ``counters_of(h, l)``
+    gives each key's counters as a (P, n) int64 array, -1 for none (a
+    dropped key); ``blocks`` the blocks of a grid row; ``lo_words`` the lo
+    plane's address in words mod 4; ``unroll`` the 16-byte groups a thread
+    loads a step. A head of up to 3 words and the tail go to block 0, whole
+    chunks of unroll * threads 16-byte groups to the row's blocks in turn,
+    the short chunk to the next; a key's counters go to the reading block of
+    the row that owns them (``c >> local_bits``), in the reading warp's copy,
+    and every block adds its counters into the output."""
+    n, threads = lo.size, shape.threads
+    lead = min((4 - lo_words) & 3, n)
+    quads = (n - lead) >> 2
+    chunk = unroll * threads
+    whole = quads // chunk
+    i = np.arange(n)
+    block = np.zeros(n, np.int64)
+    thread = i.copy()                                   # head: thread t reads word t
+    body = slice(lead, lead + 4 * quads)
+    q = (i[body] - lead) >> 2
+    j = q // chunk
+    block[body] = np.where(j < whole, j % blocks, whole % blocks)
+    thread[body] = np.where(j < whole, q - j * chunk, q - whole * chunk) % threads
+    thread[lead + 4 * quads:] -= lead + 4 * quads        # tail: thread t reads tail word t
+    assert thread.max(initial=0) < threads
+    stride = min(1 << shape.local_bits, total)
+    smem = np.zeros((shape.ranges, blocks, shape.copies, stride), np.int64)
+    copy = (thread >> 5) % shape.copies
+    for c in counters_of(hi, lo):
+        ok = c >= 0
+        row = c[ok] >> shape.local_bits
+        assert row.max(initial=0) < shape.ranges
+        np.add.at(smem, (row, block[ok], copy[ok], c[ok] & ((1 << shape.local_bits) - 1)), 1)
+    out = np.zeros(total, np.int64)
+    owned = np.zeros(total, np.int64)
+    for y in range(shape.ranges):
+        first = y << shape.local_bits
+        size = min(stride, total - first)
+        assert size > 0
+        for b in range(blocks):
+            out[first:first + size] += smem[y, b].sum(axis=0)[:size]
+            assert not smem[y, b][:, size:].any()      # nothing past the row's counters
+            owned[first:first + size] += 1
+    assert (owned == blocks).all()                      # one owner a counter in each block
+    return out
+
+
+def pext_counters(mask_hi, mask_lo):
+    nb_lo = bin(mask_lo).count("1")
+
+    def counters_of(h, l):
+        v = _pext_np(l, mask_lo)
+        if h is not None:
+            v |= _pext_np(h, mask_hi) << nb_lo
+        return v[None]
+    return counters_of
+
+
+def digit_counters(shift, bits, passes, drop_ge=None, offset=0):
+    def counters_of(h, l):
+        u = (l.astype(np.int64) - offset) & 0xFFFFFFFF
+        ok = u < (1 << 32 if drop_ge is None else drop_ge)
+        return np.stack([np.where(ok, (p << bits) | ((u >> (shift + p * bits)) & ((1 << bits) - 1)),
+                                  -1) for p in range(passes)])
+    return counters_of
+
+
+# shapes at 256 threads (chunks of 4,096 keys) so that a few tens of
+# thousands of keys fill several: copies of 32-bit counters, 16-bit counters
+# in one block and in grid rows
+MODEL_SHAPES = {
+    1 << 8: [ck.HistShape(256, 8, 1, 8, 0), ck.HistShape(256, 8, 1, 3, 0)],
+    1 << 16: [ck.HistShape(256, 16, 1, 1, 1), ck.HistShape(256, 15, 2, 1, 1)],
+    1 << 17: [ck.HistShape(256, 16, 2, 1, 1), ck.HistShape(1024, 16, 2, 1, 1)],
+}
+
+
+@pytest.mark.parametrize("lo_words", [0, 1, 2, 3])
+@pytest.mark.parametrize("mask", [0xF0F00000, 0xFFFF, 0x1FFFF])
+def test_hist_pext_model_matches_plain(mask, lo_words):
+    n = 24_007 + lo_words
+    x = masked_keys(lo_words, n, 0xFFFFFFFF, 0)
+    x[: n // 3] = 0x00012345                            # a third of the keys one value
+    bins = 1 << bin(mask).count("1")
+    want = ck.hist_pext_plain(plane(x), mask).numpy()
+    for shape in MODEL_SHAPES[bins] + [ck.hist_shape(bins)]:
+        for blocks in (1, 3):
+            got = hist_kernel_model(x, None, pext_counters(0, mask), bins, shape, blocks,
+                                    lo_words)
+            assert np.array_equal(got, want), (shape, blocks)
+    if bins == 1 << 16:
+        assert np.array_equal(np.asarray(pk.histogram_pext_tpu(jnp.asarray(x), mask)), want)
+
+
+@pytest.mark.parametrize("masks", [(0x1FFFF, 0), (0, 0xFFFF), (0xFF00, 0xFF00), (0xF, 0xF0)])
+def test_hist_pext2_model_matches_plain(masks):
+    mh, ml = masks
+    n = 20_003
+    hi, lo = masked_keys(1, n, 0xFFFFFFFF, 0), masked_keys(2, n, 0xFFFFFFFF, 0)
+    bins = 1 << (bin(mh).count("1") + bin(ml).count("1"))
+    want = ck.hist_pext2_plain(plane(hi), plane(lo), mh, ml).numpy()
+    if mh and ml:   # two planes, lo 2 words off the grid, two 16-byte loads a plane a step
+        got = hist_kernel_model(lo, hi, pext_counters(mh, ml), bins, ck.hist_shape(bins), 2, 2,
+                                unroll=2)
+    else:           # one mask 0: the other plane alone, as K2 reads it
+        live = hi if mh else lo
+        got = hist_kernel_model(live, None, pext_counters(0, mh | ml), bins,
+                                ck.hist_shape(bins), 2, 1)
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("bins", [2, 16, 1024, 2048])
