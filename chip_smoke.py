@@ -19,14 +19,17 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      hist_multi at r = 8, 11, 16 and 18 (so every form the launch-shape
      rule picks runs once: 32-bit sub-histograms, 16-bit counters in one
      block and in 2, 4 and 8 grid rows; its shape printed), and K1 r = 16
-     and 18 and K2 0xFFFF on keys of which 90% or all are one value (each
-     block hands a 16-bit counter to the output several times); regen (K4,
-     K7); whist (K10) at 1,024 bins
-     with i32 values, 65,536 bins with u8 values (four counter ranges) and
-     1,024 bins with 90% of the rows in one group; whist_f32 (K11) with
-     counts at 1,024 bins and without at 32,768 bins (f32 sums to the bound
-     sum|w| * 2^-14 + 1e-5 of a float64 sum, printing the largest relative
-     error); the LSD passes lsd_hist (L1) and lsd_scatter (L2) for one pass
+     and 18, K2 0xFFFF and K3 at 16 bits on keys of which 90% or all are
+     one value (each block hands a 16-bit counter to the output several
+     times); regen (K4, K7); whist (K10) at 1,024 bins with i32 values,
+     65,536 bins with u8 values (16-bit counts, two grid rows), 1,024 bins
+     with 90% of the rows in one group, 131,072 bins with i32 values (four
+     rows), 65,536 bins with every row in one group and 131,072 bins with
+     90% in one (16-bit counts handed off under contention); whist_f32
+     (K11) with counts at 1,024 and 65,536 bins and without at 32,768 bins
+     (f32 sums to the bound sum|w| * 2^-14 + 1e-5 of a float64 sum,
+     printing the largest relative error); each with the launch shape
+     cuda_kernels.whist_shape gives it; the LSD passes lsd_hist (L1) and lsd_scatter (L2) for one pass
      at r = 8, 11 and 16 (key and index planes; the pass must be stable),
      and at the other shapes a caller may give them: tiles of 1,000 (r =
      8), 4,096 and 8,191 (r = 11; with 1,000 each of L2's three staged
@@ -105,7 +108,9 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      steady-state loops); K1, K2 and K3 with the launch shape each ran, the
      device time of one call (torch.profiler) and torch.bincount of the
      precomputed digits or PEXT values; K1 on keys of which 90% are one
-     value; the range
+     value; K5, K6, K8 and K9 beside torch.repeat_interleave of each bin's
+     key by its count; K10 and K11 at each phase-3 input with their launch
+     shape and the reads of the rows it takes, beside index_add_; the range
      probe's cost on full-entropy u32; torch.sort of int32 and int64 keys;
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
@@ -383,11 +388,15 @@ def main() -> None:
     for label, share in (("90% one value", 9), ("all one value", 10)):
         same = w.clone()
         same[: n * share // 10] = 0x155
+        same_hi = hi64.clone()
+        same_hi[: n * share // 10] = 0x1C0
         for name, got, ref in (
                 ("hist r=16", ck.hist(same, 0, 16), ck.hist_plain(same, 0, 16)),
                 ("hist r=18", ck.hist(same, 0, 18), ck.hist_plain(same, 0, 18)),
                 ("hist_pext mask=0xFFFF", ck.hist_pext(same, 0xFFFF),
-                 ck.hist_pext_plain(same, 0xFFFF))):
+                 ck.hist_pext_plain(same, 0xFFFF)),
+                ("hist_pext2 masks=0xC0,0x3FFF", ck.hist_pext2(same_hi, same, 0xC0, 0x3FFF),
+                 ck.hist_pext2_plain(same_hi, same, 0xC0, 0x3FFF))):
             torch.cuda.synchronize()
             err = int((got.long() - ref.long()).abs().max())
             kernel = name.split()[0]
@@ -396,7 +405,7 @@ def main() -> None:
                 fail(f"{name} on {label}: max |err| {err}")
             print(f"[3 kernel] {name} {label} shape {hist_label(got.numel())} equal to plain "
                   "(max |err| 0)", flush=True)
-        del same
+        del same, same_hi
     dense_inputs = {}
     for bits, name in ((10, "regen"), (16, "regen_windowed")):
         c = w & i32((1 << bits) - 1)
@@ -410,15 +419,23 @@ def main() -> None:
         dense_inputs[name] = cum
         print(f"[3 kernel] {name} bins={cum.numel()} offset=0x{offset:X} equal to "
               "plain (max |err| 0)", flush=True)
-    # the group-by tier: K10 counts and wrapping sums, K11 f32 sums
+    # the group-by tier: K10 counts and wrapping sums, K11 f32 sums; past
+    # 2^14 bins with counts 16-bit counts, whose hand-offs run under
+    # contention where most rows are in one group
     vals_i32 = lo64                                     # full-range int32 values
     vals_u8 = lo64 & 0xFF                               # u8 values, u32-converted
     skewed_k = w & 1023
     skewed_k[: n * 9 // 10] = 7                         # 90% of the rows one group
+    skewed_wide = w & 0x1FFFF
+    skewed_wide[: n * 9 // 10] = 0x1ABCD
+    one_k = torch.full_like(w, 0x2A55)                  # every row one group
     weights = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
     whist_inputs = [(w & 1023, vals_i32, 10, 1000, "i32 values, 1,000 of 1,024 kept"),
-                    (w & 0xFFFF, vals_u8, 16, 1 << 16, "u8 values, 4 ranges"),
-                    (skewed_k, vals_i32, 10, 1024, "90% one group")]
+                    (w & 0xFFFF, vals_u8, 16, 1 << 16, "u8 values"),
+                    (skewed_k, vals_i32, 10, 1024, "90% one group"),
+                    (w & 0x1FFFF, vals_i32, 17, 1 << 17, "i32 values"),
+                    (one_k, vals_i32, 16, 1 << 16, "all rows one group"),
+                    (skewed_wide, vals_u8, 17, 1 << 17, "u8 values, 90% one group")]
     for k, v, bits, drop, label in whist_inputs:
         (gc, gs), (pc, ps) = ck.whist(k, v, bits, drop), ck.whist_plain(k, v, bits, drop)
         torch.cuda.synchronize()
@@ -426,9 +443,11 @@ def main() -> None:
         errs["whist"] = max(errs["whist"], err)
         if err or int(gc.long().sum()) != int(((k.long() & 0xFFFFFFFF) < drop).sum()):
             fail(f"whist bins={1 << bits} {label}: max |err| {err}")
-        print(f"[3 kernel] whist bins={1 << bits} drop_ge={drop} {label}: counts and "
-              "sums equal to plain (max |err| 0)", flush=True)
-    whist_f32_inputs = [(w & 1023, 10, 1000, True), (w & 0x7FFF, 15, 1 << 15, False)]
+        print(f"[3 kernel] whist bins={1 << bits} drop_ge={drop} {label} shape "
+              f"{ck.whist_shape(bits, 'u32', True).label()}: counts and sums equal to plain "
+              "(max |err| 0)", flush=True)
+    whist_f32_inputs = [(w & 1023, 10, 1000, True), (w & 0x7FFF, 15, 1 << 15, False),
+                        (w & 0xFFFF, 16, 1 << 16, True)]
     for k, bits, drop, with_counts in whist_f32_inputs:
         name = "whist_f32_counts" if with_counts else "whist_f32"
         got = ck.whist_f32(k, weights, bits, drop, with_counts)
@@ -444,7 +463,8 @@ def main() -> None:
         if not (ok and ok_plain):
             fail(f"{name} bins={1 << bits}: sums past the bound (max rel err {rel:.3g}, "
                  f"plain {rel_plain:.3g})")
-        print(f"[3 kernel] {name} bins={1 << bits} drop_ge={drop}: "
+        print(f"[3 kernel] {name} bins={1 << bits} drop_ge={drop} shape "
+              f"{ck.whist_shape(bits, 'f32', with_counts).label()}: "
               f"{'counts equal to plain, ' if with_counts else ''}sums within "
               f"sum|w| * 2^-14 + 1e-5 of float64 (max rel err {rel:.3g}, plain "
               f"{rel_plain:.3g}; max |kernel - plain| {errs[name]:.3g})", flush=True)
@@ -941,7 +961,7 @@ def main() -> None:
          lambda: u32_tensor(k1024),
          lambda x: rt.group_reduce(x, pay_f32_t, reduce="mean", groups=1024),
          lambda out: out, lambda: mean_check),
-        ("group_reduce sum of u8 values, 65,536 groups (K10, 4 ranges)",
+        ("group_reduce sum of u8 values, 65,536 groups (K10, two grid rows)",
          lambda: u32_tensor(k64k),
          lambda x: rt.group_reduce(x, v_u8_t, reduce="sum", groups=1 << 16),
          grouped(np.uint32),
@@ -1154,10 +1174,20 @@ def main() -> None:
             lambda: torch.bincount(pext, minlength=bins), shape=hist_label(bins),
             device_ms=device_trace(kernel)[1])
         del pext
+    # K5 / K8 and K6 / K9 beside torch.repeat_interleave of every bin's key
+    # (its live bits PDEP'd, the dead bits of the first key; two planes packed
+    # into one int64) by the bin's count, both made before the timing
+    def bin_counts(cum):
+        return torch.diff(cum, prepend=cum.new_zeros(1))
+
     for name, (cum, mask, plane) in regen_inputs.items():
+        counts = bin_counts(cum)
+        bin_keys = probes.expand_live_bits(
+            torch.arange(cum.numel(), dtype=torch.int32, device=dev), mask) | (plane[0] & i32(~mask))
         row(name, cum.numel(), n * 4 + cum.numel() * 4 + 4,
             lambda: ck.regen_pdep(cum, n, mask, plane),
-            lambda: ck.regen_pdep_plain(cum, n, mask, plane))
+            lambda: ck.regen_pdep_plain(cum, n, mask, plane),
+            lambda: torch.repeat_interleave(bin_keys, counts, output_size=n))
     for m64 in (0xF000000000000F00, 0x00FF00000000FF00):
         mh, ml = m64 >> 32, m64 & 0xFFFFFFFF
         bins = 1 << bin(m64).count("1")
@@ -1169,9 +1199,15 @@ def main() -> None:
             device_ms=device_trace(kernel)[1])
         del pext
     for name, (cum, mh, ml, phi, plo) in regen2_inputs.items():
+        counts = bin_counts(cum)
+        khi, klo = probes.expand_word_planes(
+            torch.arange(cum.numel(), dtype=torch.int32, device=dev), (phi, plo), (mh, ml))
+        bin_keys = (khi.long() << 32) | (klo.long() & 0xFFFFFFFF)
         row(name, cum.numel(), n * 8 + cum.numel() * 4 + 8,
             lambda: ck.regen_pdep2(cum, n, mh, ml, phi, plo),
-            lambda: ck.regen_pdep2_plain(cum, n, mh, ml, phi, plo))
+            lambda: ck.regen_pdep2_plain(cum, n, mh, ml, phi, plo),
+            lambda: torch.repeat_interleave(bin_keys, counts, output_size=n))
+    del counts, bin_keys
 
     # K1 beside torch.bincount of the same digits (dropped keys to a spill
     # bin, as the plain version does), computed before the timing
@@ -1213,23 +1249,25 @@ def main() -> None:
     del j
     # K10 / K11 beside one torch call of their sums (index_add_ into a spill
     # bin, computed before the timing); the bound counts one read of keys and
-    # values, the kernel reads them once per counter range
+    # values, the kernel reads them once per grid row of its launch shape
     for k, v, bits, drop, label in whist_inputs:
         bins = 1 << bits
         idx = torch.where((k.long() & 0xFFFFFFFF) < drop, k.long() & 0xFFFFFFFF, bins)
+        shape = ck.whist_shape(bits, "u32", True)
         row("whist", bins, n * 8 + bins * 8, lambda: ck.whist(k, v, bits, drop),
             lambda: ck.whist_plain(k, v, bits, drop),
             lambda: torch.zeros(bins + 1, dtype=torch.int32, device=dev).index_add_(0, idx, v),
-            keys=label, reads=max(1, bins * 8 >> 17))
+            keys=label, shape=shape.label(), reads=shape.ranges)
     for k, bits, drop, with_counts in whist_f32_inputs:
         bins, per_bin = 1 << bits, 8 if with_counts else 4
         idx = torch.where((k.long() & 0xFFFFFFFF) < drop, k.long() & 0xFFFFFFFF, bins)
+        shape = ck.whist_shape(bits, "f32", with_counts)
         row("whist_f32_counts" if with_counts else "whist_f32", bins, n * 8 + bins * per_bin,
             lambda: ck.whist_f32(k, weights, bits, drop, with_counts),
             lambda: ck.whist_f32_plain(k, weights, bits, drop, with_counts),
             lambda: torch.zeros(bins + 1, dtype=torch.float32,
                                 device=dev).index_add_(0, idx, weights),
-            reads=max(1, bins * per_bin >> 17))
+            shape=shape.label(), reads=shape.ranges)
     del idx
     # L1 beside torch.bincount of the precomputed tile-major digits; L2 with
     # keys and an index plane (as argsort carries) and with the key plane

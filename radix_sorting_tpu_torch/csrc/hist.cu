@@ -45,12 +45,19 @@
 //     ceil(total / 2^16) rows, each counting one range and reading every
 //     key (2 at 2^17, 4 at 2^18), since both forms below that read a key
 //     once were slower; a counter that reaches 2^15 hands 2^15 to the
-//     output (add_half), so none overflows;
+//     output (rst::add_half, half_counter.cuh), so none overflows: the
+//     block counts in rounds of two chunks (one for two planes) with a
+//     barrier after each, which bounds what can land while a hand-off is
+//     pending (the proof is in half_counter.cuh), and each thread's next
+//     chunk is loaded before it counts this one, so its loads are in flight
+//     across the barrier;
 //   * with 16-bit counters, a warp in which at least 4 lanes find their
-//     chunk's first two keys on one counter (a ballot a chunk) has each
-//     thread add a run of equal counters of a pass once, so keys of which
-//     90% are one value do not serialize on one counter (an atomic that
-//     returns its old value), and uniform keys pay one ballot a chunk;
+//     chunk's first two keys on one counter (a ballot a chunk) takes the
+//     first such lane's key as its candidate: each thread counts its keys
+//     on the candidate's counters in a register, and lane 0 adds the warp's
+//     sum once a pass (__reduce_add_sync), so keys of which 90% are one
+//     value do not serialize on one counter (an atomic that returns its old
+//     value), and uniform keys pay one ballot a chunk;
 //   * K1's passes are unrolled at compile time for P = 1 to 4 (the
 //     wrappers' hist and hist_multi at r >= 8), and its drop test is one
 //     32-bit compare, compiled out when nothing is dropped;
@@ -75,8 +82,14 @@
 //     more a call than the reductions (a trial build without the key loop,
 //     BB);
 //   * a warp ballot of lane 0's counter cost 17% (one digit) to 100% (four
-//     digits) on uniform keys (BE) and paid only for 16-bit counters, where
-//     runs pay more.
+//     digits) on uniform keys (BE) and paid only for 16-bit counters;
+//   * the hand-off's rounds: with each thread adding its runs of a value, a
+//     barrier after every chunk cost 8% at 2^18 counters and 22% there with
+//     90% of the keys one value (BO); the warp's sum of the candidate took
+//     the 22% back (BP); rounds of two chunks against one were 4 to 6%
+//     faster for one plane (BS), rounds of four 7.6% slower for two (BQ);
+//     an L2 prefetch of the chunk after next made every row 2 to 16%
+//     slower (BS).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -84,6 +97,7 @@
 
 #include "bit_runs.cuh"
 #include "grid.cuh"
+#include "half_counter.cuh"
 
 namespace {
 
@@ -97,7 +111,7 @@ constexpr uint32_t kNone = 0xFFFFFFFFu; // no counter (a dropped key)
 template <bool kTwo>
 struct PextCount {
   static constexpr bool two = kTwo;
-  static constexpr int runs = 1;
+  static constexpr int cands = 1;     // candidate counters a warp keeps (one a pass)
   static constexpr int unroll = kTwo ? 2 : 4;   // 16-byte loads a thread and plane a step
   rst::BitRuns hi;  // runs of mask_hi (kTwo only)
   rst::BitRuns lo;  // runs of mask_lo
@@ -116,7 +130,7 @@ struct PextCount {
 template <int kP, bool kDrop>
 struct DigitCount {
   static constexpr bool two = false;
-  static constexpr int runs = kP > 0 ? kP : 1;   // run registers a thread keeps
+  static constexpr int cands = kP > 0 ? kP : 1;  // candidate counters a warp keeps
   static constexpr int unroll = 4;
   uint32_t offset;      // subtracted from every key
   uint32_t drop_ge;     // kDrop: keys - offset >= this count nowhere
@@ -157,62 +171,10 @@ struct Shape {
   int half;        // 16-bit counters, two a word
 };
 
-// A 16-bit counter hands 2^15 to the output whenever an add lifts it from
-// below 2^15 to 2^15 or past: that thread takes 2^15 back off with its next
-// atomic on the same word. Only one hand-off of a counter is pending at a
-// time, since the next needs the counter below 2^15 again. A counter carries
-// into its neighbour only if the block's other threads add 2^16 - (2^15 +
-// 15) = 32,753 or more to it while the hand-off is pending. A thread adds at
-// most 16 to one counter a chunk (its 16 keys), so in the rest of their
-// chunk and the next the 1,023 other threads add about 32,736 at most: every
-// one of them would have to load a third chunk from device memory and count
-// into it while the handing thread goes from one atomic to the next. The
-// bound rests on that timing, which CUDA's scheduler does not promise; the
-// card tests and chip_smoke.py hold the hand-off against the plain version
-// with every block crossing 2^15 several times (16M and 40M keys of one
-// value).
-__device__ __forceinline__ void add_half(unsigned* words, uint32_t at, uint32_t v, int* out) {
-  const uint32_t sh = (at & 1u) << 4;
-  const uint32_t old = (atomicAdd(words + (at >> 1), v << sh) >> sh) & 0xFFFFu;
-  if (old < 0x8000u && old + v >= 0x8000u) {
-    atomicSub(words + (at >> 1), 0x8000u << sh);
-    atomicAdd(out + at, 0x8000);
-  }
-}
-
-// A thread's runs: for each pass, the last counter it met and how many times
-// in a row; a run is added once.
-template <int kRuns>
-struct Runs {
-  uint32_t last[kRuns], run[kRuns];
-  __device__ __forceinline__ Runs() {
-#pragma unroll
-    for (int p = 0; p < kRuns; ++p) run[p] = 0;
-  }
-  template <class Add>
-  __device__ __forceinline__ void push(uint32_t c, int p, Add& add) {
-    if (run[p] != 0 && c == last[p]) {
-      ++run[p];
-      return;
-    }
-    if (run[p] != 0) add(last[p], run[p]);
-    last[p] = c;
-    run[p] = 1;
-  }
-  template <class Add>
-  __device__ __forceinline__ void flush(Add& add) {
-#pragma unroll
-    for (int p = 0; p < kRuns; ++p) {
-      if (run[p] != 0) add(last[p], run[p]);
-      run[p] = 0;
-    }
-  }
-};
-
 // 32-bit counters (up to 2^15): each block counts every counter into its own
 // `copies` sub-histograms. 16-bit counters (kHalf, up to 2^16 a block): grid
-// row y counts range y, and a warp whose chunk repeats counters adds a
-// thread's runs (flushed each chunk, so a run is at most 16).
+// row y counts range y, in rounds, and a warp whose chunk repeats a key adds
+// that key's counters once for the warp.
 template <class Count, bool kHalf>
 __global__ void __launch_bounds__(kMaxThreads)
 hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, long long n,
@@ -232,17 +194,27 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
   auto count_at = [&](uint32_t c, uint32_t v) {
     if (kHalf) {
       if (static_cast<int>(c >> local_bits) != range) return;
-      add_half(words, c & ((1u << local_bits) - 1u), v, out_block);
+      rst::add_half(words, c & ((1u << local_bits) - 1u), v, out_block);
     } else {
       atomicAdd(mine + c, static_cast<int>(v));
     }
   };
-  Runs<Count::runs> runs;
   auto add = [&](uint32_t c, int p) {
     if (c != kNone) count_at(c, 1u);
   };
-  auto add_runs = [&](uint32_t c, int p) {
-    if (c != kNone) runs.push(c, p, count_at);
+  // the warp's candidate key's counter of each pass, and this thread's keys
+  // on it in the chunk
+  uint32_t cand[Count::cands], agg[Count::cands];
+#pragma unroll
+  for (int p = 0; p < Count::cands; ++p) agg[p] = 0;
+  auto set_cand = [&](uint32_t c, int p) { cand[p] = c; };
+  auto add_agg = [&](uint32_t c, int p) {
+    if (c == kNone) return;
+    if (c == cand[p]) {
+      ++agg[p];
+    } else {
+      count_at(c, 1u);
+    }
   };
   uint32_t probe = kNone;              // the first pass's counter of a key
   auto record = [&](uint32_t c, int p) {
@@ -261,35 +233,68 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
   const uint4* lo4 = reinterpret_cast<const uint4*>(lo + lead);
   const uint4* hi4 = reinterpret_cast<const uint4*>(hi + lead);
   constexpr int kUnroll = Count::unroll;
+  // 16-bit counters count in rounds (half_counter.cuh) of kRound chunks
+  // (two for one plane, one for two: the faster on the H100, BS), and a last
+  // round of the short chunk with the head and the tail: a thread reads at
+  // most 4 * unroll * kRound keys a round, or 4 * unroll + 2
+  constexpr int kRound = Count::two ? 1 : 2;
+  static_assert(!kHalf || (rst::half_round_ok(kMaxThreads, 4 * kUnroll * kRound) &&
+                           rst::half_round_ok(kMaxThreads, 4 * kUnroll + 2)),
+                "a hand-off could carry into the neighbouring counter");
   const long long chunk = static_cast<long long>(kUnroll) * blockDim.x;
   const long long whole = quads / chunk;
-  for (long long j = blockIdx.x; j < whole; j += gridDim.x) {
+  auto load = [&](long long j, uint4* l, uint4* h) {
     const long long q0 = j * chunk + threadIdx.x;
-    uint4 l[kUnroll], h[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long q = q0 + static_cast<long long>(u) * blockDim.x;
       l[u] = __ldg(lo4 + q);
       h[u] = !Count::two ? l[u] : hi_vec ? __ldg(hi4 + q) : load4(hi + lead + 4 * q);
     }
-    // 16-bit counters: a warp whose lanes often meet a repeated counter in
-    // their first two keys takes runs for the chunk, else adds key by key
+  };
+  uint4 l[kUnroll], h[kUnroll];
+  if (kHalf && blockIdx.x < whole) load(blockIdx.x, l, h);
+  int chunks = 0;                      // of the round
+  for (long long j = blockIdx.x; j < whole; j += gridDim.x) {
+    // 16-bit counters: the next chunk's loads go out before this one is
+    // counted, so that they are in flight across the barrier ending the round
+    uint4 ln[kUnroll], hn[kUnroll];
+    if (!kHalf) {
+      load(j, l, h);
+    } else if (j + gridDim.x < whole) {
+      load(j + gridDim.x, ln, hn);
+    }
+    // 16-bit counters: a warp in which at least 4 lanes find their first two
+    // keys on one counter takes the first such lane's key as its candidate
+    // and adds the chunk's keys on the candidate's counters once for the
+    // warp (its lane 0), the others key by key
     bool repeats = false;
     if (kHalf) {
       count(h[0].x, l[0].x, record);
       const uint32_t first = probe;
       count(h[0].y, l[0].y, record);
-      repeats = __popc(__ballot_sync(0xFFFFFFFFu, first == probe && first != kNone)) >= 4;
+      const unsigned rep = __ballot_sync(0xFFFFFFFFu, first == probe && first != kNone);
+      repeats = __popc(rep) >= 4;
+      if (repeats) {
+        const int src = __ffs(rep) - 1;
+        count(__shfl_sync(0xFFFFFFFFu, h[0].x, src), __shfl_sync(0xFFFFFFFFu, l[0].x, src),
+              set_cand);
+      }
     }
     if (repeats) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        count(h[u].x, l[u].x, add_runs);
-        count(h[u].y, l[u].y, add_runs);
-        count(h[u].z, l[u].z, add_runs);
-        count(h[u].w, l[u].w, add_runs);
+        count(h[u].x, l[u].x, add_agg);
+        count(h[u].y, l[u].y, add_agg);
+        count(h[u].z, l[u].z, add_agg);
+        count(h[u].w, l[u].w, add_agg);
       }
-      runs.flush(count_at);
+#pragma unroll
+      for (int p = 0; p < Count::cands; ++p) {
+        const uint32_t keys = __reduce_add_sync(0xFFFFFFFFu, agg[p]);
+        if ((threadIdx.x & 31) == 0 && keys != 0) count_at(cand[p], keys);
+        agg[p] = 0;
+      }
     } else {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -299,7 +304,19 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
         count(h[u].w, l[u].w, add);
       }
     }
+    if (kHalf) {
+      if (++chunks == kRound) {
+        __syncthreads();    // the round ends: every hand-off of it has landed
+        chunks = 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        l[u] = ln[u];
+        h[u] = hn[u];
+      }
+    }
   }
+  if (kHalf && chunks != 0) __syncthreads();   // the last round: short chunk, head and tail
   if (static_cast<long long>(blockIdx.x) == whole % gridDim.x) {   // the last, short chunk
     for (long long q = whole * chunk + threadIdx.x; q < quads; q += blockDim.x) {
       const uint4 l = __ldg(lo4 + q);
@@ -325,7 +342,7 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
   for (int b = threadIdx.x; b < owned; b += blockDim.x) {
     int sum = 0;
     if (kHalf) {
-      sum = static_cast<int>((words[b >> 1] >> ((b & 1) << 4)) & 0xFFFFu);
+      sum = rst::half_at(words, b);
     } else {
       for (int c = 0; c < copies; ++c) sum += local[c * stride + b];
     }

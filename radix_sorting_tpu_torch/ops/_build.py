@@ -39,6 +39,9 @@ _I = ctypes.c_int
 # a histogram's launch shape (cuda_kernels.HistShape: threads, local_bits,
 # ranges, copies, half)
 _HIST_SHAPE = (_I, _I, _I, _I, _I)
+# a weighted histogram's launch shape (cuda_kernels.WhistShape: threads,
+# local_bits, ranges, half, unroll)
+_WHIST_SHAPE = (_I, _I, _I, _I, _I)
 _SIGNATURES = {
     # keys, n, offset, shift, bits, passes, drop_ge, hist, shape, stream
     "rst_hist": (_P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
@@ -55,11 +58,12 @@ _SIGNATURES = {
     # cum, bins, n, mask_hi, mask_lo, plane_hi, plane_lo, out_hi, out_lo, stream
     "rst_regen_pdep2": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                         ctypes.c_uint, _P, _P, _P, _P, _P),
-    # keys, values, n, bits, drop_ge, counts, sums, stream
-    "rst_whist": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, _P, _P, _P),
-    # keys, weights, n, bits, drop_ge, counts (null: none), sums, stream
+    # keys, values, n, bits, drop_ge, counts, sums, shape, stream
+    "rst_whist": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, _P, _P,
+                  *_WHIST_SHAPE, _P),
+    # keys, weights, n, bits, drop_ge, counts (null: none), sums, shape, stream
     "rst_whist_f32": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, _P, _P,
-                      _P),
+                      *_WHIST_SHAPE, _P),
     # keys, n, shift, bits, tile, hist, stream
     "rst_lsd_hist": (_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                      _P, _P),

@@ -72,7 +72,8 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "hist_pext", "hist_pext_plain", "regen_pdep", "regen_pdep_plain",
            "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain",
            "whist", "whist_plain", "whist_f32", "whist_f32_plain", "low32",
-           "WHIST_MAX_BITS", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
+           "WHIST_MAX_BITS", "WhistShape", "whist_shape", "whist_shape_ok",
+           "whist_shape_candidates", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
            "lsd_scatter_plain", "LSD_MAX_BITS", "LSD_STAGE_MAX_BITS", "LSD_STAGE_SHAPES",
            "LSD_SLOT_BITS", "LsdStageShape", "lsd_stage_smem", "lsd_stage_shapes",
            "lsd_scatter_shape",
@@ -211,7 +212,9 @@ def hist_shape_ok(shape: HistShape, total: int) -> bool:
     """The checks ``rst_hist`` makes before a launch (``shape_ok`` in
     csrc/hist.cu): every counter of ``[0, total)`` has exactly one owner, no
     row owns none, the block fits 232,448 bytes; 32-bit counters in one
-    row, 16-bit counters in one copy."""
+    row, 16-bit counters in one copy. (Every shape meets the 16-bit
+    hand-off's bound of csrc/half_counter.cuh: the kernel asserts it when it
+    is compiled.)"""
     per = 1 << shape.local_bits
     return (shape.threads in HIST_THREADS and shape.half in (0, 1)
             and shape.ranges >= 1 and shape.copies >= 1
@@ -551,6 +554,94 @@ def regen_pdep2(cum: torch.Tensor, n: int, mask_hi: int, mask_lo: int,
 # K10 / K11: weighted histograms, the dense group-by tier
 
 WHIST_MAX_BITS = 17      # widest table the group-by gates ask for (2^17 bins)
+WHIST_WORD_BITS = 14     # a block's bins of 32-bit counts and sums: 2^14, 128 KB
+WHIST_BLOCK_BITS = 15    # with 16-bit counts (6 bytes a bin) or sums alone: 2^15
+WHIST_THREADS = (256, 512, 1024)
+
+
+class WhistShape(NamedTuple):
+    """One launch shape of ``csrc/whist.cu``: blocks of ``threads`` threads;
+    grid row y owns bins ``[y << local_bits, (y + 1) << local_bits)`` and
+    reads every row (``ranges`` rows). A block's table holds a 32-bit sum
+    and, with counts, a 32-bit count a bin, or a 16-bit count two to a word
+    (``half``); a thread loads ``unroll`` 16-byte groups of each plane a
+    chunk: 2, or 4 for sums alone."""
+    threads: int
+    local_bits: int
+    ranges: int
+    half: int
+    unroll: int
+
+    def smem(self, counts: bool) -> int:
+        """Shared-memory bytes of one block (``smem_bytes`` in csrc/whist.cu)."""
+        per_row = 1 << self.local_bits
+        count_bytes = 0 if not counts else 4 * ((per_row + 1) // 2) if self.half else 4 * per_row
+        return 4 * per_row + count_bytes
+
+    def label(self) -> str:
+        return (f"t{self.threads} b{self.local_bits} r{self.ranges} u{self.unroll}"
+                f"{' half' if self.half else ''}")
+
+
+def whist_shape_ok(shape: WhistShape, radix_bits: int, counts: bool) -> bool:
+    """The checks ``rst_whist`` / ``rst_whist_f32`` make before a launch
+    (``shape_ok`` in csrc/whist.cu): every bin of ``[0, 2^radix_bits)`` has
+    exactly one owner, the block fits 232,448 bytes; 16-bit counts only
+    beside counts; four loads of each plane a chunk only for sums alone.
+    (Every shape meets the 16-bit hand-off's bound: the kernel asserts it
+    when it is compiled.)"""
+    return (shape.threads in WHIST_THREADS and shape.unroll in ((2, 4) if not counts else (2,))
+            and shape.half in (0, 1) and (counts or not shape.half)
+            and 1 <= shape.local_bits <= radix_bits
+            and shape.ranges == 1 << (radix_bits - shape.local_bits)
+            and shape.smem(counts) <= _BLOCK_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def whist_shape(radix_bits: int, sums: str = "u32", counts: bool = True) -> WhistShape:
+    """The launch shape of K10 (``sums="u32"``) or K11 (``"f32"``) for
+    2^radix_bits bins, with or without counts, chosen from the shape alone
+    before the launch.
+
+    Up to 2^14 bins with counts, 32-bit counts and sums (8 bytes a bin) in
+    one block; more, 16-bit counts beside the sums (6 bytes a bin), 2^15
+    bins in one block and ``2^radix_bits / 2^15`` grid rows past that, each
+    reading every row (2 at 2^16 bins, 4 at 2^17). Sums alone: 2^15 bins a
+    block. Two 16-byte loads of each plane a thread a chunk, four for sums
+    alone past 2^15 bins; blocks of 512 threads where four blocks' tables
+    fit an SM, else 1,024. On the H100 (``scripts/whist_shapes.py``) 512
+    threads took K11 at 1,024 bins 7% less time than 1,024 and K10 the
+    same, 1,024 threads beat 512 by 44 to 54% where the table fills most of
+    the SM, and four loads beat two by 6 to 12% for sums alone past 2^15
+    bins, but for 90% of the rows in one group at 2^16 lost by 4 to 5%
+    (with counts they spill registers)."""
+    if sums not in ("u32", "f32") or (sums == "u32" and not counts):
+        raise ValueError(f"whist_shape: sums {sums!r} with counts={counts}: K10 takes 'u32' "
+                         "with counts, K11 'f32' with or without")
+    if not 2 <= radix_bits <= WHIST_MAX_BITS:
+        raise ValueError(f"whist_shape: radix_bits must be in [2, {WHIST_MAX_BITS}]")
+    half = int(counts and radix_bits > WHIST_WORD_BITS)
+    local = min(radix_bits, WHIST_BLOCK_BITS)
+    unroll = 4 if not counts and radix_bits > WHIST_BLOCK_BITS else 2
+    shape = WhistShape(512, local, 1 << (radix_bits - local), half, unroll)
+    return shape if 4 * shape.smem(counts) <= _BLOCK_BYTES else shape._replace(threads=1024)
+
+
+def whist_shape_candidates(radix_bits: int, sums: str = "u32", counts: bool = True) -> list:
+    """Every shape ``scripts/whist_shapes.py`` times for 2^radix_bits bins,
+    :func:`whist_shape`'s first: 512 or 1,024 threads; sums alone, two or
+    four loads of each plane a chunk; with counts, 16-bit counts also where
+    32-bit ones fit."""
+    out = [whist_shape(radix_bits, sums, counts)]
+    local = min(radix_bits, WHIST_BLOCK_BITS)
+    for threads in (512, 1024):
+        for unroll in ((2, 4) if not counts else (2,)):
+            for half in ((0, 1) if counts else (0,)):
+                lb = local if half or not counts else min(radix_bits, WHIST_WORD_BITS)
+                out.append(WhistShape(threads, lb, 1 << (radix_bits - lb), half, unroll))
+    seen = set()
+    return [s for s in out if whist_shape_ok(s, radix_bits, counts)
+            and not (s in seen or seen.add(s))]
 
 
 def _check_whist(name: str, keys: torch.Tensor, values: torch.Tensor,
@@ -602,12 +693,22 @@ def whist(keys: torch.Tensor, values: torch.Tensor, radix_bits: int, drop_ge: in
     _check_whist("whist", keys, values, torch.int32, radix_bits, drop_ge)
     if not use_gpu_routes(keys):
         return whist_plain(keys, values, radix_bits, drop_ge)
-    counts = torch.empty(1 << radix_bits, dtype=torch.int32, device=keys.device)
-    sums = torch.empty_like(counts)
-    _launch("rst_whist", keys.device, keys.data_ptr(), values.data_ptr(), keys.shape[0],
-            radix_bits, int(drop_ge), counts.data_ptr(), sums.data_ptr())
+    out = _whist_launch("rst_whist", keys, values, radix_bits, drop_ge, True,
+                        whist_shape(radix_bits, "u32", True))
     LAUNCHES["whist"] += 1
-    return counts, sums
+    return out
+
+
+def _whist_launch(fn_name: str, keys: torch.Tensor, values: torch.Tensor, radix_bits: int,
+                  drop_ge: int, with_counts: bool, shape: WhistShape):
+    """Launch one weighted-histogram entry in ``shape``: ``(counts, sums)``,
+    or the sums alone without counts; sums int32 for K10, float32 for K11."""
+    bins, dev = 1 << radix_bits, keys.device
+    sums = torch.empty(bins, dtype=values.dtype, device=dev)
+    counts = torch.empty(bins, dtype=torch.int32, device=dev) if with_counts else None
+    _launch(fn_name, dev, keys.data_ptr(), values.data_ptr(), keys.shape[0], radix_bits,
+            int(drop_ge), counts.data_ptr() if with_counts else None, sums.data_ptr(), *shape)
+    return (counts, sums) if with_counts else sums
 
 
 def whist_f32_plain(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
@@ -636,14 +737,10 @@ def whist_f32(keys: torch.Tensor, weights: torch.Tensor, radix_bits: int,
     _check_whist("whist_f32", keys, weights, torch.float32, radix_bits, drop_ge)
     if not use_gpu_routes(keys):
         return whist_f32_plain(keys, weights, radix_bits, drop_ge, with_counts)
-    sums = torch.empty(1 << radix_bits, dtype=torch.float32, device=keys.device)
-    counts = torch.empty(1 << radix_bits, dtype=torch.int32, device=keys.device) \
-        if with_counts else None
-    _launch("rst_whist_f32", keys.device, keys.data_ptr(), weights.data_ptr(),
-            keys.shape[0], radix_bits, int(drop_ge),
-            counts.data_ptr() if with_counts else None, sums.data_ptr())
+    out = _whist_launch("rst_whist_f32", keys, weights, radix_bits, drop_ge, with_counts,
+                        whist_shape(radix_bits, "f32", with_counts))
     LAUNCHES["whist_f32_counts" if with_counts else "whist_f32"] += 1
-    return (counts, sums) if with_counts else sums
+    return out
 
 
 # ---------------------------------------------------------------------------

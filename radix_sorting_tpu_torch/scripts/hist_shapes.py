@@ -14,8 +14,16 @@ counters), each checked bit for bit against the plain version, in turns (in
 order, then in reverse; the mean of the two), with the device time of the
 picked and the fastest shape. On a tree whose ``cuda_kernels`` has no
 ``hist_shape_candidates`` (the first version) only the wrappers and
-``torch.bincount`` are timed. Bound: the bytes the call must move (each live
-plane read once, the counters written once) over 3.35 TB/s.
+``torch.bincount`` are timed, as with ``--wrappers``. Bound: the bytes the
+call must move (each live plane read once, the counters written once) over
+3.35 TB/s.
+
+``--parent DIR`` times the wrappers of the tree in DIR (a checkout of
+another commit, or a trial build) and of this one in turns, each in its own
+process (DIR, this, this, DIR), and prints each row's mean per tree and their
+ratio; :func:`in_turns` does the same for ``scripts/whist_shapes.py``. This
+tree's scripts run in both trees: for the run they are copied into a package
+``radix_sorting_tpu_torch/_turns`` of DIR, removed after.
 
 Prints the card's name and power limit, the kernels' registers as ptxas
 reported them, one line a (row, shape) and one final JSON line (``"exp":
@@ -23,14 +31,19 @@ reported them, one line a (row, shape) and one final JSON line (``"exp":
 a failed row raises.
 
 Usage: python -m radix_sorting_tpu_torch.scripts.hist_shapes
-           [--n N] [--seed S] [--reps R] [--rows NAME ...] [--out FILE]
+           [--n N] [--seed S] [--reps R] [--rows NAME ...] [--wrappers]
+           [--parent DIR] [--out FILE]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
+import sys
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,6 +53,62 @@ from ..ops import cuda_kernels as ck
 
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, bytes a millisecond
 DROP_GE = 0xC0000000        # K1's uniform rows drop the top quarter of the keys
+
+
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def in_turns(script: str, args) -> dict:
+    """``scripts/<script>.py --wrappers`` on the tree in ``args.parent`` and
+    on this one, each in its own process: parent, this, this, parent. Each
+    row's mean ms and device ms per tree, and this tree's over the parent's."""
+    here = Path(__file__).resolve().parents[2]
+    there = Path(args.parent).resolve()
+    pkg = there / "radix_sorting_tpu_torch" / "_turns"
+    flags = ["--wrappers", "--n", str(args.n), "--seed", str(args.seed), "--reps", str(args.reps)]
+    flags += ["--rows", *args.rows] if args.rows else []
+    got = {"parent": [], "this": []}
+    shutil.rmtree(pkg, ignore_errors=True)
+    pkg.mkdir()
+    try:
+        (pkg / "__init__.py").write_text("")
+        for name in ("hist_shapes.py", "whist_shapes.py"):
+            shutil.copy(Path(__file__).with_name(name), pkg / name)
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, (tree, cwd, mod) in enumerate((("parent", there, "_turns"),
+                                                  ("this", here, "scripts"),
+                                                  ("this", here, "scripts"),
+                                                  ("parent", there, "_turns"))):
+                out = Path(tmp) / f"{i}.json"
+                subprocess.run([sys.executable, "-m", f"radix_sorting_tpu_torch.{mod}.{script}",
+                                *flags, "--out", str(out)], cwd=cwd, check=True)
+                got[tree].append({r["row"]: r for r in json.loads(out.read_text())["records"]})
+    finally:
+        shutil.rmtree(pkg, ignore_errors=True)
+    records = []
+    for row in got["this"][0]:
+        rec = {"row": row}
+        for tree, runs in got.items():
+            for key in ("ms", "device_ms"):
+                seen = [r[row][key] for r in runs if r[row].get(key) is not None]
+                rec[f"{tree}_{key}"] = sum(seen) / len(seen) if seen else None
+        rec["ratio"] = rec["this_ms"] / rec["parent_ms"]
+        rec["bound_ms"] = got["this"][0][row]["bound_ms"]
+        records.append(rec)
+        print(f"[{script} turns] {row}: parent {_ms(rec['parent_ms'])} (device "
+              f"{_ms(rec['parent_device_ms'])}), this {_ms(rec['this_ms'])} (device "
+              f"{_ms(rec['this_device_ms'])}), ratio {rec['ratio']:.3f}, bound "
+              f"{rec['bound_ms']:.4f} ms", flush=True)
+    return {"exp": script, "device": smi(), "n": args.n, "parent": str(there),
+            "turns": records}
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -132,21 +201,9 @@ def _rows(w, skewed, hi, lo, dev):
     return rows
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=40_000_000)
-    ap.add_argument("--seed", type=int, default=20240601)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--rows", nargs="*", default=None,
-                    help="only the rows whose name starts with one of these")
-    ap.add_argument("--out", default=None, help="also write the JSON record here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("hist_shapes: needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+def run(args) -> dict:
+    card = smi()
+    print(card, flush=True)
     _, log = _build.build()
     current = ""
     for line in log.splitlines():       # ptxas names a kernel, then its figures
@@ -155,7 +212,7 @@ def main(argv=None) -> dict:
         if "hist" in current and "registers" in line:
             print(f"[ptxas] {current.strip()[:160]} | {line.strip()}", flush=True)
     dev = torch.device("cuda", 0)
-    shapes_of = getattr(ck, "hist_shape_candidates", None)
+    shapes_of = None if args.wrappers else getattr(ck, "hist_shape_candidates", None)
     n = args.n
     rng = np.random.Generator(np.random.PCG64(args.seed))
     keys = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
@@ -176,7 +233,7 @@ def main(argv=None) -> dict:
             raise SystemExit(f"hist_shapes {name}: the wrapper differs from plain")
         picked = ck.hist_shape(total) if shapes_of else None
         rec = {"row": name, "n": n, "counters": total, "bound_ms": bound,
-               "picked": picked.label() if picked else "first version"}
+               "picked": picked.label() if picked else "wrapper"}
         c = counters()
         t = _turns({"wrapper": wrapper,
                     "bincount": lambda: torch.bincount(c, minlength=lib_bins)}, args.reps)
@@ -205,7 +262,24 @@ def main(argv=None) -> dict:
                 extra = f", device {dms:.4f} ms" if dms is not None else ""
                 print(f"[hist_shapes] {name} {label}{mark}: {ms:.4f} ms{extra}", flush=True)
         records.append(rec)
-    result = {"exp": "hist_shapes", "device": smi, "n": n, "records": records}
+    return {"exp": "hist_shapes", "device": card, "n": n, "records": records}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=40_000_000)
+    ap.add_argument("--seed", type=int, default=20240601)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rows", nargs="*", default=None,
+                    help="only the rows whose name starts with one of these")
+    ap.add_argument("--wrappers", action="store_true", help="the wrappers alone")
+    ap.add_argument("--parent", default=None,
+                    help="a tree whose wrappers are timed in turns with this one's")
+    ap.add_argument("--out", default=None, help="also write the JSON record here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("hist_shapes: needs a CUDA device")
+    result = in_turns("hist_shapes", args) if args.parent else run(args)
     print(json.dumps(result), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -634,6 +634,107 @@ def test_whist_skewed_unaligned_and_non_finite(cuda):
     assert torch.equal(sums[finite], ps[finite])       # integer-valued sums: exact
 
 
+@pytest.mark.parametrize("share", [9, 10])
+@pytest.mark.parametrize("bits", [15, 16, 17])
+def test_whist_16_bit_hand_off_under_contention(cuda, bits, share):
+    # 16M rows, 90% or all of them in one group: in every block the group's
+    # 16-bit count crosses 2^15 several times, so its hand-offs to the output
+    # run while every thread keeps adding to it
+    n = 1 << 24
+    keys = rand_plane(n, bits + share, cuda, mask=(1 << bits) - 1)
+    keys[: n * share // 10] = (1 << bits) - 3
+    vals = rand_plane(n, bits, cuda)
+    assert ck.whist_shape(bits, "u32", True).half
+    before = ck.launch_counts()["whist"]
+    counts, sums = ck.whist(keys, vals, bits, 1 << bits)
+    assert ck.launch_counts()["whist"] == before + 1
+    pc, ps = ck.whist_plain(keys, vals, bits, 1 << bits)
+    assert torch.equal(counts, pc) and torch.equal(sums, ps)
+    w = torch.from_numpy(np.random.Generator(np.random.PCG64(bits)).standard_normal(n)
+                         .astype(np.float32)).to(cuda)
+    counts, sums = ck.whist_f32(keys, w, bits, (1 << bits) - 1, with_counts=True)
+    pc, _ = ck.whist_f32_plain(keys, w, bits, (1 << bits) - 1, with_counts=True)
+    assert torch.equal(counts, pc)
+    ref, bound = _f32_bound(keys, w, 1 << bits, (1 << bits) - 1)
+    assert bool(((sums.double() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("key_words,val_words", [(1, 1), (2, 2), (3, 3), (0, 1), (1, 3),
+                                                 (3, 0)])
+@pytest.mark.parametrize("bits", [10, 16])
+def test_whist_off_the_16_byte_grid(cuda, bits, key_words, val_words):
+    # keys and values 0 to 3 words off the 16-byte grid, lying the same way
+    # (16-byte loads of both after a head) or not (the values word by word)
+    n = 1_000_003
+    keys = rand_plane(n + 3, bits, cuda, mask=(1 << bits) - 1)[key_words: key_words + n]
+    keys[: n // 2] = 5
+    vals = rand_plane(n + 3, bits + 1, cuda)[val_words: val_words + n]
+    got = ck.whist(keys, vals, bits, (1 << bits) - 7)
+    want = ck.whist_plain(keys, vals, bits, (1 << bits) - 7)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    w = torch.from_numpy(np.random.Generator(np.random.PCG64(bits)).standard_normal(n + 3)
+                         .astype(np.float32)).to(cuda)[val_words: val_words + n]
+    for with_counts in (False, True):
+        got = ck.whist_f32(keys, w, bits, 1 << bits, with_counts)
+        want = ck.whist_f32_plain(keys, w, bits, 1 << bits, with_counts)
+        if with_counts:
+            assert torch.equal(got[0], want[0])
+            got = got[1]
+        ref, bound = _f32_bound(keys, w, 1 << bits, 1 << bits)
+        assert bool(((got.double() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("skew", ["uniform", "90% one group"])
+@pytest.mark.parametrize("bits", [2, 10, 14, 15, 16, 17])
+def test_whist_every_shape_matches_plain(cuda, bits, skew):
+    n = 1_000_001
+    keys = rand_plane(n + 1, bits, cuda, mask=(1 << bits) - 1)[1:]
+    if skew != "uniform":
+        keys[: n * 9 // 10] = 1
+    vals = rand_plane(n + 1, bits + 2, cuda)[1:]
+    w = torch.from_numpy(np.random.Generator(np.random.PCG64(bits)).standard_normal(n)
+                         .astype(np.float32)).to(cuda)
+    drop = (1 << bits) - 1
+    want = ck.whist_plain(keys, vals, bits, drop)
+    for shape in ck.whist_shape_candidates(bits, "u32", True):
+        got = ck._whist_launch("rst_whist", keys, vals, bits, drop, True, shape)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), shape.label()
+    ref, bound = _f32_bound(keys, w, 1 << bits, drop)
+    for with_counts in (False, True):
+        counts = ck.whist_f32_plain(keys, w, bits, drop, True)[0]
+        for shape in ck.whist_shape_candidates(bits, "f32", with_counts):
+            got = ck._whist_launch("rst_whist_f32", keys, w, bits, drop, with_counts, shape)
+            if with_counts:
+                assert torch.equal(got[0], counts), shape.label()
+                got = got[1]
+            assert bool(((got.double() - ref).abs() <= bound).all()), shape.label()
+
+
+def test_whist_refuses_shapes_the_rule_cannot_give(cuda):
+    keys = rand_plane(1000, 0, cuda, mask=0xFFFF)
+    w = keys.float()
+    bad = [(ck.WhistShape(1024, 15, 1, 1, 2), 16, "u32", True),   # bins without an owner
+           (ck.WhistShape(1024, 14, 8, 0, 2), 16, "u32", True),   # rows that own none
+           (ck.WhistShape(1024, 15, 2, 0, 2), 16, "u32", True),   # 256 KB a block
+           (ck.WhistShape(1024, 16, 1, 1, 2), 16, "u32", True),   # 2^16 16-bit counts
+           (ck.WhistShape(1024, 15, 2, 1, 2), 16, "f32", False),  # 16-bit counts, no counts
+           (ck.WhistShape(1024, 15, 2, 1, 3), 16, "f32", True),   # loads a chunk
+           (ck.WhistShape(1024, 15, 2, 1, 4), 16, "f32", True),   # four loads beside counts
+           (ck.WhistShape(1024, 15, 2, 0, 4), 16, "u32", True),
+           (ck.WhistShape(768, 10, 1, 0, 2), 10, "u32", True),    # threads
+           (ck.WhistShape(1024, 11, 1, 0, 2), 10, "u32", True)]   # more bins than the table
+    for shape, bits, sums, counts in bad:
+        assert not ck.whist_shape_ok(shape, bits, counts)
+        with pytest.raises(RuntimeError):
+            if sums == "u32":
+                ck._whist_launch("rst_whist", keys, keys, bits, 1 << bits, True, shape)
+            else:
+                ck._whist_launch("rst_whist_f32", keys, w, bits, 1 << bits, counts, shape)
+    with pytest.raises(RuntimeError):      # K10 always counts
+        ck._whist_launch("rst_whist", keys, keys, 16, 1 << 16, False,
+                         ck.whist_shape(16, "f32", False))
+
+
 def test_group_by_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a plain torch call ran on a CUDA tensor")

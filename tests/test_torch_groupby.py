@@ -59,7 +59,7 @@ def np_dtype(name):
 class TestWeightedHistogramKernels:
 
     @pytest.mark.parametrize("value_bytes", [1, 2, 4])
-    @pytest.mark.parametrize("radix_bits", [2, 10, 14])
+    @pytest.mark.parametrize("radix_bits", [2, 10, 14, 16, 17])
     def test_whist_matches_pallas(self, radix_bits, value_bytes):
         n, bins = 30_011, 1 << radix_bits
         rng = rng_of(radix_bits * 8 + value_bytes)

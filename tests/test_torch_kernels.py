@@ -17,6 +17,9 @@ held against these plain versions on the card (tests/test_torch_cuda.py and
 chip_smoke.py).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -246,6 +249,126 @@ def _pext_np(x, mask):
     return out
 
 
+# The 16-bit counters' hand-off (csrc/half_counter.cuh) and the rounds the
+# kernels count in, read from the sources the card builds, so that the models
+# below follow what the kernels compile: a counter that reaches
+# HALF_HAND_OFF hands it to the output, and none carries into its neighbour
+# while threads * (the most keys a thread reads a round) <= HALF_HAND_OFF.
+CSRC = Path(ck.__file__).resolve().parents[1] / "csrc"
+
+
+def _source_ints(name, pattern):
+    found = re.search(pattern, (CSRC / name).read_text(), re.S)
+    assert found, (name, pattern)
+    return tuple(int(g, 0) for g in found.groups())
+
+
+(HALF_HAND_OFF,) = _source_ints("half_counter.cuh", r"kHalfHandOff = (0x[0-9A-Fa-f]+)u;")
+# hist.cu: 16-byte loads a plane a chunk, and chunks a round, for two planes
+# (K3) and one (K2; K1's DigitCount loads as many)
+_TWO_UNROLL, _ONE_UNROLL = _source_ints(
+    "hist.cu", r"struct PextCount \{.*?unroll = kTwo \? (\d+) : (\d+);")
+(_DIGIT_UNROLL,) = _source_ints("hist.cu", r"struct DigitCount \{.*?unroll = (\d+);")
+_TWO_ROUND, _ONE_ROUND = _source_ints("hist.cu", r"kRound = Count::two \? (\d+) : (\d+);")
+HIST_ROUNDS = ((_ONE_UNROLL, _ONE_ROUND), (_TWO_UNROLL, _TWO_ROUND))
+# whist.cu: rounds of one chunk; a thread reads at most 4 * unroll + 2 rows a round
+WHIST_ROUND_ADDS = _source_ints(
+    "whist.cu", r"half_round_ok\(kMaxThreads, (\d+) \* kUnroll \+ (\d+)\)")
+
+
+def half_round_adds(unroll, chunks=1):
+    """The most keys a thread reads in a round: ``chunks`` chunks of
+    ``unroll`` 16-byte groups, or in the last round the short chunk with one
+    head and one tail key."""
+    return max(4 * unroll * chunks, 4 * unroll + 2)
+
+
+def half_round_ok(threads, keys_a_round):
+    """``rst::half_round_ok``: while a hand-off is pending its counter holds
+    at most 2^15 - 1 + threads * keys_a_round, below 2^16."""
+    return keys_a_round >= 1 and threads * keys_a_round <= HALF_HAND_OFF
+
+
+def test_hand_off_mirrors_read_the_kernel_sources():
+    assert HALF_HAND_OFF == 1 << 15
+    assert _DIGIT_UNROLL == _ONE_UNROLL
+    # the rounds the proof in half_counter.cuh names: two chunks of one
+    # plane, one of two planes; whist.cu's rounds of one chunk
+    assert HIST_ROUNDS == ((4, 2), (2, 1))
+    assert WHIST_ROUND_ADDS == (4, 2)
+    assert all(half_round_adds(u) == WHIST_ROUND_ADDS[0] * u + WHIST_ROUND_ADDS[1]
+               for u in (2, 4))
+    assert "static_cast<long long>(threads) * keys_a_round <= kHalfHandOff" in \
+        (CSRC / "half_counter.cuh").read_text()
+    hist_cu = (CSRC / "hist.cu").read_text()
+    assert "rst::half_round_ok(kMaxThreads, 4 * kUnroll * kRound)" in hist_cu
+    for name in ("hist.cu", "whist.cu"):
+        (threads,) = _source_ints(name, r"constexpr int kMaxThreads = (\d+);")
+        assert threads == 1024
+        for unroll, chunks in (HIST_ROUNDS if name == "hist.cu" else ((2, 1), (4, 1))):
+            assert half_round_ok(threads, half_round_adds(unroll, chunks))
+
+
+def read_plan(n, threads, unroll, blocks, words=0, round_chunks=1):
+    """Which block and thread of a grid row read each of ``n`` words, and in
+    which of the block's rounds (``round_chunks`` chunks and the barrier
+    after them), from the kernels' index arithmetic (csrc/hist.cu,
+    csrc/whist.cu). ``words``: the plane's address in words mod 4. A head
+    of up to 3 words and the tail go to block 0 (thread t reads word t of
+    each), whole chunks of unroll * threads 16-byte groups to the blocks in
+    turn (chunk j: block j % blocks, the block's (j // blocks)-th), the
+    short chunk to the next block; the short chunk, the head and the tail
+    fall in a last round of their own."""
+    lead = min((4 - words) & 3, n)
+    quads = (n - lead) >> 2
+    chunk = unroll * threads
+    whole = quads // chunk
+    rounds = -(-np.array([len(range(b, whole, blocks)) for b in range(blocks)]) // round_chunks)
+    i = np.arange(n)
+    block = np.zeros(n, np.int64)
+    thread = i.copy()                                   # head: thread t reads word t
+    rnd = np.full(n, rounds[0])
+    body = slice(lead, lead + 4 * quads)
+    q = (i[body] - lead) >> 2
+    j = q // chunk
+    block[body] = np.where(j < whole, j % blocks, whole % blocks)
+    thread[body] = np.where(j < whole, q - j * chunk, q - whole * chunk) % threads
+    rnd[body] = np.where(j < whole, j // blocks // round_chunks, rounds[block[body]])
+    thread[lead + 4 * quads:] -= lead + 4 * quads        # tail: thread t reads tail word t
+    assert thread.max(initial=0) < threads
+    return block, thread, rnd
+
+
+def hand_off_model(block, rnd, thread, counter, threads, keys_a_round, blocks, counters):
+    """The 16-bit counters' hand-off (csrc/half_counter.cuh) in numpy, one
+    add per entry: (2^15s handed off, what is left) per (block, counter).
+
+    Asserts what the proof by count rests on: no thread reads more than
+    ``keys_a_round`` keys of one counter in a round, and threads *
+    keys_a_round <= 2^15;
+    every round starts with the counter below 2^15; and the most it can hold
+    while a hand-off is pending (every other add of the round landing before
+    the subtract, whether a key's or a warp's sum of keys) stays below 2^16."""
+    bits = max(1, (counters - 1).bit_length())
+    rounds = int(rnd.max(initial=0)) + 1
+    key = (((block * rounds + rnd) * threads + thread) << bits) | counter
+    _, per_thread = np.unique(key, return_counts=True)
+    assert per_thread.max(initial=0) <= keys_a_round
+    assert half_round_ok(threads, keys_a_round)
+    total = np.zeros((blocks, rounds, counters), np.int64)
+    np.add.at(total, (block, rnd, counter), 1)
+    held = np.zeros((blocks, counters), np.int64)
+    handed = np.zeros((blocks, counters), np.int64)
+    for r in range(rounds):
+        assert (held < HALF_HAND_OFF).all()
+        peak = held + total[:, r]
+        assert (peak < 1 << 16).all()
+        crossed = peak >= HALF_HAND_OFF
+        handed += crossed
+        held = peak - crossed * HALF_HAND_OFF
+    return handed, held
+
+
 def hist_kernel_model(lo, hi, counters_of, total, shape, blocks, lo_words=0, unroll=4):
     """What ``hist_kernel`` computes, from its index arithmetic, in numpy.
 
@@ -253,35 +376,38 @@ def hist_kernel_model(lo, hi, counters_of, total, shape, blocks, lo_words=0, unr
     gives each key's counters as a (P, n) int64 array, -1 for none (a
     dropped key); ``blocks`` the blocks of a grid row; ``lo_words`` the lo
     plane's address in words mod 4; ``unroll`` the 16-byte groups a thread
-    loads a step. A head of up to 3 words and the tail go to block 0, whole
-    chunks of unroll * threads 16-byte groups to the row's blocks in turn,
-    the short chunk to the next; a key's counters go to the reading block of
-    the row that owns them (``c >> local_bits``), in the reading warp's copy,
-    and every block adds its counters into the output."""
-    n, threads = lo.size, shape.threads
-    lead = min((4 - lo_words) & 3, n)
-    quads = (n - lead) >> 2
-    chunk = unroll * threads
-    whole = quads // chunk
-    i = np.arange(n)
-    block = np.zeros(n, np.int64)
-    thread = i.copy()                                   # head: thread t reads word t
-    body = slice(lead, lead + 4 * quads)
-    q = (i[body] - lead) >> 2
-    j = q // chunk
-    block[body] = np.where(j < whole, j % blocks, whole % blocks)
-    thread[body] = np.where(j < whole, q - j * chunk, q - whole * chunk) % threads
-    thread[lead + 4 * quads:] -= lead + 4 * quads        # tail: thread t reads tail word t
-    assert thread.max(initial=0) < threads
+    loads a chunk. The keys are read as :func:`read_plan` deals them; a
+    key's counters go to the reading block of the row that owns them (``c >>
+    local_bits``), in the reading warp's copy, 16-bit counters through
+    :func:`hand_off_model`, and every block adds its counters into the
+    output."""
+    threads = shape.threads
+    round_chunks = dict(HIST_ROUNDS)[unroll]
+    block, thread, rnd = read_plan(lo.size, threads, unroll, blocks, lo_words, round_chunks)
     stride = min(1 << shape.local_bits, total)
     smem = np.zeros((shape.ranges, blocks, shape.copies, stride), np.int64)
+    out = np.zeros(total, np.int64)
     copy = (thread >> 5) % shape.copies
+    adds = []
     for c in counters_of(hi, lo):
         ok = c >= 0
         row = c[ok] >> shape.local_bits
         assert row.max(initial=0) < shape.ranges
-        np.add.at(smem, (row, block[ok], copy[ok], c[ok] & ((1 << shape.local_bits) - 1)), 1)
-    out = np.zeros(total, np.int64)
+        local = c[ok] & ((1 << shape.local_bits) - 1)
+        adds.append((row, block[ok], rnd[ok], thread[ok], local))
+        if not shape.half:
+            np.add.at(smem, (row, block[ok], copy[ok], local), 1)
+    if shape.half:
+        row, blk, rd, th, local = (np.concatenate(a) for a in zip(*adds))
+        for y in range(shape.ranges):
+            mine = row == y
+            handed, held = hand_off_model(blk[mine], rd[mine], th[mine], local[mine], threads,
+                                          half_round_adds(unroll, round_chunks), blocks,
+                                          stride)
+            smem[y, :, 0] = held
+            first = y << shape.local_bits
+            size = min(stride, total - first)
+            out[first:first + size] += (handed.sum(axis=0) * HALF_HAND_OFF)[:size]
     owned = np.zeros(total, np.int64)
     for y in range(shape.ranges):
         first = y << shape.local_bits
@@ -293,6 +419,39 @@ def hist_kernel_model(lo, hi, counters_of, total, shape, blocks, lo_words=0, unr
             owned[first:first + size] += 1
     assert (owned == blocks).all()                      # one owner a counter in each block
     return out
+
+
+def whist_kernel_model(keys, vals, bits, drop_ge, shape, blocks, key_words=0):
+    """What ``whist_kernel`` computes, from its bin arithmetic, in numpy:
+    (counts, u32 sums) of 2^bits bins. The rows are read as
+    :func:`read_plan` deals them (the values at the keys' indices, whether
+    they are read in 16-byte groups or word by word); grid row y keeps the
+    bins ``[y << local_bits, (y + 1) << local_bits)``, and a kept key (``<
+    drop_ge``) goes to the reading block's table in the row that owns it,
+    its count through :func:`hand_off_model` with 16-bit counts; every
+    block adds its table into the outputs, the sums mod 2^32."""
+    lb, bins = shape.local_bits, 1 << bits
+    assert shape.ranges << lb == bins
+    block, thread, rnd = read_plan(keys.size, shape.threads, shape.unroll, blocks, key_words)
+    k = keys.astype(np.int64)
+    ok = k < drop_ge
+    row, local = k[ok] >> lb, k[ok] & ((1 << lb) - 1)
+    assert row.max(initial=0) < shape.ranges
+    table = np.zeros((shape.ranges, blocks, 1 << lb), np.int64)
+    np.add.at(table, (row, block[ok], local), vals[ok].astype(np.int64))
+    counts = np.zeros((shape.ranges, blocks, 1 << lb), np.int64)
+    handed = np.zeros_like(counts)
+    if shape.half:
+        for y in range(shape.ranges):
+            mine = row == y
+            handed[y], counts[y] = hand_off_model(
+                block[ok][mine], rnd[ok][mine], thread[ok][mine], local[mine],
+                shape.threads, half_round_adds(shape.unroll), blocks, 1 << lb)
+    else:
+        np.add.at(counts, (row, block[ok], local), 1)
+    out_counts = (counts + handed * HALF_HAND_OFF).sum(axis=1).reshape(bins)
+    out_sums = (table.sum(axis=1) & 0xFFFFFFFF).reshape(bins).astype(np.uint32)
+    return out_counts, out_sums
 
 
 def pext_counters(mask_hi, mask_lo):
@@ -357,6 +516,130 @@ def test_hist_pext2_model_matches_plain(masks):
         got = hist_kernel_model(live, None, pext_counters(0, mh | ml), bins,
                                 ck.hist_shape(bins), 2, 1)
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the weighted histogram's launch shapes (csrc/whist.cu) and the 16-bit
+# counters' hand-off (csrc/half_counter.cuh) that it shares with hist.cu
+
+
+def test_whist_shape_rule_gives_each_bin_one_owner():
+    for bits in range(2, ck.WHIST_MAX_BITS + 1):
+        for sums, counts in (("u32", True), ("f32", True), ("f32", False)):
+            picked = ck.whist_shape(bits, sums, counts)
+            shapes = ck.whist_shape_candidates(bits, sums, counts)
+            assert shapes[0] == picked
+            for shape in shapes:
+                assert ck.whist_shape_ok(shape, bits, counts), (bits, shape)
+                # row y owns [y << local_bits, (y + 1) << local_bits) of [0, 2^bits)
+                rows = np.arange(shape.ranges + 1) << shape.local_bits
+                owned = np.diff(np.minimum(1 << bits, rows))
+                assert owned.sum() == 1 << bits and owned.min() >= 1, (bits, shape)
+                assert shape.smem(counts) <= 232_448
+            assert picked.half == (counts and bits > 14)         # 32-bit counts while they fit
+            assert picked.ranges == 1 << max(0, bits - 15)       # 2^15 bins a block
+            assert picked.unroll == (4 if not counts and bits > 15 else 2)
+    for sums in ("u32", "f32"):      # counts past 2^15 bins: 2 rows at 2^16, 4 at 2^17
+        assert [ck.whist_shape(b, sums, True).ranges for b in (15, 16, 17)] == [1, 2, 4]
+    assert not ck.whist_shape_ok(ck.WhistShape(1024, 16, 1, 1, 2), 16, True)   # 384 KB
+    assert not ck.whist_shape_ok(ck.WhistShape(1024, 15, 2, 0, 2), 16, True)   # 256 KB
+    assert not ck.whist_shape_ok(ck.WhistShape(1024, 15, 1, 1, 2), 16, True)   # no owner
+    assert not ck.whist_shape_ok(ck.WhistShape(1024, 15, 2, 1, 2), 16, False)  # counts
+    assert not ck.whist_shape_ok(ck.WhistShape(1024, 15, 2, 1, 4), 16, True)   # 4 loads
+    assert ck.whist_shape_ok(ck.WhistShape(1024, 15, 2, 0, 4), 16, False)
+    for bad in ((18, "u32", True), (1, "u32", True), (10, "u32", False), (10, "f64", True)):
+        with pytest.raises(ValueError):
+            ck.whist_shape(*bad)
+
+
+def test_hand_off_stays_below_the_carry_for_every_shape():
+    # just after the crossing add the counter holds at most 2^15 - 1 + A (A:
+    # the most a thread adds to one counter a round); what the other threads
+    # can add before the subtract must stay below 2^16 - (2^15 - 1 + A),
+    # 32,753 at A = 16
+    def check(threads, unroll, chunks=1):
+        a = half_round_adds(unroll, chunks)
+        assert (threads - 1) * a < (1 << 16) - (HALF_HAND_OFF - 1 + a), (threads, unroll)
+        assert half_round_ok(threads, a)
+    half_shapes = 0
+    for total, _ in _hist_totals():
+        for shape in ck.hist_shape_candidates(total):
+            if shape.half:
+                half_shapes += 1
+                for unroll, chunks in HIST_ROUNDS:
+                    check(shape.threads, unroll, chunks)
+    for bits in range(2, ck.WHIST_MAX_BITS + 1):
+        for sums, counts in (("u32", True), ("f32", True), ("f32", False)):
+            for shape in ck.whist_shape_candidates(bits, sums, counts):
+                if shape.half:
+                    half_shapes += 1
+                    check(shape.threads, shape.unroll)
+    assert half_shapes > 50
+    for threads in ck.HIST_THREADS:    # every shape the entries take, whatever the rule picks
+        for unroll, chunks in HIST_ROUNDS + ((2, 1), (4, 1)):
+            check(threads, unroll, chunks)
+    assert half_round_adds(4, 2) == 32       # one plane: at the bound at 1,024 threads
+    assert half_round_ok(1024, 32) and not half_round_ok(1024, 33)
+
+
+# shapes at 256 and 512 threads (chunks of 2,048 to 8,192 rows) so that a
+# few tens of thousands of rows fill several: 32-bit and 16-bit counts, one
+# block and grid rows
+WHIST_MODEL_SHAPES = {
+    10: [ck.WhistShape(256, 10, 1, 0, 2), ck.WhistShape(256, 10, 1, 1, 2)],
+    16: [ck.WhistShape(256, 15, 2, 1, 2), ck.WhistShape(256, 14, 4, 0, 2)],
+    17: [ck.WhistShape(256, 15, 4, 1, 2), ck.WhistShape(512, 15, 4, 1, 2)],
+}
+
+
+@pytest.mark.parametrize("key_words", [0, 3])
+@pytest.mark.parametrize("bits", [10, 16, 17])
+def test_whist_model_matches_plain(bits, key_words):
+    n = 24_007 + key_words
+    rng = np.random.Generator(np.random.PCG64(bits + key_words))
+    keys = rng.integers(0, 1 << bits, size=n).astype(np.uint32)
+    keys[: n // 3] = (1 << bits) - 2                    # a third of the rows one group
+    keys[::41] = rng.integers(1 << bits, 1 << 32, size=keys[::41].size)   # past drop_ge
+    vals = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    drop = (1 << bits) - 1
+    want = [t.numpy().view(np.uint32) for t in ck.whist_plain(plane(keys), plane(vals), bits,
+                                                               drop)]
+    for shape in WHIST_MODEL_SHAPES[bits] + [ck.whist_shape(bits)]:
+        for blocks in (1, 3):
+            counts, sums = whist_kernel_model(keys, vals, bits, drop, shape, blocks, key_words)
+            assert np.array_equal(counts, want[0]) and np.array_equal(sums, want[1]), shape
+
+
+@pytest.mark.parametrize("kernel", ["hist_pext", "whist"])
+def test_hand_off_model_with_most_keys_one_value(kernel):
+    # 100,003 keys, all but every seventh one value: in one block the
+    # value's 16-bit counter crosses 2^15 twice, in two once each
+    n = 100_003
+    rng = np.random.Generator(np.random.PCG64(17))
+    keys = np.full(n, 0x12A55, np.uint32)
+    keys[::7] = rng.integers(0, 1 << 17, size=keys[::7].size)
+    for bits in (16, 17):
+        bins = 1 << bits
+        k = keys & np.uint32(bins - 1)
+        if kernel == "hist_pext":
+            mask = bins - 1
+            want = ck.hist_pext_plain(plane(k), mask).numpy()
+            shapes = [ck.HistShape(256, 16, bins >> 16, 1, 1), ck.hist_shape(bins)]
+            for shape in shapes:
+                for blocks in (1, 2):
+                    got = hist_kernel_model(k, None, pext_counters(0, mask), bins, shape,
+                                            blocks)
+                    assert np.array_equal(got, want), (shape, blocks)
+        else:
+            vals = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+            want = [t.numpy().view(np.uint32)
+                    for t in ck.whist_plain(plane(k), plane(vals), bits, bins)]
+            for shape in [ck.WhistShape(256, 15, bins >> 15, 1, 2), ck.whist_shape(bits)]:
+                for blocks in (1, 2):
+                    counts, sums = whist_kernel_model(k, vals, bits, bins, shape, blocks)
+                    assert np.array_equal(counts, want[0]), (shape, blocks)
+                    assert np.array_equal(sums, want[1]), (shape, blocks)
+            assert want[0].max() > 2 * HALF_HAND_OFF
 
 
 @pytest.mark.parametrize("bins", [2, 16, 1024, 2048])
