@@ -74,7 +74,23 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      at 65,536 groups (K10), sort-native sum, min and max with no groups,
      value_counts with groups=1024 (K1) and without (sorter), and
      stats.histogram of standard normal f32 at 256 bins, unweighted (K1) and
-     weighted (K11); the LSD slice (L1 + L2): SortConfig(strategy=LSD) sort
+     weighted (K11); the sorter composites of extras and stats: searchsorted
+     of the sorted u32 keys with q = 100,000 ('auto': scan) and q = n / 32
+     (1,250,000 at 40M: the tagged union), each side, of u64 keys with q =
+     4,000,000 (tagged union), of f32 with specials, of descending u32 and
+     with sorter=; lexsort of (u8, u8, u16) (one packed plane) and of
+     (u32, u32, u32) (chained sorts); segmented_sort and segmented_argsort
+     of u16 keys in 1,024 u16 segments, ascending and descending;
+     merge_sorted of two sorted halves; nth_element; top_k with k = 1,000
+     of u32 and of f64 with specials; top_k_batched of bench.py's rows of
+     4,096 with k = 16; stable_partition with an f32 payload; rankdata of
+     u32 with duplicates, 'average' and 'dense' (against
+     scipy.stats.rankdata); quantile at 5 probabilities of f32 and of u16
+     (K2 + K8), bit for bit against numpy's order statistics interpolated
+     in numpy float32, and within 2^-20 of np.quantile; partition,
+     argpartition; digitize against 1,001 increasing and decreasing edges;
+     histogram with 1,001 edges, unweighted (K1) and weighted (K11, to the
+     bound above); sort_complex of 4,000,000 complex128; the LSD slice (L1 + L2): SortConfig(strategy=LSD) sort
      of full-entropy u32 at r = 8 (the slice's main path) and r = 11, of
      u32 with value_mask=0xF0F00000 (two of four passes live: the launch
      counts must show it), of u64 (8 passes), f32 with specials and
@@ -112,6 +128,13 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      key by its count; K10 and K11 at each phase-3 input with their launch
      shape and the reads of the rows it takes, beside index_add_; the range
      probe's cost on full-entropy u32; torch.sort of int32 and int64 keys;
+     the sorter composites beside one torch call of the same function, in
+     turns: searchsorted of u32 by both methods at q = n / 128, 100,000,
+     n / 32, n / 8 and n / 2 (the TPU gate 32 * q >= n among them) beside
+     torch.searchsorted of the int32 key, of u64 beside that of the int64
+     key; top_k beside torch.topk, top_k_batched beside torch.topk(dim=-1);
+     lexsort of one packed plane and rankdata beside
+     torch.sort(stable=True); digitize beside torch.bucketize;
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
      with its byte bound (12 bytes a key for each live pass: L1 reads the
@@ -250,6 +273,15 @@ def hist_label(total: int) -> str:
     """The launch shape the histogram wrappers take for ``total`` counters."""
     from radix_sorting_tpu_torch.ops import cuda_kernels as ck
     return ck.hist_shape(total).label()
+
+
+def case_size(x) -> int:
+    """The keys a case's input holds: a tensor's elements, the length of a
+    numpy array, or of the first of several inputs."""
+    import torch
+    if isinstance(x, (list, tuple)):
+        return case_size(x[0])
+    return x.numel() if torch.is_tensor(x) else len(x)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -796,7 +828,20 @@ def main() -> None:
         return padded, np.array([u16_unique.size], np.int64)
 
     def stable_perm(a):
-        return np.argsort(a, kind="stable")
+        """np.argsort(a, kind="stable") along the last axis; unsigned keys
+        of 32 or 64 bits by 16-bit digits from the least significant, each a
+        stable (radix) sort in numpy: the same permutation, twice as fast at
+        40M keys."""
+        if a.dtype.kind != "u" or a.dtype.itemsize <= 2:
+            return np.argsort(a, axis=-1, kind="stable")
+        perm = None
+        for shift in range(0, 8 * a.dtype.itemsize, 16):
+            d = (a >> a.dtype.type(shift)).astype(np.uint16)
+            if perm is not None:
+                d = np.take_along_axis(d, perm, -1)
+            p = np.argsort(d, axis=-1, kind="stable")
+            perm = p if perm is None else np.take_along_axis(perm, p, -1)
+        return perm
 
     def pairs_host(out):
         k, v = out
@@ -805,6 +850,126 @@ def main() -> None:
     def pairs_oracle(a):
         p = stable_perm(a)
         return (a[p], pay_i64[p], pay_f32[p])
+
+    # the sorter composites of extras and stats: sorted keys and queries with
+    # exact hits (half of each batch keys of the array), 'auto' taking the
+    # scan below 32 * q = n and the tagged union from it
+    memo = {}
+
+    def once(key, fn):
+        if key not in memo:
+            memo[key] = fn()
+        return memo[key]
+
+    def hits(src, q, random):
+        return np.concatenate([src[: q // 2], random(q - q // 2)])
+
+    def rand32(m):
+        return rng.integers(0, 1 << 32, size=m, dtype=np.uint32)
+
+    q_scan, q_cross, q64 = 100_000, -(-n // 32), min(4_000_000, n)
+    qs_scan, qs_cross = hits(keys, q_scan, rand32), hits(keys, q_cross, rand32)
+    qs64 = hits(keys64, q64, lambda m: rng.integers(0, 1 << 64, size=m, dtype=np.uint64))
+    qf32b = hits(f32b, 1_000_000, lambda m: np.concatenate(
+        [specials.view(np.uint32), rng.standard_normal(m - 5).astype(np.float32).view(np.uint32)]))
+    sorted_t, sorted64_t = u32_tensor(sorted_keys), u64_tensor(sorted64)
+    sorted_desc_t = u32_tensor(sorted_keys[::-1].copy())
+    keys_t = u32_tensor(keys)
+    sorter_t = rt.argsort(keys_t)                  # any sorting permutation
+    f32b_sorted = float_order_np(f32b, 32)
+    f32_sorted_t = torch.from_numpy(f32b_sorted.view(np.float32)).to(dev)
+
+    def order32(bits):
+        """The total order of f32 bit patterns as u32 keys (the KDF)."""
+        b = bits.astype(np.uint32)
+        return np.where(b & np.uint32(1 << 31), ~b, b | np.uint32(1 << 31))
+
+    def order64(bits):
+        b = bits.astype(np.uint64)
+        return np.where(b >> np.uint64(63), ~b, b | np.uint64(1 << 63))
+
+    def searched(a, q, side):
+        return lambda: np.searchsorted(a, q, side=side).astype(np.int32)
+
+    lex8 = [torch.from_numpy(a).to(dev) for a in (keys.astype(np.uint8),
+                                                 (keys >> np.uint32(8)).astype(np.uint8))]
+    lex8.append(torch.from_numpy((keys >> np.uint32(16)).astype(np.uint16).view(np.int16))
+                .to(dev).view(torch.uint16))       # (u8, u8, u16): the keys, one plane
+    lex32 = [keys_t, u32_tensor(dups), u32_tensor(k1024)]      # three planes: chained sorts
+    seg16 = (keys >> np.uint32(22)).astype(np.uint16)        # 1,024 segments
+    seg16_t = torch.from_numpy(seg16.view(np.int16)).to(dev).view(torch.uint16)
+    u16_t = torch.from_numpy(u16.view(np.int16)).to(dev).view(torch.uint16)
+    halves = (rt.sort(u32_tensor(keys[: n // 2])), rt.sort(u32_tensor(keys[n // 2:])))
+    ranks = [0, 1, n // 4, n // 2, n - 1]
+    pred_t = torch.from_numpy((keys & np.uint32(1)).astype(bool)).to(dev)
+    qs5 = [0.01, 0.25, 0.5, 0.75, 0.99]
+    edges32 = np.sort(rng.standard_normal(1001).astype(np.float32))
+    edges_t, edges64 = torch.from_numpy(edges32).to(dev), edges32.astype(np.float64)
+    re = rng.integers(-1000, 1000, size=4_000_000).astype(np.float64)     # real-part ties
+    z128 = re + 1j * rng.standard_normal(re.size)
+    f64_t = u64_tensor(f64b, torch.float64)
+
+    def stable_keys():
+        return once("stable keys", lambda: stable_perm(keys))
+
+    def seg_perm(descending):
+        """The stable order of (segment, key), the key complemented when
+        descending (one stable argsort of the u32 composite)."""
+        k = np.uint32(0xFFFF) - u16 if descending else u16
+        return once(("seg", descending), lambda: stable_perm(
+            (seg16.astype(np.uint32) << np.uint32(16)) | k))
+
+    def segmented_oracle(descending):
+        return lambda: (u16[seg_perm(descending)], seg16[seg_perm(descending)])
+
+    def top_k_np(order_key, k):
+        """Indices of the k largest order keys, ties to the lower index."""
+        key = ~order_key.astype(np.uint64)
+        kth = np.partition(key, k - 1)[k - 1]
+        cand = np.flatnonzero(key <= kth)
+        return cand[np.lexsort((cand, key[cand]))][:k]
+
+    def quantile_oracle(a):
+        """The port's float32 interpolation of numpy's order statistics (in
+        numpy float32 arithmetic: the same operations), after checking it
+        within 2^-20 of np.quantile."""
+        def check(got):
+            h = np.asarray(qs5) * (n - 1)
+            lo, hi = np.floor(h).astype(np.int64), np.ceil(h).astype(np.int64)
+            part = np.partition(a, np.unique(np.concatenate([lo, hi])))
+            f = (h - lo).astype(np.float32)
+            want = (part[lo].astype(np.float32) * (np.float32(1) - f)
+                    + part[hi].astype(np.float32) * f)
+            ref = np.quantile(a, qs5)
+            if not np.allclose(want, ref, rtol=2**-20, atol=1e-12):
+                return f"the oracle is {want}, np.quantile {ref}"
+            got = got.cpu().numpy()
+            return None if got.dtype == np.float32 and np.array_equal(got, want) \
+                else f"got {got}, want {want}"
+        return check
+
+    def rank_oracle(method):
+        import scipy.stats
+        # the same values as uint16: numpy sorts them faster
+        want = scipy.stats.rankdata(dups.astype(np.uint16), method=method)
+        return want.astype(np.float32 if method == "average" else np.int32)
+
+    def histogram_edges_check(weighted):
+        def check(out):
+            counts, edges = out
+            if not np.array_equal(edges, edges64):
+                return "edges differ"
+            got = counts.cpu().numpy()
+            if not weighted:
+                want = np.histogram(pay_f32, bins=edges64)[0].astype(np.int32)
+                return None if np.array_equal(got, want) else "counts differ"
+            w64 = hist_w.astype(np.float64)
+            ref = np.histogram(pay_f32, bins=edges64, weights=w64)[0]
+            absum = np.histogram(pay_f32, bins=edges64, weights=np.abs(w64))[0]
+            err = np.abs(got.astype(np.float64) - ref)
+            ok = got.dtype == np.float32 and np.all(err <= absum * 2**-14 + 1e-5)
+            return None if ok else f"weighted sums past the bound: max |err| {err.max():.3g}"
+        return check
 
     cases = [
         # name, input maker, entry point, host result, numpy oracle
@@ -988,6 +1153,91 @@ def main() -> None:
         ("histogram of standard normal f32, 256 bins, weighted (K11)",
          lambda: pay_f32_t, lambda x: rt.histogram(x, bins=256, weights=hist_w_t),
          lambda out: out, lambda: histogram_check(True)),
+        # the sorter composites of extras and stats
+        *[(f"searchsorted u32, q={q:,} ('auto': {route}), side={side}",
+           lambda qs=qs: u32_tensor(qs),
+           lambda x, side=side: rt.searchsorted(sorted_t, x, side=side),
+           bits_of(np.int32), searched(sorted_keys, qs, side))
+          for q, qs, route in ((q_scan, qs_scan, "scan"), (q_cross, qs_cross, "sort"))
+          for side in ("left", "right")],
+        (f"searchsorted u64, q={q64:,} (tagged union)", lambda: u64_tensor(qs64),
+         lambda x: rt.searchsorted(sorted64_t, x), bits_of(np.int32),
+         searched(sorted64, qs64, "left")),
+        ("searchsorted f32 +-0 +-inf NaN, q=1,000,000, side=right",
+         lambda: torch.from_numpy(qf32b.view(np.float32)).to(dev),
+         lambda x: rt.searchsorted(f32_sorted_t, x, side="right"), bits_of(np.int32),
+         lambda: np.searchsorted(order32(f32b_sorted), order32(qf32b),
+                                 side="right").astype(np.int32)),
+        (f"searchsorted u32 descending, q={q_cross:,}", lambda: u32_tensor(qs_cross),
+         lambda x: rt.searchsorted(sorted_desc_t, x, config=desc), bits_of(np.int32),
+         searched(~sorted_keys[::-1], ~qs_cross, "left")),
+        (f"searchsorted u32 with sorter=, q={q_cross:,}", lambda: u32_tensor(qs_cross),
+         lambda x: rt.searchsorted(keys_t, x, sorter=sorter_t), bits_of(np.int32),
+         searched(sorted_keys, qs_cross, "left")),
+        ("lexsort (u8, u8, u16): one packed plane", lambda: lex8, rt.lexsort,
+         bits_of(np.uint32), lambda: stable_keys().astype(np.uint32)),
+        ("lexsort (u32, u32, u32): chained sorts", lambda: lex32, rt.lexsort,
+         bits_of(np.uint32), lambda: stable_perm(
+             (k1024.astype(np.uint64) << np.uint64(48)) | (dups.astype(np.uint64) << np.uint64(32))
+             | keys.astype(np.uint64)).astype(np.uint32)),
+        *[(f"segmented_sort u16 keys, 1,024 u16 segments{label}", lambda: u16_t,
+           lambda x, cfg=cfg: rt.segmented_sort(x, seg16_t, config=cfg),
+           lambda out: (gpu_bits(out[0], np.uint16), gpu_bits(out[1], np.uint16)),
+           segmented_oracle(cfg.descending))
+          for label, cfg in (("", rt.SortConfig()), (", descending", desc))],
+        *[(f"segmented_argsort u16 keys, 1,024 u16 segments{label}", lambda: u16_t,
+           lambda x, cfg=cfg: rt.segmented_argsort(x, seg16_t, config=cfg), bits_of(np.uint32),
+           lambda d=cfg.descending: seg_perm(d).astype(np.uint32))
+          for label, cfg in (("", rt.SortConfig()), (", descending", desc))],
+        (f"merge_sorted of two sorted halves of {n // 2:,}", lambda: halves,
+         lambda x: rt.merge_sorted(*x), bits_of(np.uint32), lambda: sorted_keys),
+        ("nth_element u32 at 5 ranks", lambda: keys_t, lambda x: rt.nth_element(x, ranks),
+         bits_of(np.uint32), lambda: sorted_keys[ranks]),
+        ("top_k u32, k=1,000", lambda: keys_t, lambda x: rt.top_k(x, 1000),
+         lambda out: (gpu_bits(out[0], np.uint32), gpu_bits(out[1], np.uint32)),
+         lambda: (lambda i: (keys[i], i.astype(np.uint32)))(top_k_np(keys, 1000))),
+        ("top_k f64 +-0 +-inf NaN payloads, k=1,000", lambda: f64_t,
+         lambda x: rt.top_k(x, 1000),
+         lambda out: (gpu_bits(out[0], np.uint64), gpu_bits(out[1], np.uint32)),
+         lambda: (lambda i: (f64b[i], i.astype(np.uint32)))(top_k_np(order64(f64b), 1000))),
+        (f"top_k_batched ({n_rows}, 4096) u32 rows, k=16 (bench.py batched case)",
+         lambda: u32_tensor(rows_u32), lambda x: rt.top_k_batched(x, 16),
+         lambda out: (gpu_bits(out[0], np.uint32), gpu_bits(out[1], np.uint32)),
+         lambda: (lambda o: (np.take_along_axis(rows_u32, o, -1), o.astype(np.uint32)))(
+             stable_perm(~rows_u32)[:, :16])),
+        ("stable_partition by u32 & 1, f32 payload", lambda: pred_t,
+         lambda x: rt.stable_partition(x, pay_f32_t),
+         lambda out: (out[0].cpu().numpy(), np.array([int(out[1])])),
+         lambda: (pay_f32[stable_perm((keys & np.uint32(1)).astype(bool))],
+                  np.array([int(np.count_nonzero((keys & np.uint32(1)) == 0))]))),
+        *[(f"rankdata u32 with duplicates, '{method}'", lambda: u32_tensor(dups),
+           lambda x, method=method: rt.rankdata(x, method=method),
+           lambda out: out.cpu().numpy(), lambda method=method: rank_oracle(method))
+          for method in ("average", "dense")],
+        ("quantile f32 at 5 probabilities", lambda: pay_f32_t, lambda x: rt.quantile(x, qs5),
+         lambda out: out, lambda: quantile_oracle(pay_f32)),
+        ("quantile u16 at 5 probabilities (K2+K8)", lambda: u16_t,
+         lambda x: rt.quantile(x, qs5), lambda out: out, lambda: quantile_oracle(u16)),
+        ("partition u32", lambda: keys_t, lambda x: rt.partition(x, n // 2),
+         bits_of(np.uint32), lambda: sorted_keys),
+        ("argpartition u32", lambda: keys_t, lambda x: rt.argpartition(x, [7, n // 2]),
+         bits_of(np.uint32), lambda: stable_keys().astype(np.uint32)),
+        ("digitize f32 against 1,001 increasing edges", lambda: pay_f32_t,
+         lambda x: rt.digitize(x, edges_t), lambda out: out.cpu().numpy().astype(np.int64),
+         lambda: np.digitize(pay_f32, edges32)),
+        ("digitize f32 against 1,001 decreasing edges, right=True", lambda: pay_f32_t,
+         lambda x: rt.digitize(x, edges_t.flip(0), right=True),
+         lambda out: out.cpu().numpy().astype(np.int64),
+         lambda: np.digitize(pay_f32, edges32[::-1], right=True)),
+        ("histogram f32 with 1,001 edges (K1)", lambda: pay_f32_t,
+         lambda x: rt.histogram(x, bins=edges64), lambda out: out,
+         lambda: histogram_edges_check(False)),
+        ("histogram f32 with 1,001 edges, weighted (K11)", lambda: pay_f32_t,
+         lambda x: rt.histogram(x, bins=edges64, weights=hist_w_t), lambda out: out,
+         lambda: histogram_edges_check(True)),
+        (f"sort_complex of {z128.size:,} complex128 (numpy)", lambda: z128,
+         lambda x: rt.sort_complex(x, device=dev), lambda out: out,
+         lambda: np.sort_complex(z128)),
     ]
     # outputs that are not the keys reordered: from bitmap_unique_sort on
     first_other = next(i for i, c in enumerate(cases) if c[0].startswith("bitmap"))
@@ -1080,7 +1330,7 @@ def main() -> None:
                     counts.get("lsd_hist") == counts.get("lsd_scatter") == want):
                 fail(f"{name}: launches {counts}, {want} passes expected")
     for (name, x, run, host, oracle), out, counts in zip(inputs, outputs, case_launches):
-        size = x.numel() if torch.is_tensor(x) else len(x)
+        size = case_size(x)
         first = out[0] if isinstance(out, tuple) else out
         if torch.is_tensor(x) and (first.device != x.device or (
                 name not in other_shape and first.shape != x.shape)):
@@ -1117,7 +1367,7 @@ def main() -> None:
     reps = 10
     for name, x, run, _, _ in inputs:
         ms = time_ms(lambda: run(x), reps)
-        m = x.numel() if torch.is_tensor(x) else len(x)
+        m = case_size(x)
         print(f"[6 time] {name}: {ms:.3f} ms, {m / ms / 1e3:.1f} Mkeys/s",
               flush=True)
     w64 = torch.from_numpy(keys64.view(np.int64)).to(dev)
@@ -1125,6 +1375,67 @@ def main() -> None:
         ms = time_ms(lambda: torch.sort(t), reps)
         print(f"[6 time] torch.sort {label} (reference point): {ms:.3f} ms, "
               f"{n / ms / 1e3:.1f} Mkeys/s", flush=True)
+
+    # the sorter composites beside one torch call of the same function, in
+    # turns; searchsorted by both methods around its TPU gate 32 * q = n
+    def in_turns(fns):
+        got = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            got[k].append(time_ms(fns[k], reps))
+        return {k: sum(v) / len(v) for k, v in got.items()}
+
+    def slice_line(name, fns):
+        ms = in_turns(fns)
+        print(f"[6 slice] {name}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()),
+              flush=True)
+
+    def flip32(t):
+        return t.view(torch.int32) ^ i32(1 << 31)
+
+    key_sorted = flip32(sorted_t)
+    qs_big = u32_tensor(hits(keys, min(16 * q_cross, n), rand32))
+    for q in sorted({q_scan, q_cross // 4, q_cross, 4 * q_cross, 16 * q_cross}):
+        qt = qs_big[:q]
+        kq = flip32(qt)
+        slice_line(f"searchsorted u32 n={n} q={q} (32q/n = {32 * q / n:.2f}; 'auto' takes "
+                   f"{'sort' if 32 * q >= n else 'scan'})",
+                   {"method='scan'": lambda: rt.searchsorted(sorted_t, qt, method="scan"),
+                    "method='sort'": lambda: rt.searchsorted(sorted_t, qt, method="sort"),
+                    "torch.searchsorted int32": lambda: torch.searchsorted(
+                        key_sorted, kq, out_int32=True)})
+    key64_sorted = sorted64_t.view(torch.int64) ^ (-(1 << 63))
+    q64_t = u64_tensor(qs64)
+    kq64 = q64_t.view(torch.int64) ^ (-(1 << 63))
+    slice_line(f"searchsorted u64 n={n} q={q64} (tagged union)",
+               {"searchsorted": lambda: rt.searchsorted(sorted64_t, q64_t),
+                "torch.searchsorted int64": lambda: torch.searchsorted(
+                    key64_sorted, kq64, out_int32=True)})
+    kt32 = flip32(keys_t)
+    slice_line("top_k u32 k=1000", {"top_k": lambda: rt.top_k(keys_t, 1000),
+                                    "torch.topk int32": lambda: torch.topk(kt32, 1000)})
+    slice_line("top_k f64 k=1000", {"top_k": lambda: rt.top_k(f64_t, 1000),
+                                    "torch.topk float64": lambda: torch.topk(f64_t, 1000)})
+    rows_t = u32_tensor(rows_u32)
+    rows_t32 = flip32(rows_t)
+    slice_line(f"top_k_batched ({n_rows}, 4096) u32 k=16",
+               {"top_k_batched": lambda: rt.top_k_batched(rows_t, 16),
+                "torch.topk(dim=-1) int32": lambda: torch.topk(rows_t32, 16, dim=-1)})
+    slice_line("lexsort (u8, u8, u16), one packed plane",
+               {"lexsort": lambda: rt.lexsort(lex8),
+                "torch.sort(stable=True) int32": lambda: torch.sort(kt32, stable=True)})
+    dups_t32 = u32_tensor(dups)
+    kd32 = flip32(dups_t32)
+    slice_line("rankdata u32 with duplicates 'average'",
+               {"rankdata": lambda: rt.rankdata(dups_t32),
+                "torch.sort(stable=True) int32 (its argsort)": lambda: torch.sort(
+                    kd32, stable=True),
+                "torch.cummax int32 (not called: the JAX package's lax.cummax)":
+                    lambda: torch.cummax(kd32, 0)})
+    slice_line("digitize f32 against 1,001 edges",
+               {"digitize": lambda: rt.digitize(pay_f32_t, edges_t),
+                "torch.bucketize": lambda: torch.bucketize(pay_f32_t, edges_t, right=True,
+                                                           out_int32=True)})
+    del qs_big, rows_t, rows_t32, kt32, kd32
 
     def turns3(kernel, plain, library=None):
         """Kernel, plain version and library call in turns (plain, library,

@@ -1,21 +1,27 @@
-"""Array utilities beyond sorting: ``bincount`` and the group-by slice.
+"""Sort-adjacent operations: ``bincount``, the group-by slice and the sorter
+composites.
 
-The counterpart of ``radix_sorting_tpu.extras`` for the functions ported so
-far: ``bincount``, ``unique_sorted``, ``value_counts`` and ``group_reduce``
-(ROADMAP.md, port queue item 5 lists the rest). Inputs and outputs follow
+The counterpart of ``radix_sorting_tpu.extras``, whole: ``bincount``,
+``unique_sorted``, ``value_counts``, ``group_reduce``; ``lexsort``,
+``segmented_sort`` / ``segmented_argsort``, ``merge_sorted``,
+``searchsorted``, ``nth_element``, ``top_k`` / ``top_k_batched``,
+``stable_partition`` and ``sort_complex``. Inputs and outputs follow
 :mod:`.api`: a tensor stays on its device and its results are tensors; a
 numpy input goes to ``device=`` (the CUDA device by default) and its results
-come back numpy. The routes are the JAX package's TPU routes: ``groups=``
-takes the dense tiers, K10 / K11 (:func:`.ops.cuda_kernels.whist`,
-:func:`.ops.cuda_kernels.whist_f32`) and K1 (:func:`bincount`); the rest
-sorts. Fixed-shape results are built with no host sync, as the JAX
-package's are (:func:`.ops.bitmap.nonzero_static`).
+come back numpy. Where a function takes several arrays, numpy ones join a
+tensor's device, and the results are numpy only when every input is. The
+routes are the JAX package's TPU routes: ``groups=`` takes the dense tiers,
+K10 / K11 (:func:`.ops.cuda_kernels.whist`, :func:`.ops.cuda_kernels.whist_f32`)
+and K1 (:func:`bincount`); the rest sorts, through :func:`.api.sort`'s
+dispatch (the counting kernels for narrow keys) or the sorter of
+:mod:`.ops.hw_engine`. Fixed-shape results are built with no host sync, as
+the JAX package's are (:func:`.ops.bitmap.nonzero_static`).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,7 +33,10 @@ from .ops.bitmap import bitmap_unique_sort, nonzero_static
 from .ops.histogram import digit_histogram
 from .ops.kdf import INT32_MIN
 
-__all__ = ["bincount", "unique_sorted", "value_counts", "group_reduce"]
+__all__ = ["lexsort", "unique_sorted", "segmented_sort", "segmented_argsort",
+           "top_k_batched", "searchsorted", "bincount", "top_k", "merge_sorted",
+           "nth_element", "stable_partition", "value_counts", "group_reduce",
+           "sort_complex"]
 
 _HIST_MAX_LENGTH = 1 << cuda_kernels.HIST_MAX_BITS   # the JAX package's 2^18
 # the dense group-by gates of the JAX package, kept so that an input takes
@@ -480,3 +489,411 @@ def group_reduce(keys, values, *, reduce: str = "sum", size: Optional[int] = Non
     vnp = vdtype if reduced.dtype == vt.dtype and not isinstance(vdtype, torch.dtype) \
         else None
     return _results(from_numpy, (ukeys, kdtype), (reduced, vnp), (num_groups, None))
+
+
+# ---------------------------------------------------------------------------
+# the sorter composites: inputs, and the packing of narrow words
+
+
+def _inputs(arrays, device):
+    """1-D key arrays on one device: (carrier tensors, key dtypes,
+    from_numpy). Numpy arrays join the first tensor's device, or go to
+    ``device=`` when every array is numpy; from_numpy then holds."""
+    tensors = [a for a in arrays if torch.is_tensor(a)]
+    if tensors:
+        dev = tensors[0].device
+        if device is not None and torch.device(device) != dev:
+            raise ValueError("device= places numpy input; a tensor is sorted on its own device")
+        if any(t.device != dev for t in tensors):
+            raise ValueError("the input tensors must share a device")
+    else:
+        dev = kdf.input_device(device)
+    out = [api._as_input(a, None if torch.is_tensor(a) else dev) for a in arrays]
+    return [t for t, _, _ in out], [d for _, d, _ in out], not tensors
+
+
+def _length(x) -> int:
+    """The length of a 1-D tensor or array-like; ValueError otherwise."""
+    shape = tuple(x.shape) if torch.is_tensor(x) else np.shape(x)
+    if len(shape) != 1:
+        raise ValueError(f"keys must be 1-D, got shape {shape}")
+    return int(shape[0])
+
+
+def _word_pairs(words, dtype):
+    """[(plane, live width), ...] of one key's encoded planes.
+
+    The KDF maps a b-bit dtype into b bits, zero-extended, so one plane of a
+    narrow dtype is bounded by 2^b. Every plane of a 64-bit key or a byte
+    string is a full 32-bit field (R5: a byte string's bytes sit at the top
+    of its planes, and each plane orders; the JAX package keeps only the
+    first plane of a key of three or more, and packs the plane of a 1- to
+    3-byte string as if its bytes sat at the bottom).
+    """
+    if len(words) > 1 or kdf.kind(dtype) == "S":
+        return [(w, 32) for w in words]
+    return [(words[0], min(32, kdf.key_bits(dtype)))]
+
+
+def _pack_narrow_words(pairs):
+    """Pack width-bounded words into the fewest 32-bit sort operands.
+
+    ``pairs`` is [(word, live bits), ...], most significant first; each word
+    is < 2^bits, so concatenating fields within a plane keeps the
+    lexicographic order (a lexsort of four u8 columns sorts ONE operand).
+    Returns ``(packed planes, layout)``, ``layout[i] = (plane, shift,
+    bits)`` locating pair i's field.
+    """
+    groups, cur, cur_bits = [], [], 0
+    for w, bits in pairs:
+        if cur and cur_bits + bits > 32:
+            groups.append(cur)
+            cur, cur_bits = [], 0
+        cur.append((w, bits))
+        cur_bits += bits
+    groups.append(cur)
+    packed, layout = [], []
+    for gi, g in enumerate(groups):
+        shift = sum(b for _, b in g)
+        acc = None
+        for w, bits in g:
+            shift -= bits
+            term = w << shift if shift else w       # int32 << wraps as u32 does
+            acc = term if acc is None else acc | term
+            layout.append((gi, shift, bits))
+        packed.append(acc)
+    return tuple(packed), layout
+
+
+def _field_masks(layout, indices, num_words):
+    """Per-plane u32 masks (Python ints) covering the fields ``indices``."""
+    masks = [0] * num_words
+    for i in indices:
+        gi, shift, bits = layout[i]
+        masks[gi] |= ((1 << bits) - 1) << shift
+    return masks
+
+
+def _xor_masks(words, masks):
+    """Complement the masked fields in place (a b-bit field's complement is
+    ``field ^ (2^b - 1)``): descending order for those fields alone."""
+    return tuple(w ^ kdf.i32(m) if m else w for w, m in zip(words, masks))
+
+
+def _unpack_fields(sorted_words, layout):
+    """Each field of the sorted packed planes, as its own plane (``>>`` is
+    arithmetic on int32, so every field below 32 bits is masked)."""
+    planes = []
+    for gi, shift, bits in layout:
+        w = sorted_words[gi]
+        if shift:
+            w = w >> shift
+        if bits < 32:
+            w = w & ((1 << bits) - 1)
+        planes.append(w)
+    return planes
+
+
+# ---------------------------------------------------------------------------
+# lexsort, the segmented sorts, merge_sorted
+
+
+def lexsort(keys: Sequence, *, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Stable argsort by several keys, the last key most significant (numpy's
+    order); returns the permutation as uint32.
+
+    Every key is KDF-encoded, the narrow words pack into the fewest 32-bit
+    planes (:func:`_pack_narrow_words`), and one stable sort orders them
+    (planes past two chain stable sorts, :mod:`.ops.hw_engine`).
+    ``config.descending`` complements the packed planes (the complement
+    distributes over the concatenated fields).
+    """
+    keys = list(keys)
+    if not keys:
+        raise ValueError("lexsort needs at least one key")
+    ts, dtypes, from_numpy = _inputs(keys, device)
+    n = int(ts[0].shape[0])
+    pairs = []
+    for t, d in zip(reversed(ts), reversed(dtypes)):   # numpy: the last key is primary
+        if int(t.shape[0]) != n:
+            raise ValueError("lexsort keys must share a common length")
+        pairs += _word_pairs(kdf.encode(t, False, d), d)
+    packed, _ = _pack_narrow_words(pairs)
+    if config.descending:
+        packed = kdf.complement(packed)
+    _, perm = hw_engine.argsort_words(packed)
+    return kdf.to_numpy(perm) if from_numpy else perm
+
+
+def _segment_planes(keys, segment_ids, descending: bool, device):
+    """The (segment, key) composite packed into the fewest planes, the key
+    fields complemented in place when ``descending`` (the segments stay
+    ascending): (packed, layout, key masks, number of segment fields,
+    (key, segment) dtypes, from_numpy)."""
+    (kt, st), (kd, sd), from_numpy = _inputs((keys, segment_ids), device)
+    if int(st.shape[0]) != int(kt.shape[0]):
+        raise ValueError("segment_ids must match the keys' length")
+    seg_pairs = _word_pairs(kdf.encode(st, False, sd), sd)
+    packed, layout = _pack_narrow_words(seg_pairs + _word_pairs(kdf.encode(kt, False, kd), kd))
+    kmasks = _field_masks(layout, range(len(seg_pairs), len(layout)), len(packed))
+    if descending:
+        packed = _xor_masks(packed, kmasks)
+    return packed, layout, kmasks, len(seg_pairs), (kd, sd), from_numpy
+
+
+def segmented_sort(keys, segment_ids, *, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Sort keys within segments: one keys-only sort of the (segment, key)
+    composite. Returns ``(sorted_keys, sorted_segment_ids)``, ordered by
+    segment id, then by key (``config.descending`` applies to the keys
+    only); segments already grouped in ascending order keep their layout."""
+    packed, layout, kmasks, ns, (kd, sd), from_numpy = _segment_planes(
+        keys, segment_ids, config.descending, device)
+    sw, _ = hw_engine.sort_words(packed, stable=False)
+    if config.descending:
+        sw = _xor_masks(sw, kmasks)
+    planes = _unpack_fields(sw, layout)
+    return _results(from_numpy, (kdf.decode(tuple(planes[ns:]), kd), kd),
+                    (kdf.decode(tuple(planes[:ns]), sd), sd))
+
+
+def segmented_argsort(keys, segment_ids, *, config: SortConfig = DEFAULT_CONFIG,
+                      index_dtype=torch.uint32, device=None):
+    """Stable argsort by (segment, key): the permutation form of
+    :func:`segmented_sort`; ties within a segment go to the lower index."""
+    packed, _, _, _, _, from_numpy = _segment_planes(keys, segment_ids,
+                                                     config.descending, device)
+    idt = api._index_dtype(index_dtype)
+    api._check_index_width(int(packed[0].shape[0]), idt)
+    _, perm = hw_engine.argsort_words(packed, index_dtype=idt)
+    return kdf.to_numpy(perm) if from_numpy else perm
+
+
+def merge_sorted(a, b, *, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Merge two sorted arrays into one (``std::merge``): keys-only, so one
+    unstable sort of the concatenation, made on the device, gives it."""
+    (at, bt), (da, db), from_numpy = _inputs((a, b), device)
+    if kdf._canonical_dtype(da) != kdf._canonical_dtype(db):
+        raise TypeError(f"merge_sorted inputs must share a dtype, got {da} and {db}")
+    words = kdf.encode(torch.cat([at, bt]), config.descending, da)
+    sw, _ = hw_engine.sort_words(words, stable=False)
+    return api._decode(sw, da, config.descending, from_numpy)
+
+
+# ---------------------------------------------------------------------------
+# searchsorted
+
+# searchsorted's query block: the tagged union sorts the n keys with at most
+# this many queries at a time, which bounds its intermediates at any q.
+# Module-level so tests can shrink it.
+_SEARCHSORTED_QBLOCK = 1 << 22
+_SEARCH_METHODS = ("auto", "scan", "scan_unrolled", "compare_all", "sort")
+
+
+def _integer_dtype(d) -> bool:
+    if isinstance(d, torch.dtype):
+        return not (d.is_floating_point or d.is_complex or d == torch.bool)
+    return np.issubdtype(np.dtype(d), np.integer)
+
+
+def _tagged_union(sw, qw, right: bool) -> torch.Tensor:
+    """Insertion positions of the query planes ``qw`` into the sorted planes
+    ``sw``: ONE unstable sort of the union with an index plane, then the
+    stable inverse-permutation sort.
+
+    The index plane orders every tie, so no flag operand is needed: for
+    'left' the queries take indices 0..m-1 and the keys m..m+n-1 (a query
+    lands before its equals), for 'right' the reverse. A query's position is
+    the number of keys sorted before it.
+    """
+    n, m = int(sw[0].shape[0]), int(qw[0].shape[0])
+    if n + m >= 1 << 31:
+        raise ValueError(f"searchsorted indexes n + a query block ({n} + {m}) in 31 bits")
+    idx = torch.arange(n + m, dtype=torch.int32, device=sw[0].device)
+    idx_s, idx_q = (idx[:n], idx[n:]) if right else (idx[m:], idx[:m])
+    words = tuple(torch.cat([s, q]) for s, q in zip(sw, qw)) + (torch.cat([idx_s, idx_q]),)
+    sidx = hw_engine.sort_words(words, stable=False)[0][-1]
+    is_key = ((sidx < n) if right else (sidx >= m)).to(torch.int32)
+    before = torch.cumsum(is_key, 0, dtype=torch.int32) - is_key      # exclusive
+    # back to the union's order: sidx is unique, so the stable sort is exact
+    _, (restored,) = hw_engine.sort_words((sidx,), (before,))
+    return restored[n:] if right else restored[:m]
+
+
+def searchsorted(sorted_keys, queries, *, side: str = "left", method: str = "auto",
+                 sorter=None, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Insertion positions of ``queries`` into a sorted array
+    (``np.searchsorted``); returns int32 positions in [0, n].
+
+    Positions follow the KDF total order (floats with NaN and -0.0 place as
+    this package's sorts place them); ``config.descending`` searches an
+    array sorted descending. That ``sorted_keys`` is sorted is the caller's
+    promise, not checked (as in numpy).
+
+    Routes, the JAX package's TPU routes: keys of one plane (<= 32 bits)
+    with ``'scan'``, ``'scan_unrolled'`` or ``'compare_all'`` take
+    ``torch.searchsorted`` of the sign-flipped planes; ``'sort'`` takes the
+    tagged union (:func:`_tagged_union`; one int64 sort of the (key, index)
+    planes); ``'auto'`` takes ``'sort'`` when ``32 * q >= n``, else
+    ``'scan'``. Keys of two planes (64-bit, 5- to 8-byte strings) always
+    take the tagged union. Wider byte strings raise ValueError. Queries go
+    in blocks of ``_SEARCHSORTED_QBLOCK`` through the tagged union.
+
+    ``sorter`` (numpy's third argument) is an integer permutation that sorts
+    ``sorted_keys``; its dtype and shape are checked, then one sort of the
+    keys (the route of :func:`.api.sort`) takes the place of the gather:
+    any sorting permutation gives the sorted keys.
+    """
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    if sorter is not None:
+        sdt = sorter.dtype if hasattr(sorter, "dtype") else np.asarray(sorter).dtype
+        if not _integer_dtype(sdt):
+            raise TypeError(f"sorter must be an integer permutation, got {sdt}")
+        sshape = tuple(sorter.shape) if torch.is_tensor(sorter) else np.shape(sorter)
+        kshape = tuple(sorted_keys.shape) if torch.is_tensor(sorted_keys) \
+            else np.shape(sorted_keys)
+        if sshape != kshape:
+            raise ValueError(f"sorter.shape {sshape} must equal sorted_keys.shape {kshape}")
+    if method not in _SEARCH_METHODS:
+        raise ValueError(f"method must be one of {_SEARCH_METHODS}, got {method!r}")
+    (st, qt), (sd, qd), from_numpy = _inputs((sorted_keys, queries), device)
+    if kdf._canonical_dtype(sd) != kdf._canonical_dtype(qd):
+        raise TypeError(f"searchsorted inputs must share a dtype, got {sd} and {qd}")
+    desc = config.descending
+    sw = _sorted_words(st, sd, config) if sorter is not None else kdf.encode(st, desc, sd)
+    qw = kdf.encode(qt, desc, qd)
+    n, q = int(sw[0].shape[0]), int(qw[0].shape[0])
+    if len(sw) > 2:
+        raise ValueError(
+            f"searchsorted takes keys of at most two 32-bit planes; {sd} keys have "
+            f"{len(sw)} (the tagged union's sort would carry every plane)")
+    if q == 0 or n == 0:
+        out = torch.zeros(q, dtype=torch.int32, device=st.device)
+    elif len(sw) == 1 and method != "sort" and not (method == "auto" and 32 * q >= n):
+        out = torch.searchsorted(hw_engine._key(sw), hw_engine._key(qw),
+                                 right=side == "right", out_int32=True)
+    else:
+        B = _SEARCHSORTED_QBLOCK
+        out = torch.cat([_tagged_union(sw, tuple(w[i:i + B] for w in qw), side == "right")
+                         for i in range(0, q, B)])
+    return kdf.to_numpy(out) if from_numpy else out
+
+
+# ---------------------------------------------------------------------------
+# selection: nth_element, top_k, top_k_batched; stable_partition
+
+
+def nth_element(x, ranks, *, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """Values at the given sorted ranks (exact order statistics), a
+    (len(ranks),) array of x's dtype; ``ranks`` are ints in [0, n), in the
+    order of ``config.descending``. One full sort (:func:`.api.sort`'s
+    route: narrow keys select at the counting kernels' speed), then a take
+    of the ranks' planes."""
+    n = _length(x)
+    ranks = [int(r) for r in ranks]
+    if not ranks:
+        raise ValueError("ranks must be non-empty")
+    if not all(0 <= r < n for r in ranks):
+        raise ValueError(f"ranks must be in [0, {n})")
+    xt, dtype, from_numpy = api._as_input(x, device)
+    sw = _sorted_words(xt, dtype, config)
+    idx = torch.tensor(ranks, device=xt.device)
+    return api._decode(tuple(w[idx] for w in sw), dtype, config.descending, from_numpy)
+
+
+def top_k(x, k: int, *, largest: bool = True, index_dtype=torch.uint32, device=None):
+    """Top-k values of ``x`` with their original indices: ``(values,
+    indices)`` of length ``k``, best first (descending for
+    ``largest=True``); ties go to the lower index. Any key dtype, 64-bit
+    and byte strings included: one stable argsort of the keys encoded with
+    ``descending=largest``."""
+    words, dtype, from_numpy = api._as_words(x, largest, device)
+    n = int(words[0].shape[0])
+    if not 0 < k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    idt = api._index_dtype(index_dtype)
+    api._check_index_width(n, idt)
+    sw, perm = hw_engine.argsort_words(words, index_dtype=idt)
+    vals = kdf.decode(tuple(w[:k] for w in sw), dtype, largest)
+    return _results(from_numpy, (vals, dtype), (perm[:k], None))
+
+
+def top_k_batched(x, k: int, *, axis: int = -1, largest: bool = True,
+                  index_dtype=torch.uint32, device=None):
+    """Top-k of every 1-D slice along ``axis``: ``(values, indices)`` with
+    ``k`` in place of that axis's size, best first, ties to the lower index
+    of each slice. One ``torch.sort(dim=-1, stable=True)`` of the slices'
+    packed keys (:func:`.api._batch_key`); stability gives the order of the
+    JAX package's index-as-last-key. A batch of one row goes through
+    :func:`top_k`."""
+    xm, axis = api._moveaxis_last(api._as_array(x), axis)
+    if api._single_batch(xm):
+        vals, idx = top_k(xm.reshape(-1), k, largest=largest, index_dtype=index_dtype,
+                          device=device)
+        shape = tuple(xm.shape[:-1]) + (k,)
+        return (api._restore_axis(vals.reshape(shape), axis),
+                api._restore_axis(idx.reshape(shape), axis))
+    n = int(xm.shape[-1])
+    if not 0 < k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    idt = api._index_dtype(index_dtype)
+    api._check_index_width(n, idt)
+    key, planes, dtype, from_numpy = api._batch_key(xm, largest, device)
+    s = torch.sort(key, dim=-1, stable=True)
+    vals = api._batch_decode(s.values[..., :k], planes, dtype, largest, from_numpy)
+    idx = s.indices[..., :k].to(idt)
+    return (api._restore_axis(vals, axis),
+            api._restore_axis(kdf.to_numpy(idx) if from_numpy else idx, axis))
+
+
+def stable_partition(pred, values, *, device=None):
+    """Stable partition of a payload pytree by a boolean predicate: rows where
+    ``pred`` is False first, then the rest, each group in input order.
+    Returns ``(partitioned_values, num_false)`` (num_false int32). One
+    stable :func:`.api.sort_pairs` by the bool key."""
+    pd = pred.dtype if torch.is_tensor(pred) else np.asarray(pred).dtype
+    if pd not in (torch.bool, np.dtype(np.bool_)):
+        raise TypeError(f"pred must be boolean, got {pd}")
+    pt, _, from_numpy = api._as_input(pred, device)
+    _, out = api.sort_pairs(pt, values)
+    num_false = (~pt).sum(dtype=torch.int32)
+    return out, kdf.to_numpy(num_false) if from_numpy else num_false
+
+
+# ---------------------------------------------------------------------------
+# sort_complex
+
+
+def sort_complex(x, *, config: SortConfig = DEFAULT_CONFIG, device=None) -> np.ndarray:
+    """``np.sort_complex``: sort by the real part, ties by the imaginary.
+
+    Takes numpy only (as the JAX package does) and returns numpy. The host
+    splits the real and imaginary parts; each is KDF-encoded on ``device``
+    (complex64: one plane a part; complex128: two, as
+    :func:`.ops.kdf.encode64_np` makes them), and one keys-only sort of the 2 or 4
+    planes orders them. Each part follows the KDF total order (-0.0 < +0.0,
+    NaNs by sign and payload). Real input is promoted as numpy promotes it:
+    int8, int16, uint8, uint16 to complex64, the rest to complex128.
+    ``config.descending`` reverses the order.
+    """
+    if not isinstance(x, np.ndarray):
+        raise TypeError("sort_complex takes a NUMPY array (the host splits the real and "
+                        f"imaginary planes), got {type(x).__name__}")
+    if x.ndim != 1:
+        raise ValueError(f"keys must be 1-D, got shape {x.shape}")
+    if x.dtype.kind != "c":
+        x = x.astype(np.complex64 if x.dtype.char in "bhBH" else np.complex128)
+    if x.dtype not in (np.complex64, np.complex128):
+        raise TypeError(f"sort_complex takes complex64 or complex128, got {x.dtype}")
+    if x.shape[0] == 0:
+        return x.copy()
+    dev = kdf.input_device(device)
+    desc = config.descending
+    part = np.float32 if x.dtype == np.complex64 else np.float64
+    re, im = (kdf.as_tensor(np.ascontiguousarray(p), dev) for p in (x.real, x.imag))
+    out, _ = hw_engine.sort_words(kdf.encode(re, desc) + kdf.encode(im, desc), stable=False)
+    h = len(out) // 2
+    res = np.empty(x.shape, x.dtype)
+    res.real = kdf.to_numpy(kdf.decode(out[:h], np.dtype(part), desc))
+    res.imag = kdf.to_numpy(kdf.decode(out[h:], np.dtype(part), desc))
+    return res

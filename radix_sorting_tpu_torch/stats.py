@@ -1,28 +1,33 @@
-"""Statistics built on the group-by slice: ``histogram``, its bin edges, ``mode``.
+"""Order statistics, ranks and binning: the counterpart of
+``radix_sorting_tpu.stats``, whole.
 
-The counterpart of ``radix_sorting_tpu.stats`` for the functions ported so
-far (ROADMAP.md, port queue item 5 lists the rest). Inputs and outputs
-follow :mod:`.api`: a tensor stays on its device and its results are
-tensors; a numpy input goes to ``device=`` (the CUDA device by default) and
-its results come back numpy. Bin edges are numpy float64 arrays, as in the
-JAX package.
+``rankdata`` (``scipy.stats.rankdata``), ``quantile`` / ``percentile`` /
+``median``, ``digitize``, ``histogram`` (integer bins or an edge array) and
+``histogram_bin_edges``, ``mode``, ``partition`` / ``argpartition``. Inputs
+and outputs follow :mod:`.api`: a tensor stays on its device and its results
+are tensors; a numpy input goes to ``device=`` (the CUDA device by default)
+and its results come back numpy. Bin edges are numpy float64 arrays, as in
+the JAX package. Floats order by the KDF total order (-0.0 < +0.0, NaNs above
++inf by payload): numpy's NaN-propagating quantiles are not replicated.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import api
 from .config import DEFAULT_CONFIG, SortConfig
-from .extras import (_DENSE_BUDGET, _int64_values, _results, bincount, group_reduce,
-                     value_counts)
+from .extras import (_DENSE_BUDGET, _int64_values, _length, _results, _sorted_words,
+                     _to_float, bincount, group_reduce, searchsorted, value_counts)
 from .ops import cuda_kernels, hw_engine, kdf
 
-__all__ = ["histogram", "histogram_bin_edges", "mode"]
+__all__ = ["rankdata", "quantile", "percentile", "median", "mode", "digitize",
+           "histogram", "histogram_bin_edges", "partition", "argpartition"]
 
+_RANK_METHODS = ("average", "min", "max", "dense", "ordinal")
 _Q_METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
 
 
@@ -62,46 +67,58 @@ def histogram_bin_edges(x, bins: int = 10, range: Optional[Tuple[float, float]] 
     return _edges(xt, dtype, bins, None)
 
 
-def histogram(x, bins: Union[int, np.integer] = 10,
+def histogram(x, bins: Union[int, np.integer, Sequence] = 10,
               range: Optional[Tuple[float, float]] = None, weights=None,
               density: bool = False, *, device=None):
-    """``np.histogram`` with integer ``bins``: ``(counts, edges)``.
+    """``np.histogram``: ``(counts, edges)``.
 
-    Uniform edges over ``range`` or the data's extent (see
-    :func:`histogram_bin_edges`); values outside them (NaN too) are dropped
-    and the last bin is closed on the right. Binning is float32, as in the
-    JAX package: ``floor((x - lo) * scale)`` in f32 arithmetic, so a value
-    within about one f32 ulp of an interior edge may land one bin off
-    numpy's float64 arithmetic.
+    ``bins`` is an integer (uniform edges over ``range`` or the data's
+    extent, see :func:`histogram_bin_edges`) or an increasing array of at
+    least two edges. Values outside the edges (NaN too) are dropped and the
+    last bin is closed on the right. Binning is float32, as in the JAX
+    package: uniform bins take ``floor((x - lo) * scale)`` in f32
+    arithmetic, so a value within about one f32 ulp of an interior edge may
+    land one bin off numpy's float64 arithmetic; edge arrays take one
+    :func:`digitize` of the values against the edges cast to float32 (exact
+    against numpy where the edges are f32 values).
 
     Unweighted counts (int32) go through :func:`.extras.bincount` (K1).
     Weighted sums (float32) go through K11 (:func:`.ops.cuda_kernels.whist_f32`)
     when ``2 * bins <= 2^17`` (bins: ``nb + 1`` rounded up to a power of two),
     else through :func:`.extras.group_reduce` and an add into the bins. A
     non-finite weight makes only its own bin non-finite. ``density=True``
-    returns float32. Edge-array ``bins`` need ``searchsorted``, not ported
-    yet: they raise NotImplementedError.
+    returns float32.
     """
-    if not isinstance(bins, (int, np.integer)):
-        raise NotImplementedError(
-            "histogram with an array of bin edges needs searchsorted, not "
-            "ported yet (ROADMAP.md, port queue item 5); pass an integer bins")
     xt, dtype, from_numpy = api._as_input(x, device)
     n = int(xt.shape[0])
-    nb = int(bins)
-    edges = _edges(xt, dtype, nb, range)
     xf = xt.to(torch.float32)
     f32 = torch.float32
 
     def scalar(v):
         return torch.tensor(np.float32(v), dtype=f32, device=xt.device)
 
-    lo, hi = scalar(edges[0]), scalar(edges[-1])
-    idx = torch.floor((xf - lo) * scalar(nb / (edges[-1] - edges[0]))).to(torch.int32)
-    # close the last bin on the right; everything outside [lo, hi], NaN
-    # included, goes to the drop bin nb
-    idx = torch.where(idx == nb, nb - 1, idx)
-    idx = torch.where((xf >= lo) & (xf <= hi), idx, nb)
+    if isinstance(bins, (int, np.integer)):
+        nb = int(bins)
+        edges = _edges(xt, dtype, nb, range)
+        lo, hi = scalar(edges[0]), scalar(edges[-1])
+        idx = torch.floor((xf - lo) * scalar(nb / (edges[-1] - edges[0]))).to(torch.int32)
+        # close the last bin on the right; everything outside [lo, hi], NaN
+        # included, goes to the drop bin nb
+        idx = torch.where(idx == nb, nb - 1, idx)
+        idx = torch.where((xf >= lo) & (xf <= hi), idx, nb)
+    else:
+        edges = np.asarray(bins, np.float64)
+        if edges.ndim != 1 or edges.shape[0] < 2:
+            raise ValueError("bin edges must be a 1-D array of length >= 2")
+        if np.any(edges[1:] < edges[:-1]):
+            raise ValueError("bin edges must be increasing")
+        nb = edges.shape[0] - 1
+        pos = digitize(xf, torch.as_tensor(edges.astype(np.float32), device=xt.device),
+                       descending=False)
+        last = scalar(edges[-1])
+        idx = torch.where(xf == last, nb - 1, pos - 1)       # the last bin closed
+        # pos 0: below edges[0] (side 'right' counts the equals)
+        idx = torch.where((pos == 0) | (xf > last) | torch.isnan(xf), nb, idx)
 
     if weights is None:
         counts = bincount(idx, length=nb + 1)[:nb]
@@ -148,8 +165,7 @@ def mode(x, *, config: SortConfig = DEFAULT_CONFIG, device=None):
 
 
 # ---------------------------------------------------------------------------
-# quantile helpers, shared with ``parallel.distributed_quantile`` (the public
-# ``quantile`` is not ported yet: ROADMAP.md, port queue item 4)
+# quantiles; the helpers are shared with ``parallel.distributed_quantile``
 
 
 def _quantile_positions(qs, n: int, method: str):
@@ -171,8 +187,9 @@ def _quantile_positions(qs, n: int, method: str):
 
 def _quantile_combine(lo, hi, frac, method: str):
     """Interpolate gathered (lo, hi) order statistics. numpy arrays combine
-    in float64 with numpy's own ``_lerp`` rounding form; tensors combine in
-    float32 on their device."""
+    in float64 with numpy's own ``_lerp`` rounding form (the callers pass
+    the values of 64-bit keys so); tensors combine in float32 on their
+    device."""
     if method in ("lower", "higher", "nearest"):
         return lo
     if isinstance(lo, np.ndarray):
@@ -181,9 +198,178 @@ def _quantile_combine(lo, hi, frac, method: str):
             return a * 0.5 + b * 0.5
         t = frac
         return np.where(t >= 0.5, b - (b - a) * (1.0 - t), a + (b - a) * t)
-    from .extras import _to_float
     a, b = _to_float(lo, torch.float32), _to_float(hi, torch.float32)
     if method == "midpoint":
         return (a + b) * 0.5
     f = torch.as_tensor(np.asarray(frac, np.float32), device=lo.device)
     return a * (1.0 - f) + b * f
+
+
+def quantile(x, q, *, method: str = "linear", config: SortConfig = DEFAULT_CONFIG,
+             device=None):
+    """Exact quantiles of ``x`` at probabilities ``q`` in [0, 1]
+    (``np.quantile``); ``method`` is numpy's ``'linear'`` (default),
+    ``'lower'``, ``'higher'``, ``'nearest'`` or ``'midpoint'``.
+
+    Returns a scalar for a scalar ``q``, else a (len(q),) array: of the
+    input's dtype for the exact methods (numpy promotes integers to float64
+    there), float32 for the interpolating ones, combined on the device;
+    float64 for 64-bit keys, combined on the host with numpy's rounding, as
+    the JAX package combines them (and byte strings, which it keeps on the
+    host too). One full sort (:func:`.api.sort`'s route: narrow keys at the
+    counting kernels' speed), then a take of the positions' planes and one
+    interpolation. NaNs are the top order statistics (KDF order), where
+    numpy propagates them.
+    """
+    if method not in _Q_METHODS:
+        raise ValueError(f"method must be one of {_Q_METHODS}, got {method!r}")
+    scalar = np.ndim(q) == 0
+    qs = np.atleast_1d(np.asarray(q, np.float64))
+    if qs.ndim != 1:
+        raise ValueError(f"q must be a scalar or 1-D sequence, got shape {qs.shape}")
+    if qs.size and (np.min(qs) < 0.0 or np.max(qs) > 1.0):
+        raise ValueError("quantile probabilities must lie in [0, 1]")
+    n = _length(x)
+    if n == 0:
+        raise ValueError("quantile of an empty array is undefined")
+    xt, dtype, from_numpy = api._as_input(x, device)
+    sw = _sorted_words(xt, dtype, config)
+    lo_i, hi_i, frac = _quantile_positions(qs, n, method)
+
+    def take(i):
+        idx = torch.as_tensor(i, device=xt.device)
+        return kdf.decode(tuple(w[idx] for w in sw), dtype, config.descending)
+
+    lo, hi = take(lo_i), take(hi_i)
+    if method in ("lower", "higher", "nearest"):
+        out = _results(from_numpy, (lo, dtype))[0]
+    elif kdf.key_bits(dtype) == 64 or kdf.kind(dtype) == "S":
+        out = _quantile_combine(kdf.to_numpy(lo, dtype), kdf.to_numpy(hi, dtype), frac,
+                                method)
+        out = out if from_numpy else torch.from_numpy(out).to(xt.device)
+    else:
+        out = _results(from_numpy, (_quantile_combine(lo, hi, frac, method), None))[0]
+    return out[0] if scalar else out
+
+
+def percentile(x, q, *, method: str = "linear", config: SortConfig = DEFAULT_CONFIG,
+               device=None):
+    """``np.percentile``: :func:`quantile` at ``q / 100``."""
+    return quantile(x, np.asarray(q, np.float64) / 100.0 if np.ndim(q) else float(q) / 100.0,
+                    method=method, config=config, device=device)
+
+
+def median(x, *, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """``np.median``: the linear 0.5 quantile (see :func:`quantile`)."""
+    return quantile(x, 0.5, config=config, device=device)
+
+
+# ---------------------------------------------------------------------------
+# rankdata, digitize, partition
+
+
+def rankdata(x, *, method: str = "average", config: SortConfig = DEFAULT_CONFIG,
+             device=None):
+    """Tie-aware 1-based ranks (``scipy.stats.rankdata``).
+
+    ``'average'`` gives tied keys the mean of their positions, ``'min'`` /
+    ``'max'`` the first / last, ``'dense'`` consecutive group numbers,
+    ``'ordinal'`` distinct ranks in input order among ties. The order
+    follows ``config.descending``; ties group bitwise under the KDF total
+    order. Returns float32 for ``'average'`` (exact below 2^23), else int32.
+
+    One stable argsort, boundary flags in sorted order, each position's run
+    number by one cumsum, each run's first position by one scatter (the
+    next run's first, less one, is its last), then one int64 sort of the
+    (permutation, rank) planes restores input order (the permutation is
+    unique). The JAX package takes the run starts and ends as running
+    maxima (``lax.cummax``); ``torch.cummax`` scans a 1-D tensor in one
+    block: 110.8 ms for 40M int32 keys on an H100 80GB HBM3 at 700 W,
+    against 11.9 ms for this whole call (PERF.md, run BY).
+    """
+    if method not in _RANK_METHODS:
+        raise ValueError(f"method must be one of {_RANK_METHODS}, got {method!r}")
+    words, _, from_numpy = api._as_words(x, config.descending, device)
+    n = int(words[0].shape[0])
+    dev = words[0].device
+    if n == 0:
+        out = torch.zeros(0, dtype=torch.float32 if method == "average" else torch.int32,
+                          device=dev)
+        return kdf.to_numpy(out) if from_numpy else out
+    api._check_index_width(n, torch.uint32)
+    sw, perm = hw_engine.argsort_words(words, index_dtype=torch.int32)
+    neq = sw[0][1:] != sw[0][:-1]
+    for w in sw[1:]:
+        neq = neq | (w[1:] != w[:-1])
+    is_new = torch.cat([neq.new_ones(1), neq])
+    run = torch.cumsum(is_new, 0, dtype=torch.int32)        # 1-based: the dense rank
+    i = torch.arange(n, dtype=torch.int32, device=dev)
+    if method == "ordinal":
+        num = 2 * i + 2                     # numerators of 2 * rank, halved at the end
+    elif method == "dense":
+        num = 2 * run
+    else:
+        # first[r]: run r's first position (every other position writes the
+        # spill slot 0); first[runs + 1] = n closes the last run
+        first = torch.zeros(n + 2, dtype=torch.int32, device=dev)
+        first.scatter_(0, torch.where(is_new, run, 0).long(), i)
+        first.scatter_(0, (run[-1:] + 1).long(), torch.full((1,), n, dtype=torch.int32,
+                                                                device=dev))
+        if method == "min":
+            num = 2 * first[run] + 2
+        elif method == "max":
+            num = 2 * first[run + 1]                         # 2 * (last + 1)
+        else:
+            num = first[run] + first[run + 1] + 1            # first + last + 2
+    (_, num), _ = hw_engine.sort_words((perm, num.to(torch.int32)), stable=False)
+    out = num.to(torch.float32) * 0.5 if method == "average" else num // 2
+    return kdf.to_numpy(out) if from_numpy else out
+
+
+def digitize(x, bins, *, right: bool = False, descending: Optional[bool] = None,
+             device=None):
+    """Bin index of each value against monotonic ``bins`` (``np.digitize``).
+
+    Increasing bins: ``bins[i-1] <= x < bins[i]`` (``right=True``:
+    ``bins[i-1] < x <= bins[i]``); decreasing bins reverse both. One
+    :func:`.extras.searchsorted`, numpy's own equivalence, with side
+    ``'right'`` exactly when ``right == descending``. ``descending=None``
+    reads the order from the end values of ``bins`` on the host (one read
+    of two values for a tensor). Monotonicity is the caller's promise (numpy
+    checks the ends only).
+    """
+    if descending is None:
+        shape = tuple(bins.shape) if torch.is_tensor(bins) else np.shape(bins)
+        if len(shape) != 1:
+            raise ValueError(f"bins must be 1-D, got shape {shape}")
+        nb, descending = shape[0], False
+        if nb >= 2:                          # the first and the last bin
+            ends = bins[:: nb - 1] if torch.is_tensor(bins) else np.asarray(bins)[:: nb - 1]
+            ends = kdf.to_numpy(ends) if torch.is_tensor(ends) else ends
+            descending = bool(ends[0] > ends[1])
+    side = "right" if bool(right) == bool(descending) else "left"
+    return searchsorted(bins, x, side=side, config=SortConfig(descending=bool(descending)),
+                        device=device)
+
+
+def _check_kth(kth, n: int) -> None:
+    for k in np.atleast_1d(np.asarray(kth, np.int64)):
+        if not -n <= k < n:
+            raise ValueError(f"kth {int(k)} out of range for {n} elements")
+
+
+def partition(x, kth, *, config: SortConfig = DEFAULT_CONFIG, device=None):
+    """``np.partition``: returns the fully sorted array, the strongest order
+    that meets the contract (one :func:`.api.sort`; no partial selection is
+    cheaper than the sort's routes). ``kth`` (int or ints) is checked
+    against [-n, n) and otherwise unused."""
+    _check_kth(kth, _length(x))
+    return api.sort(x, config=config, device=device)
+
+
+def argpartition(x, kth, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,
+                 device=None):
+    """``np.argpartition``: the full stable argsort permutation (see
+    :func:`partition`)."""
+    _check_kth(kth, _length(x))
+    return api.argsort(x, config=config, index_dtype=index_dtype, device=device)

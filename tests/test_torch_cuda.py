@@ -1168,3 +1168,68 @@ def test_dryrun_multichip_on_the_card(cuda):
     assert all(r["peak_mb"] is not None for r in records)
     assert records[1]["launches"].get("rdma_exchange", 0) > 0
     assert "rdma_exchange" not in records[0]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the sorter composites of extras and stats on the card
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_searchsorted_query_blocks_on_the_card(cuda, side):
+    from radix_sorting_tpu_torch import extras
+    rng = np.random.Generator(np.random.PCG64(21))
+    a = np.sort(rng.integers(0, 1 << 64, size=1_000_003, dtype=np.uint64))
+    q = extras._SEARCHSORTED_QBLOCK + 12_345          # two blocks, the last ragged
+    v = np.concatenate([a[rng.integers(0, a.size, size=q // 2)],
+                        rng.integers(0, 1 << 64, size=q - q // 2, dtype=np.uint64)])
+    at = torch.from_numpy(a.view(np.int64)).to(cuda).view(torch.uint64)
+    vt = torch.from_numpy(v.view(np.int64)).to(cuda).view(torch.uint64)
+    got = rt.searchsorted(at, vt, side=side)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(), np.searchsorted(a, v, side=side))
+    a32, v32 = (a >> np.uint64(40)).astype(np.uint32), (v >> np.uint64(40)).astype(np.uint32)
+    for method in ("sort", "scan"):                   # one int64 sort a block; torch
+        got = rt.searchsorted(a32, v32, side=side, method=method)
+        assert np.array_equal(got, np.searchsorted(a32, v32, side=side))
+
+
+def test_top_k_batched_on_the_card(cuda):
+    rng = np.random.Generator(np.random.PCG64(22))
+    x = rng.integers(0, 1000, size=(512, 4096), dtype=np.uint32)         # ties
+    vals, idx = rt.top_k_batched(torch.from_numpy(x.view(np.int32)).to(cuda)
+                                 .view(torch.uint32), 16)
+    assert vals.device.type == "cuda" and vals.shape == (512, 16) and idx.dtype == torch.uint32
+    order = np.argsort(-x.astype(np.int64), axis=-1, kind="stable")[:, :16]
+    assert np.array_equal(idx.cpu().numpy(), order.astype(np.uint32))
+    assert np.array_equal(_u32(vals), np.take_along_axis(x, order, -1))
+    xf = rng.standard_normal((4096, 64)).astype(np.float32)
+    vals, idx = rt.top_k_batched(torch.from_numpy(xf).to(cuda), 5, axis=0, largest=False)
+    order = np.argsort(xf, axis=0, kind="stable")[:5]
+    assert np.array_equal(vals.cpu().numpy(), np.take_along_axis(xf, order, 0))
+    x64 = rng.integers(0, 1 << 64, size=(64, 1000), dtype=np.uint64)
+    vals, idx = rt.top_k_batched(x64, 7)
+    order = np.argsort(~x64, axis=-1, kind="stable")[:, :7]
+    assert np.array_equal(vals, np.take_along_axis(x64, order, -1))
+    assert np.array_equal(idx, order.astype(np.uint32))
+
+
+def test_edge_array_histogram_runs_k1_and_k11(cuda, no_plain, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ck, "whist_f32_plain", boom)
+    rng = np.random.Generator(np.random.PCG64(23))
+    x = rng.standard_normal(2_000_003).astype(np.float32)
+    x[:3] = [np.nan, 10.0, -10.0]
+    w = rng.standard_normal(x.size).astype(np.float32)
+    edges = np.linspace(-4.0, 4.0, 1001).astype(np.float32).astype(np.float64)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    rt.reset_launch_counts()
+    c, e = rt.histogram(xt, bins=edges)
+    assert c.device.type == "cuda" and np.array_equal(e, edges)
+    assert np.array_equal(c.cpu().numpy(), np.histogram(x, bins=edges)[0])
+    s, _ = rt.histogram(xt, bins=edges, weights=wt)
+    ref = np.histogram(x, bins=edges, weights=w.astype(np.float64))[0]
+    absum = np.histogram(x, bins=edges, weights=np.abs(w.astype(np.float64)))[0]
+    assert np.all(np.abs(s.cpu().numpy().astype(np.float64) - ref) <= absum * 2**-14 + 1e-5)
+    counts = rt.launch_counts()
+    assert counts["hist"] >= 1 and counts["whist_f32"] == 1
