@@ -90,7 +90,16 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      in numpy float32, and within 2^-20 of np.quantile; partition,
      argpartition; digitize against 1,001 increasing and decreasing edges;
      histogram with 1,001 edges, unweighted (K1) and weighted (K11, to the
-     bound above); sort_complex of 4,000,000 complex128; the LSD slice (L1 + L2): SortConfig(strategy=LSD) sort
+     bound above); sort_complex of 4,000,000 complex128; the sets slice:
+     unique of the n keys (values, counts, unique_all, descending), of u16
+     with counts (K2 + K8), of f32 with signed zeros and NaN payloads
+     (equal_nan False and True), unique_inverse of the u64 keys as numpy,
+     unique(axis=0) with every flag of n / 4 rows of 4 int32 in [0, 8), the
+     four set operations and intersect1d(return_indices=True) of two halves
+     of n u32 sharing about half their values (and of two u64 halves as
+     numpy), isin (and invert, in1d) of the n keys against n / 4 tests,
+     half of them keys; each against numpy, and torch.cummax must not be
+     called in the slice; the LSD slice (L1 + L2): SortConfig(strategy=LSD) sort
      of full-entropy u32 at r = 8 (the slice's main path) and r = 11, of
      u32 with value_mask=0xF0F00000 (two of four passes live: the launch
      counts must show it), of u64 (8 passes), f32 with specials and
@@ -134,7 +143,10 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      torch.searchsorted of the int32 key, of u64 beside that of the int64
      key; top_k beside torch.topk, top_k_batched beside torch.topk(dim=-1);
      lexsort of one packed plane and rankdata beside
-     torch.sort(stable=True); digitize beside torch.bucketize;
+     torch.sort(stable=True); digitize beside torch.bucketize; unique
+     (values, counts, unique_all) beside torch.unique, unique(axis=0)
+     beside torch.unique(dim=0), isin beside torch.isin, union1d beside
+     torch.unique(torch.cat);
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
      with its byte bound (12 bytes a key for each live pass: L1 reads the
@@ -971,6 +983,119 @@ def main() -> None:
             return None if ok else f"weighted sums past the bound: max |err| {err.max():.3g}"
         return check
 
+    # the sets slice: unique of the n keys (few duplicates), of u16, of f32
+    # with specials and of 64-bit numpy keys; 10M rows of 4 int32 in [0, 8);
+    # two halves of n sharing about half their values; isin of the n keys
+    # against n / 4 tests, half drawn from them. Each numpy oracle is built
+    # once; the padding is the KDF-order-last value (all-ones planes).
+    def padded(a, size, fill):
+        out = np.full((size,) + a.shape[1:], fill, a.dtype)
+        out[: min(len(a), size)] = a[:size]
+        return out
+
+    def runs_np(s, perm=None):
+        """(firsts, starts, run lengths, run of each sorted position) of a
+        sorted array (rows: equal along the last axis)."""
+        neq = s[1:] != s[:-1]
+        is_new = np.concatenate([[True], neq.any(axis=-1) if neq.ndim > 1 else neq])
+        starts = np.flatnonzero(is_new)
+        return s[starts], starts, np.diff(np.append(starts, len(s))), np.cumsum(is_new) - 1
+
+    def unique_all_np(a, perm, fill):
+        """np.unique(a, all flags) from a stable sorting permutation, padded
+        to len(a) as unique() returns it: (values, index, inverse, counts,
+        [count])."""
+        vals, starts, lens, run = runs_np(a[perm])
+        inverse = np.empty(len(a), np.int32)
+        inverse[perm] = run
+        m = len(a)
+        return (padded(vals, m, fill), padded(perm[starts].astype(np.uint32), m, 0), inverse,
+                padded(lens.astype(np.int32), m, 0), np.array([len(vals)]))
+
+    def fields(*names, dtype=np.uint32):
+        """The named fields of a set routine's result on the host: values by
+        their bits as ``dtype``, uint32 indices by theirs, the count as a
+        1-element array."""
+        def one(f, v):
+            if f == "num_unique":
+                return np.array([int(v)])
+            if not torch.is_tensor(v):
+                return v
+            if f == "values" or v.dtype == torch.uint32:
+                return gpu_bits(v, dtype if f == "values" else np.uint32)
+            return v.cpu().numpy()
+        return lambda out: tuple(one(f, getattr(out, f)) for f in names)
+
+    def keys_unique():
+        return once("unique keys", lambda: unique_all_np(keys, stable_keys(), 0xFFFFFFFF))
+
+    def u16_counts():
+        cnt = np.bincount(u16, minlength=1 << 16)
+        uq = np.flatnonzero(cnt)
+        return (padded(uq.astype(np.uint16), n, 0xFFFF), padded(cnt[uq].astype(np.int32), n, 0),
+                np.array([uq.size]))
+
+    def u64_inverse():
+        vals, _, _, _ = runs_np(sorted64)
+        return (padded(vals, n, np.uint64(0xFFFFFFFFFFFFFFFF)),
+                np.searchsorted(vals, keys64).astype(np.int32), np.array([vals.size]))
+
+    def f32_counts(equal_nan):
+        def oracle():
+            bits = f32b
+            if equal_nan:
+                bits = np.where(np.isnan(f32b.view(np.float32)), np.uint32(0x7FC00000), f32b)
+            vals, _, lens, _ = runs_np(float_order_np(bits, 32) if equal_nan else f32b_sorted)
+            return (padded(vals, n, np.uint32(0x7FFFFFFF)),      # all-ones planes: a NaN
+                    padded(lens.astype(np.int32), n, 0), np.array([vals.size]))
+        return oracle
+
+    rows8 = rng.integers(0, 8, size=(n // 4, 4)).astype(np.int32)
+
+    def rows_oracle():
+        code = (rows8[:, 0] << 9) | (rows8[:, 1] << 6) | (rows8[:, 2] << 3) | rows8[:, 3]
+        perm = np.argsort(code.astype(np.uint16), kind="stable")
+        vals, index, inverse, counts, num = unique_all_np(code, perm, 0)
+        return (padded(rows8[perm[runs_np(code[perm])[1]]], n // 4, np.int32(0x7FFFFFFF)),
+                index, inverse, counts, num)
+
+    half = n // 2
+    set_a = keys[:half]
+    set_b = np.concatenate([set_a[rng.integers(0, half, size=half // 2)], rand32(half - half // 2)])
+    set_a64 = keys64[:half]
+    set_b64 = np.concatenate([set_a64[rng.integers(0, half, size=half // 2)],
+                              rng.integers(0, 1 << 64, size=half - half // 2, dtype=np.uint64)])
+    tests_in = np.concatenate([keys[rng.integers(0, n, size=n // 8)], rand32(n // 4 - n // 8)])
+    set_a_t, set_b_t, tests_t = u32_tensor(set_a), u32_tensor(set_b), u32_tensor(tests_in)
+    sets_ops = {"union1d": (np.union1d, n), "intersect1d": (np.intersect1d, half),
+                "setdiff1d": (np.setdiff1d, half), "setxor1d": (np.setxor1d, n)}
+
+    def uniq_halves():
+        return once("unique halves", lambda: (np.unique(set_a), np.unique(set_b)))
+
+    def set_oracle(op):
+        ref, size = sets_ops[op]
+        def oracle():
+            ua, ub = uniq_halves()
+            v = ref(ua, ub, assume_unique=True) if op != "union1d" else ref(ua, ub)
+            return padded(v, size, 0xFFFFFFFF), np.array([v.size])
+        return oracle
+
+    def intersect_indices(a, b, ones):
+        def oracle():
+            v, c1, c2 = np.intersect1d(a, b, return_indices=True)
+            return (padded(v, half, ones), padded(c1.astype(np.int32), half, len(a)),
+                    padded(c2.astype(np.int32), half, len(b)), np.array([v.size]))
+        return oracle
+
+    def isin_np():
+        return once("isin", lambda: np.isin(keys, tests_in))
+
+    def set_values(dtype=np.uint32):
+        return lambda out: (gpu_bits(out[0], dtype) if torch.is_tensor(out[0]) else out[0],
+                            *(o.cpu().numpy() if torch.is_tensor(o) else o for o in out[1:-1]),
+                            np.array([int(out[-1])]))
+
     cases = [
         # name, input maker, entry point, host result, numpy oracle
         ("u32 full entropy (sorter)", lambda: u32_tensor(keys), rt.sort,
@@ -1238,7 +1363,54 @@ def main() -> None:
         (f"sort_complex of {z128.size:,} complex128 (numpy)", lambda: z128,
          lambda x: rt.sort_complex(x, device=dev), lambda out: out,
          lambda: np.sort_complex(z128)),
+        # the sets slice
+        ("unique u32 full entropy (sorter)", lambda: keys_t, rt.unique,
+         fields("values", "num_unique"), lambda: keys_unique()[::4]),
+        ("unique u32 full entropy, return_counts=True", lambda: keys_t,
+         lambda x: rt.unique(x, return_counts=True), fields("values", "counts", "num_unique"),
+         lambda: tuple(keys_unique()[i] for i in (0, 3, 4))),
+        ("unique_all u32 full entropy", lambda: keys_t, rt.unique_all,
+         fields("values", "indices", "inverse_indices", "counts", "num_unique"), keys_unique),
+        ("unique u16, return_counts=True (K2+K8)", lambda: u16_t,
+         lambda x: rt.unique(x, return_counts=True),
+         fields("values", "counts", "num_unique", dtype=np.uint16), u16_counts),
+        ("unique_inverse u64 (numpy)", lambda: keys64,
+         lambda x: rt.unique_inverse(x, device=dev),
+         fields("values", "inverse_indices", "num_unique"), u64_inverse),
+        *[(f"unique f32 +-0 +-inf NaN payloads, return_counts=True, equal_nan={eq}",
+           lambda: torch.from_numpy(f32b.view(np.float32)).to(dev),
+           lambda x, eq=eq: rt.unique(x, return_counts=True, equal_nan=eq),
+           fields("values", "counts", "num_unique"), f32_counts(eq))
+          for eq in (False, True)],
+        ("unique u32 full entropy, descending", lambda: keys_t,
+         lambda x: rt.unique(x, config=desc), fields("values", "num_unique"),
+         lambda: (padded(keys_unique()[0][: int(keys_unique()[4][0])][::-1], n, 0),
+                  keys_unique()[4])),
+        (f"unique(axis=0, every flag) of ({n // 4}, 4) int32 rows in [0, 8)",
+         lambda: torch.from_numpy(rows8).to(dev),
+         lambda x: rt.unique(x, axis=0, return_index=True, return_inverse=True,
+                             return_counts=True),
+         lambda out: (out.values.cpu().numpy(), gpu_bits(out.index, np.uint32),
+                      out.inverse.cpu().numpy(), out.counts.cpu().numpy(),
+                      np.array([int(out.num_unique)])), rows_oracle),
+        *[(f"{op} of two {half:,} u32 arrays sharing about half their values", lambda: set_a_t,
+           lambda x, op=op: getattr(rt, op)(x, set_b_t), set_values(), set_oracle(op))
+          for op in sets_ops],
+        (f"intersect1d(return_indices=True) of the two {half:,} u32 arrays", lambda: set_a_t,
+         lambda x: rt.intersect1d(x, set_b_t, return_indices=True), set_values(),
+         intersect_indices(set_a, set_b, 0xFFFFFFFF)),
+        (f"intersect1d(return_indices=True) of two {half:,} u64 arrays (numpy)",
+         lambda: set_a64, lambda x: rt.intersect1d(x, set_b64, return_indices=True, device=dev),
+         set_values(np.uint64), intersect_indices(set_a64, set_b64, np.uint64(2**64 - 1))),
+        *[(f"{label} of the n u32 keys against {n // 4:,} tests, half of them keys",
+           lambda: keys_t, lambda x, f=f: f(x, tests_t),
+           lambda out: out.cpu().numpy(), lambda inv=inv: ~isin_np() if inv else isin_np())
+          for label, f, inv in (("isin", rt.isin, False),
+                                ("isin(invert=True)", lambda x, t: rt.isin(x, t, invert=True), True),
+                                ("in1d", rt.in1d, False))],
     ]
+    sets_cases = {name for name, *_ in cases[next(i for i, c in enumerate(cases)
+                                                  if c[0].startswith("unique u32")):]}
     # outputs that are not the keys reordered: from bitmap_unique_sort on
     first_other = next(i for i, c in enumerate(cases) if c[0].startswith("bitmap"))
     other_shape = {name for name, *_ in cases[first_other:]}
@@ -1254,12 +1426,27 @@ def main() -> None:
         sort_calls[0] += 1
         return real_sort(*a, **k)
     torch.sort = counted_sort
+    # the sets slice must not call torch.cummax (one block for a 1-D tensor:
+    # 110.8 ms at 40M, PERF.md run BX): count its calls in each case
+    real_cummax, cummax_calls = (torch.cummax, torch.Tensor.cummax), [0]
+
+    def counted_cummax(*a, **k):
+        cummax_calls[0] += 1
+        return real_cummax[0](*a, **k)
+
+    def counted_cummax_method(self, *a, **k):
+        cummax_calls[0] += 1
+        return real_cummax[1](self, *a, **k)
+    torch.cummax, torch.Tensor.cummax = counted_cummax, counted_cummax_method
     outputs, case_launches = [], []
-    for _, x, run, _, _ in inputs:
-        before = rt.launch_counts()
+    for name, x, run, _, _ in inputs:
+        before, cummax_before = rt.launch_counts(), cummax_calls[0]
         outputs.append(run(x))
         case_launches.append({k: c - before[k] for k, c in rt.launch_counts().items()
                               if c != before[k]})
+        if name in sets_cases and cummax_calls[0] != cummax_before:
+            fail(f"{name}: torch.cummax was called")
+    torch.cummax, torch.Tensor.cummax = real_cummax
     # the measurement entry points: the CLI, the oracles on the card's
     # outputs, the probe script's E1 and the MSD pipeline's E2
     def entry(run):
@@ -1435,7 +1622,34 @@ def main() -> None:
                {"digitize": lambda: rt.digitize(pay_f32_t, edges_t),
                 "torch.bucketize": lambda: torch.bucketize(pay_f32_t, edges_t, right=True,
                                                            out_int32=True)})
-    del qs_big, rows_t, rows_t32, kt32, kd32
+    # the sets slice beside torch.unique / torch.isin of the same keys (the
+    # sign-flipped int32 key: the same order)
+    slice_line("unique u32 values", {
+        "unique": lambda: rt.unique(keys_t),
+        "torch.unique(sorted=True) int32": lambda: torch.unique(kt32, sorted=True)})
+    slice_line("unique u32 return_counts=True", {
+        "unique": lambda: rt.unique(keys_t, return_counts=True),
+        "torch.unique(sorted=True, return_counts=True) int32": lambda: torch.unique(
+            kt32, sorted=True, return_counts=True)})
+    slice_line("unique_all u32", {
+        "unique_all": lambda: rt.unique_all(keys_t),
+        "torch.unique(sorted=True, return_inverse=True, return_counts=True) int32 (no index)":
+            lambda: torch.unique(kt32, sorted=True, return_inverse=True, return_counts=True)})
+    rows8_t = torch.from_numpy(rows8).to(dev)
+    slice_line(f"unique(axis=0, every flag) of ({n // 4}, 4) int32 rows", {
+        "unique": lambda: rt.unique(rows8_t, axis=0, return_index=True, return_inverse=True,
+                                    return_counts=True),
+        "torch.unique(dim=0, return_inverse=True, return_counts=True) (no index)":
+            lambda: torch.unique(rows8_t, dim=0, return_inverse=True, return_counts=True)})
+    tests32 = flip32(tests_t)
+    slice_line(f"isin of the n u32 keys against {n // 4:,} tests", {
+        "isin": lambda: rt.isin(keys_t, tests_t),
+        "torch.isin int32": lambda: torch.isin(kt32, tests32)})
+    set_a32, set_b32 = flip32(set_a_t), flip32(set_b_t)
+    slice_line(f"union1d of two {half:,} u32 arrays", {
+        "union1d": lambda: rt.union1d(set_a_t, set_b_t),
+        "torch.unique(torch.cat) int32": lambda: torch.unique(torch.cat([set_a32, set_b32]))})
+    del qs_big, rows_t, rows_t32, kt32, kd32, rows8_t, tests32, set_a32, set_b32
 
     def turns3(kernel, plain, library=None):
         """Kernel, plain version and library call in turns (plain, library,

@@ -2,16 +2,17 @@
 
 A second package beside the JAX one, for one NVIDIA Hopper GPU (sm_90a). It
 imports torch and numpy, never JAX; the JAX package is the reference it is
-tested against. It holds the JAX package's public API but ``sets.py``
-(``unique`` and the set routines): the sorts (``sort`` with the
-``dynamic_probe`` and ``device_probe`` routes, ``argsort`` / ``rank_sort``,
-``sort_pairs``, ``counting_sort``, ``sort_u64_multipass``, the batched
-sorts, ``Strategy.LSD``) of 1-D keys of 8 to 64 bits, byte strings, float8
-and int4/uint4; ``bitmap_unique_sort``; ``extras`` (``bincount``, the
-group-by slice, ``lexsort``, the segmented sorts, ``merge_sorted``,
-``searchsorted``, ``nth_element``, ``top_k`` / ``top_k_batched``,
-``stable_partition``, ``sort_complex``); ``stats`` (``rankdata``, the
-quantiles, ``digitize``, ``histogram``, ``mode``, the partitions);
+tested against. It holds the JAX package's whole public API: the sorts
+(``sort`` with the ``dynamic_probe`` and ``device_probe`` routes,
+``argsort`` / ``rank_sort``, ``sort_pairs``, ``counting_sort``,
+``sort_u64_multipass``, the batched sorts, ``Strategy.LSD``) of 1-D keys of
+8 to 64 bits, byte strings, float8 and int4/uint4; ``bitmap_unique_sort``;
+``extras`` (``bincount``, the group-by slice, ``lexsort``, the segmented
+sorts, ``merge_sorted``, ``searchsorted``, ``nth_element``, ``top_k`` /
+``top_k_batched``, ``stable_partition``, ``sort_complex``); ``stats``
+(``rankdata``, the quantiles, ``digitize``, ``histogram``, ``mode``, the
+partitions); ``sets`` (``unique`` with its flags and ``axis=``, the numpy-2
+quartet, the set operations, ``isin`` / ``in1d``);
 ``ops.vmem_sort.sort_planes_vmem``, the configured sorters of ``models`` and
 the distributed tier ``parallel`` (a mesh of ranks driven by one process,
 as in the JAX package, whose ``__init__`` exports none of it either). The
@@ -36,6 +37,8 @@ from .extras import (bincount, group_reduce, lexsort, merge_sorted, nth_element,
 from .ops import cuda_kernels as _ck
 from .ops.bitmap import bitmap_unique_sort
 from .ops.kdf import as_tensor, to_numpy
+from .sets import (UniqueResult, in1d, intersect1d, isin, setdiff1d, setxor1d, union1d,
+                   unique, unique_all, unique_counts, unique_inverse, unique_values)
 from .stats import (argpartition, digitize, histogram, histogram_bin_edges, median, mode,
                     partition, percentile, quantile, rankdata)
 
@@ -50,6 +53,9 @@ __all__ = ["sort", "argsort", "rank_sort", "sort_pairs", "counting_sort",
            "sort_pairs_batched", "bitmap_unique_sort", "lexsort", "merge_sorted",
            "searchsorted", "bincount", "nth_element", "stable_partition",
            "value_counts", "group_reduce", "unique_sorted", "sort_complex",
+           "unique", "unique_values", "unique_counts", "unique_inverse", "unique_all",
+           "UniqueResult", "isin", "in1d", "union1d", "intersect1d", "setdiff1d",
+           "setxor1d",
            "segmented_sort", "segmented_argsort", "top_k", "top_k_batched",
            "rankdata", "quantile", "percentile", "median", "mode", "digitize",
            "histogram", "histogram_bin_edges", "partition", "argpartition",

@@ -1233,3 +1233,57 @@ def test_edge_array_histogram_runs_k1_and_k11(cuda, no_plain, monkeypatch):
     assert np.all(np.abs(s.cpu().numpy().astype(np.float64) - ref) <= absum * 2**-14 + 1e-5)
     counts = rt.launch_counts()
     assert counts["hist"] >= 1 and counts["whist_f32"] == 1
+
+
+def test_unique_u16_counts_take_k2_and_k8_on_the_card(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ck, "hist_pext_plain", boom)
+    monkeypatch.setattr(ck, "regen_pdep_plain", boom)
+    x = np.random.Generator(np.random.PCG64(24)).integers(0, 1 << 16, size=9_000_001,
+                                                         dtype=np.uint16)
+    rt.reset_launch_counts()
+    r = rt.unique(torch.from_numpy(x.view(np.int16)).to(cuda).view(torch.uint16),
+                  return_counts=True)
+    counts = rt.launch_counts()
+    assert counts["hist_pext"] == 1 and counts["regen_pdep_windowed"] == 1
+    uq, cnt = np.unique(x, return_counts=True)
+    k = int(r.num_unique)
+    assert r.num_unique.device.type == "cuda" and k == len(uq)
+    vals = r.values.view(torch.int16).cpu().numpy().view(np.uint16)
+    assert np.array_equal(vals[:k], uq) and np.all(vals[k:] == 0xFFFF)
+    assert np.array_equal(r.counts.cpu().numpy()[:k], cnt)
+
+
+def test_sets_on_the_card_match_numpy(cuda):
+    rng = np.random.Generator(np.random.PCG64(25))
+    x = rng.integers(0, 1 << 20, size=3_000_001, dtype=np.uint32)
+    xt = torch.from_numpy(x.view(np.int32)).to(cuda).view(torch.uint32)
+    r = rt.unique_all(xt)
+    uq, idx, inv, cnt = np.unique(x, return_index=True, return_inverse=True,
+                                  return_counts=True)
+    k = int(r.num_unique)
+    assert all(f.device.type == "cuda" for f in r) and k == len(uq)
+    assert np.array_equal(_u32(r.values)[:k], uq)
+    assert np.array_equal(r.indices.view(torch.int32).cpu().numpy()[:k], idx)
+    assert np.array_equal(r.inverse_indices.cpu().numpy(), inv)
+    assert np.array_equal(r.counts.cpu().numpy()[:k], cnt)
+    b = np.concatenate([x[rng.integers(0, x.size, size=1_000_000)],
+                        rng.integers(0, 1 << 20, size=1_000_000, dtype=np.uint32)])
+    bt = torch.from_numpy(b.view(np.int32)).to(cuda).view(torch.uint32)
+    vals, c1, c2, cnt = rt.intersect1d(xt, bt, return_indices=True)
+    wv, w1, w2 = np.intersect1d(x, b, return_indices=True)
+    k = int(cnt)
+    assert k == len(wv) and np.array_equal(_u32(vals)[:k], wv)
+    assert np.array_equal(c1.cpu().numpy()[:k], w1) and np.array_equal(c2.cpu().numpy()[:k], w2)
+    for invert in (False, True):
+        got = rt.isin(xt, bt, invert=invert)
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), np.isin(x, b, invert=invert))
+    x64 = rng.integers(0, 1 << 40, size=1_000_003).astype(np.uint64)
+    b64 = np.concatenate([x64[:300_000], rng.integers(0, 1 << 40, size=300_000).astype(np.uint64)])
+    vals, c1, c2, cnt = rt.intersect1d(x64, b64, return_indices=True)      # numpy in, out
+    wv, w1, w2 = np.intersect1d(x64, b64, return_indices=True)
+    k = int(cnt)
+    assert np.array_equal(vals[:k], wv) and np.array_equal(c1[:k], w1)
+    assert np.array_equal(c2[:k], w2)
