@@ -175,11 +175,28 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      of each case of the range probes, the dense tier, the group-by slice,
      the LSD sorts of u32 and u64, sort_planes_vmem and sort_batched, and of
      the four-rank distributed_sort with each exchange.
+  8. the group mesh (parallel/ over torch.distributed, from the kernels
+     phase 2 built; the workers only load them): scripts.mp_worker in (a)
+     four processes of one rank each on cuda:0 over gloo, exchange="rdma",
+     the balanced distributed_sort of the n keys (n / 4 a process) with K13
+     across the processes through CUDA IPC handles, on every process's
+     shards against np.sort and timed beside phase 6's four ranks of one
+     process, K13 alone at rows of n / 16 u32 against its plain version and
+     timed beside phase 6's row, the first call's handle-open cost, then the
+     rest of the surface at 2^20 keys (the nine surfaces of the JAX
+     package's scripts/mp_worker.py, exchange="xla" of CUDA tensors over
+     gloo refused, unequal slices refused, a second mesh opening its own
+     handles); (b) one process of four ranks on cuda:0 over NCCL (world
+     size 1) at 2^20 keys, exchange="rdma" and "xla"; every worker killed
+     when one fails or past 600 s; the main path's launches in (a), each
+     process's counts set to 0 just before its checked sort and read just
+     after, join the kernels line (the rest of the workers' launches are
+     printed apart).
 Then the card's name and power limit, one JSON line of kernels (each with
 its bound: bytes moved over the H100's 3.35 TB/s, or for K12 its
 compare-exchanges over 67 T operations/s where that is larger; for K13 the
-one-card bound of D ranks sharing cuda:0), and last
-{"ok": true, "device": {...}}.
+one-card bound of D ranks sharing cuda:0; launches: phase 4's and phase
+8's main path's), and last {"ok": true, "device": {...}}.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
 
@@ -189,7 +206,9 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -300,6 +319,98 @@ def bound_ms(nbytes: int) -> float:
     """Least time to move ``nbytes`` through device memory (every kernel
     here does a few integer operations per 4-byte key: bound by bytes)."""
     return nbytes / HBM_BYTES_PER_MS
+
+
+def multiprocess_phase(n: int, single_sort_ms: float, single_k13_ms: float):
+    """Phase 8: ``scripts.mp_worker`` in processes on cuda:0 over
+    torch.distributed, from the kernels phase 2 built. (a) four processes of
+    one rank, gloo (CUDA control tensors in host copies), exchange="rdma":
+    the balanced ``distributed_sort`` of the n keys (n / 4 a process) on
+    every process's shards against np.sort, timed, and K13 across the
+    processes at rows of n / 16 u32 against its plain version, timed; the
+    rest of the surface at 2^20 keys. (b) one process of four ranks over
+    NCCL, exchange="rdma" (and "xla" in its comparison case), at 2^20 keys.
+    Each launch is killed whole past its timeout or when a worker fails, and
+    every failure fails the run. Returns the main path's kernel launches
+    (each process's counts, set to 0 just before its checked sort of the n
+    keys and read just after, summed over the processes) and K13's largest
+    error across processes. The launches of everything else the workers run
+    (the timing loops, the surface at 2^20, part b) are printed on a line of
+    their own."""
+    import tempfile
+
+    from radix_sorting_tpu_torch.utils import mpharness
+
+    def launch(nproc, local, backend, tmp, extra=()):
+        port = mpharness.free_port()
+        cmds = [[sys.executable, "-m", "radix_sorting_tpu_torch.scripts.mp_worker", str(pid),
+                 str(nproc), str(port), "--backend", backend, "--device", "cuda",
+                 "--exchange", "rdma", "--n", str(1 << 20),
+                 "--out", os.path.join(tmp, f"{backend}{pid}.npz"), *extra]
+                for pid in range(nproc)]
+        t0 = time.perf_counter()
+        try:
+            res = mpharness.run_workers(cmds, env=mpharness.worker_env(local),
+                                        cwd=os.path.dirname(os.path.abspath(__file__)),
+                                        timeout_s=600)
+        except TimeoutError as e:
+            fail(f"phase 8 {backend}: {e}")
+        for pid, (rc, text) in enumerate(res):
+            if rc != 0 or f"MP_OK {pid}" not in text:
+                fail(f"phase 8 {backend} worker {pid}: exit {rc}\n{text[-6000:]}")
+        wall = time.perf_counter() - t0
+        lines = [ln for _, text in res for ln in text.splitlines() if ln.startswith("[")]
+        stats = [json.loads(str(np.load(os.path.join(tmp, f"{backend}{pid}.npz"))["stats"]))
+                 for pid in range(nproc)]
+        return stats, lines, wall
+
+    with tempfile.TemporaryDirectory(prefix="rst_phase8_") as tmp:
+        a, a_lines, a_wall = launch(4, 1, "gloo", tmp, ("--main-n", str(n)))
+        b, b_lines, b_wall = launch(1, 4, "nccl", tmp)
+    for ln in [ln for ln in a_lines if ln.startswith("[0]")] + b_lines:
+        print(f"[8 processes] {ln}", flush=True)
+    def summed(key, runs):
+        total = {}
+        for st in runs:
+            for k, c in st[key].items():
+                total[k] = total.get(k, 0) + c
+        return total
+    main = summed("main_launches", a)
+    rest = summed("launches", a + b)
+    if not main.get("rdma_exchange"):
+        fail("phase 8: the main path did not launch K13 across the processes")
+    for name in ("rdma_exchange", "hist", "whist"):
+        if not rest.get(name):
+            fail(f"phase 8: kernel {name} was not launched on the surface")
+    sort_ms = max(st["sort_ms"] for st in a)
+    k13_ms = max(st["k13_ms"] for st in a)
+    err = max(st["k13_max_abs_err"] for st in a)
+    print(f"[8 processes] (a) 4 processes x 1 rank on cuda:0, gloo (CUDA control tensors "
+          f"through host copies), exchange=rdma: distributed_sort balanced of {n} u32 "
+          f"({n // 4} a process) equal to np.sort on every process's shards; "
+          f"{sort_ms:.3f} ms a call (host clock, the slowest process, "
+          f"{a[0]['D']} ranks) beside {single_sort_ms:.3f} ms on 4 ranks of one process "
+          f"(phase 6, this run); first call {max(st['first_call_ms'] for st in a):.1f} ms, "
+          f"of which allocating, exchanging and opening the IPC handles "
+          f"{max(st['open_ms'] for st in a):.1f} ms ({a[0]['opens']} opened a process); "
+          f"one host round trip (the slowest process): a stream sync "
+          f"{max(st['sync_ms'] for st in a):.3f} ms, a gloo meet "
+          f"{max(st['meet_ms'] for st in a):.3f} ms, one pivot-search sum of a CUDA "
+          f"tensor (to the host, gloo, back) {max(st['sum_ms'] for st in a):.3f} ms; "
+          f"launch wall {a_wall:.1f} s", flush=True)
+    print(f"[8 processes] (a) K13 across 4 processes, rows of {a[0]['k13_rows']} u32: "
+          f"{k13_ms:.4f} ms a call (barrier form: two stream syncs and two gloo meets, "
+          f"then the copy out of the receive buffer; the slowest process), max |err| {err} "
+          f"against the plain version, beside {single_k13_ms:.4f} ms for one process's 4 "
+          f"launches (phase 6, this run)", flush=True)
+    print(f"[8 processes] (b) 1 process x 4 ranks on cuda:0 over NCCL (world size 1): "
+          f"the surface at 2^20 keys, exchange=rdma and xla; launches "
+          f"{b[0]['launches']}; launch wall {b_wall:.1f} s", flush=True)
+    print(f"[8 processes] (a) main path's launches (the checked sort of {n} keys, summed "
+          f"over the processes) {json.dumps({k: c for k, c in main.items() if c})}; the "
+          f"surface at 2^20 keys in (a) and (b), apart from the kernels line "
+          f"{json.dumps({k: c for k, c in rest.items() if c})}", flush=True)
+    return main, err
 
 
 def main() -> None:
@@ -2004,6 +2115,16 @@ def main() -> None:
                   f"device {total:.3f} ms per call; " + "; ".join(
                       f"{kernel_label(e.key)} {e.self_device_time_total / calls / 1e3:.4f} ms "
                       f"x{e.count // calls}" for e in rows[:10]), flush=True)
+
+    # -- phase 8: the group mesh, one process a rank group -----------------
+    del x40
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mp_launches, mp_err = multiprocess_phase(
+        n, sum(dist_ms["rdma"]) / len(dist_ms["rdma"]), shapes["rdma_exchange"][0]["ms"])
+    for name, count in mp_launches.items():
+        launches[name] += count
+    errs["rdma_exchange"] = max(errs["rdma_exchange"], mp_err)
 
     pk = "radix_sorting_tpu/ops/pallas_kernels.py"
     csrc = "radix_sorting_tpu_torch/csrc"

@@ -18,18 +18,33 @@
 // into the same receiver; with every rank on one card it changes nothing.
 //
 // Synchronisation is outside the kernel, the counterpart of the TPU
-// kernel's barrier and receive semaphores in a single-controller program:
+// kernel's barrier and receive semaphores. One process driving every rank:
 // before rank d's launch its stream waits on an event from every peer's
 // stream (no write lands in a buffer its owner still uses), and after the
 // launches every receiver's stream waits on every sender's completion event
 // before anything reads its output. There is no spin-wait in the kernel, so
-// no forward-progress hazard when several ranks share one card. The
-// in-kernel signal protocol (flags at system scope, epoch counters over
-// symmetric memory) belongs to the multi-process form, a later change.
+// no forward-progress hazard when several ranks share one card.
+//
+// A group of processes (parallel/rdma.py, IpcPeers): each rank's receive
+// buffer is memory of its own (rst_ipc_alloc below, a cudaMalloc outside
+// PyTorch's caching allocator, so a handle names the buffer's base and
+// nothing else), exported once as a CUDA IPC handle; the handles cross the
+// group once, and each process opens its peers' buffers once
+// (rst_ipc_open), so the table holds the D receive buffers, the peers' as
+// opened pointers. The buffers persist with the mesh and grow when a call
+// needs more; closing the mesh closes the opened handles on every process,
+// meets the group, then frees. Events do not cross processes, so each call
+// is: the streams synchronise, the group meets, the launches, the streams
+// synchronise, the group meets, then every receiver copies its buffer into
+// a fresh output. No flag is spun on in the kernel: several processes on
+// one card without MPS time-slice their contexts, and a kernel waiting on a
+// flag of another context would progress only when the card switches
+// contexts.
 //
 // Between distinct cards the destinations are peer pointers: the wrapper
-// enables peer access (rst_enable_peer_access) and raises where a pair
-// cannot reach each other; it never stages through the host.
+// enables peer access (rst_enable_peer_access), or the IPC open enables it
+// lazily, and raises where a pair cannot reach each other; it never stages
+// through the host.
 //
 // Bound on the H100: each rank reads D * row_bytes and writes D * row_bytes,
 // so with every rank on one card the launch set moves 2 * D^2 * row_bytes
@@ -44,6 +59,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -133,3 +149,32 @@ extern "C" int rst_enable_peer_access(int device, int peer) {
   const cudaError_t restore = cudaSetDevice(current);
   return static_cast<int>(err != cudaSuccess ? err : restore);
 }
+
+// Device memory of `bytes` bytes on the current device, and its CUDA IPC
+// handle (64 bytes, written to `handle`). Freed by rst_ipc_free only.
+extern "C" int rst_ipc_alloc(long long bytes, void** ptr, void* handle) {
+  *ptr = nullptr;
+  cudaError_t err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (err != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return static_cast<int>(err);
+}
+
+// Another process's buffer, from its handle, mapped into this process
+// (peer access enabled where the buffer lies on another card).
+extern "C" int rst_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof h);
+  *ptr = nullptr;
+  return static_cast<int>(cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int rst_ipc_close(void* ptr) { return static_cast<int>(cudaIpcCloseMemHandle(ptr)); }
+
+extern "C" int rst_ipc_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
+
+extern "C" int rst_ipc_handle_bytes() { return static_cast<int>(sizeof(cudaIpcMemHandle_t)); }

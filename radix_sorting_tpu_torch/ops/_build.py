@@ -23,7 +23,7 @@ import subprocess
 from pathlib import Path
 from typing import Tuple
 
-__all__ = ["build", "load_library", "NVCC_FLAGS"]
+__all__ = ["build", "load_library", "library_path", "require_built", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -84,6 +84,14 @@ _SIGNATURES = {
     "rst_rdma_exchange": (_P, ctypes.c_longlong, _PP, ctypes.c_int, ctypes.c_int, _P),
     # device, peer
     "rst_enable_peer_access": (ctypes.c_int, ctypes.c_int),
+    # bytes, out pointer, out handle (rst_ipc_handle_bytes() bytes)
+    "rst_ipc_alloc": (ctypes.c_longlong, _PP, _P),
+    # handle, out pointer
+    "rst_ipc_open": (_P, _PP),
+    # pointer (opened / allocated)
+    "rst_ipc_close": (_P,),
+    "rst_ipc_free": (_P,),
+    "rst_ipc_handle_bytes": (),
 }
 
 
@@ -104,6 +112,25 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
 
 
+def library_path() -> Path:
+    """Where the library of the current sources and flags lives once built."""
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for p in cu + cuh:
+        digest.update(p.name.encode() + b"\0" + p.read_bytes())
+    return _BUILD / f"librst_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def require_built() -> Path:
+    """The built library's path, or RuntimeError: for processes that share
+    one build (the workers of a group mesh), which must not each start one."""
+    lib = library_path()
+    if not lib.exists():
+        raise RuntimeError(f"no kernel library at {lib}: build it once first "
+                           "(radix_sorting_tpu_torch.ops._build.build())")
+    return lib
+
+
 def build() -> Tuple[Path, str]:
     """Compile ``csrc/*.cu`` unless a library of the same sources exists.
 
@@ -111,11 +138,8 @@ def build() -> Tuple[Path, str]:
     Returns the library's path and the compiler's log (``-Xptxas -v``:
     registers and shared memory of every kernel; empty when reused).
     """
-    cu, cuh = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in cu + cuh:
-        digest.update(p.name.encode() + b"\0" + p.read_bytes())
-    lib = _BUILD / f"librst_kernels_{digest.hexdigest()[:16]}.so"
+    cu, _ = _sources()
+    lib = library_path()
     if lib.exists():
         return lib, ""
     _BUILD.mkdir(parents=True, exist_ok=True)

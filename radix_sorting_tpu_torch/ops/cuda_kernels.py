@@ -1278,11 +1278,15 @@ RDMA_MAX_RANKS = 128     # csrc/exchange.cu: the pointer table's length
 _PEERS_ENABLED = set()
 
 
-def _check_exchange(sends: Sequence[torch.Tensor]) -> Tuple[int, int]:
-    """(D, m) of D per-rank (D, m) sends of one dtype, or raise."""
-    D = len(sends)
+def _check_exchange(sends: Sequence[torch.Tensor], peers=None) -> Tuple[int, int]:
+    """(D, m) of per-rank (D, m) sends of one dtype, or raise: D of them, or
+    with ``peers`` one a local rank of the group mesh."""
+    D = len(sends) if peers is None else peers.size
     if not 1 <= D <= RDMA_MAX_RANKS:
         raise ValueError(f"rdma_exchange: 1 to {RDMA_MAX_RANKS} ranks, got {D}")
+    if peers is not None and len(sends) != len(peers.ranks):
+        raise ValueError(f"rdma_exchange: {len(sends)} sends for this process's "
+                         f"{len(peers.ranks)} ranks")
     first = sends[0]
     for s in sends:
         if not torch.is_tensor(s) or s.ndim != 2 or s.shape[0] != D:
@@ -1294,10 +1298,17 @@ def _check_exchange(sends: Sequence[torch.Tensor]) -> Tuple[int, int]:
     return D, first.shape[1]
 
 
-def rdma_exchange_plain(sends: Sequence[torch.Tensor]) -> list:
+def rdma_exchange_plain(sends: Sequence[torch.Tensor], peers=None) -> list:
     """``out[d][s] = sends[s][d]`` by indexing, ``out[d]`` on ``sends[d]``'s
     device: the function of :func:`..parallel._mesh.all_to_all`, written
-    apart so that the kernel has an oracle of its own."""
+    apart so that the kernel has an oracle of its own.
+
+    With ``peers`` (a group mesh's :class:`..parallel.rdma.IpcPeers`) the
+    sends are this process's ranks' and the function is the group's
+    ``all_to_all_single`` of them (:meth:`IpcPeers.all_to_all`)."""
+    if peers is not None:
+        _check_exchange(sends, peers)
+        return peers.all_to_all(sends)
     D, _ = _check_exchange(sends)
     return [torch.stack([sends[s][d].to(sends[d].device) for s in range(D)])
             for d in range(D)]
@@ -1338,7 +1349,7 @@ def _cross_barrier(streams) -> None:
             st.wait_event(ev)
 
 
-def rdma_exchange(sends: Sequence[torch.Tensor]) -> list:
+def rdma_exchange(sends: Sequence[torch.Tensor], peers=None) -> list:
     """K13: the all-to-all of D per-rank (D, m) tensors, rank d's on
     ``sends[d].device``: ``out[d][s] = sends[s][d]``, any dtype.
 
@@ -1348,11 +1359,18 @@ def rdma_exchange(sends: Sequence[torch.Tensor]) -> list:
     before the launches and after them, so no write lands in a buffer its
     owner still uses and no output is read before every write into it is
     done. Distinct cards write to each other through peer access. CPU sends
-    take the plain version; a mesh that mixes the two raises."""
-    D, m = _check_exchange(sends)
+    take the plain version; a mesh that mixes the two raises.
+
+    With ``peers`` (a group mesh's :class:`..parallel.rdma.IpcPeers`) the
+    sends are this process's ranks' (global ranks ``peers.ranks``). Each
+    launch writes into the D ranks' receive buffers, the other processes'
+    opened from their CUDA IPC handles; the streams synchronise and the
+    group meets before the launches and after them (events do not cross
+    processes), then each rank's buffer is copied into its output."""
+    D, m = _check_exchange(sends, peers)
     on_gpu = [s.is_cuda for s in sends]
     if not any(on_gpu):
-        return rdma_exchange_plain(sends)
+        return rdma_exchange_plain(sends, peers)
     if not all(on_gpu):
         raise ValueError("rdma_exchange: the sends of one call are all on CUDA or all on the CPU")
     outs = [torch.empty_like(s) for s in sends]
@@ -1361,12 +1379,18 @@ def rdma_exchange(sends: Sequence[torch.Tensor]) -> list:
         return outs
     devices = [s.device for s in sends]
     _enable_peers(devices)
-    streams = list({(st.device, st.cuda_stream): st for st in
-                    (torch.cuda.current_stream(d) for d in devices)}.values())
-    _cross_barrier(streams)
-    table = _pointers(outs)
-    for d, s in enumerate(sends):
-        _launch("rst_rdma_exchange", s.device, s.data_ptr(), row_bytes, table, D, d)
+    if peers is None:
+        streams = list({(st.device, st.cuda_stream): st for st in
+                        (torch.cuda.current_stream(d) for d in devices)}.values())
+        _cross_barrier(streams)
+        table, ranks = _pointers(outs), range(D)
+    else:
+        table, ranks = peers.begin(D * row_bytes), peers.ranks
+    for s, rank in zip(sends, ranks):
+        _launch("rst_rdma_exchange", s.device, s.data_ptr(), row_bytes, table, D, rank)
         LAUNCHES["rdma_exchange"] += 1
-    _cross_barrier(streams)
+    if peers is None:
+        _cross_barrier(streams)
+    else:
+        peers.end(outs)
     return outs

@@ -1,11 +1,14 @@
 """Scale-out over a mesh of ranks: shuffle, balanced sorts, distributed reductions.
 
-The counterpart of ``radix_sorting_tpu.parallel``, single-controller as it
-is: one process drives every rank of a :class:`SortMesh` (an explicit list
-of torch devices, which may repeat one device). ``make_sort_mesh()`` spans
+The counterpart of ``radix_sorting_tpu.parallel``, in its two forms
+(:mod:`._mesh`): one process drives every rank of a :class:`SortMesh` (an
+explicit list of torch devices, which may repeat one device), or, with
+``group=`` a ``torch.distributed`` process group, each process drives its
+own ranks and passes its own slice of the keys. ``make_sort_mesh()`` spans
 the visible CUDA devices; ``make_sort_mesh(devices=["cpu"] * 8)`` gives the
 eight-rank CPU mesh of the tests. ``exchange="rdma"`` moves the bulk data
-through K13 (``csrc/exchange.cu``).
+through K13 (``csrc/exchange.cu``), across processes through CUDA IPC
+handles (:class:`.rdma.IpcPeers`).
 """
 
 from ._mesh import SortMesh  # noqa: F401

@@ -14,7 +14,8 @@ package's:
    global rank d * n_local, found MSB-first two bits a round; each round
    counts ``#{x < trial}`` on every rank's sorted shard (a binary search)
    and sums the counts over ranks. The counts are summed on the first
-   rank's device and the pivot bits stay tensors: no host read per bit.
+   local rank's device (then over the group, :func:`._mesh.total`) and the
+   pivot bits stay tensors: no host read per bit.
 3. **Multi-round chunked all-to-all** of ``chunk`` keys a peer a round, each
    round's chunks placed at precomputed offsets of an accumulator, then one
    local sort. The number of rounds, a ``pmax`` of the run lengths, is the
@@ -42,8 +43,8 @@ from . import _mesh
 from ._mesh import SortMesh, axis_size
 from ._payload import decode_payload_tree, encode_payload_tree
 from .shuffle import (_SENTINEL, _as_input, _as_u32, _as_words, _decode, _exchange,
-                      _ints, _iota, _local_sort, _pad, _payload_u32, _shard_planes,
-                      _u32_plane)
+                      _gindex, _ints, _iota, _layout, _local_sort, _pad, _payload_u32,
+                      _shard_planes, _u32_plane)
 
 __all__ = [
     "distributed_sort_balanced",
@@ -108,7 +109,7 @@ def _select_pivots(parts, keys, targets: torch.Tensor, mesh: SortMesh, n_local: 
     among {acc | 1 << p, acc | 2 << p, acc | 3 << p} form a prefix and one
     batched count per rank plus one sum decides both bits. The composites
     are strict, so the greedy maximum IS the element at that rank. Returns
-    the pivot planes (int32) on the first rank's device."""
+    the pivot planes (int32) on the first local rank's device."""
     dev0 = mesh.devices[0]
     npp = len(parts[0])
     q = targets.shape[0]
@@ -124,7 +125,7 @@ def _select_pivots(parts, keys, targets: torch.Tensor, mesh: SortMesh, n_local: 
             pos = 30 - 2 * i
             trial_pl = cuda_kernels.low32(acc.repeat(3) | (cand << pos))
             trial = fixed3 + (trial_pl,) + zeros_after
-            gcnt = sum(c.to(dev0) for c in _counts_below(parts, keys, trial, n_local))
+            gcnt = _mesh.total(_counts_below(parts, keys, trial, n_local), mesh)
             # the number of passing candidates = the largest passing value
             m = (gcnt <= targets3).reshape(3, q).sum(0)
             acc = acc | (m << pos)
@@ -133,13 +134,14 @@ def _select_pivots(parts, keys, targets: torch.Tensor, mesh: SortMesh, n_local: 
 
 
 def _balanced_body(shards, mesh: SortMesh, num_key_planes: int, strict: bool, chunk: int,
-                   n_local: int, overlap: bool = False, exchange: str = "xla"):
-    """The SPMD body over every rank; ``shards[r]`` = rank r's key planes
-    (most significant first) and payload planes.
+                   n_local: int, overlap: bool = False, exchange: str = "xla", slots=None):
+    """The SPMD body over this process's ranks; ``shards[i]`` = local rank
+    i's key planes (most significant first) and payload planes.
 
     strict=True: the key planes alone are a strict order (rank and record
-    sorts carry the global index); else a synthetic global-slot plane joins
-    the local sort and the partition but is not shipped.
+    sorts carry the global index); else a synthetic global-slot plane
+    (``slots[i]``, local rank i's rows' global indices) joins the local sort
+    and the partition but is not shipped.
 
     overlap=True: round r+1's exchange is issued before round r is placed
     (one extra, all-sentinel round of traffic). Each exchange returns fresh
@@ -161,8 +163,7 @@ def _balanced_body(shards, mesh: SortMesh, num_key_planes: int, strict: bool, ch
             part_sorted.append(sorted_all[:num_key_planes])
             shipped.append(sorted_all)
         else:
-            gslot = r * n_local + _iota(n_local, planes[0])
-            ops = planes[:num_key_planes] + (gslot,) + planes[num_key_planes:]
+            ops = planes[:num_key_planes] + (slots[r],) + planes[num_key_planes:]
             sorted_all = _local_sort(ops, num_key_planes + 1)
             part_sorted.append(sorted_all[: num_key_planes + 1])
             shipped.append(sorted_all[:num_key_planes] + sorted_all[num_key_planes + 1:])
@@ -217,7 +218,7 @@ def _balanced_body(shards, mesh: SortMesh, num_key_planes: int, strict: bool, ch
         """Each source's chunk to its reserved offset, or to the dustbin
         once the source has no rounds left (its chunk is all sentinels).
         In place: the accumulators belong to this call."""
-        for me in range(D):
+        for me in range(len(recv)):
             j = torch.arange(c, device=recv[me].device)
             off = torch.where(r < rounds_from[me], acc_start[me] + r * c, dustbin)
             pos = (off[:, None] + j[None, :]).reshape(-1)               # (D * c,)
@@ -264,24 +265,23 @@ def _run_balanced(planes, mesh: SortMesh, axis_name, num_key_planes, strict, chu
     assert strict or len(planes) == num_key_planes, \
         "payload planes require strict=True (index tiebreak)"
     D = axis_size(mesh, axis_name)
-    n = int(planes[0].shape[0])
+    lay = _layout(mesh, int(planes[0].shape[0]), D)
+    n, n_local = lay.n, lay.n_local
     if n < 1:
         raise ValueError("balanced distributed sort needs n >= 1")
     if exchange not in ("xla", "rdma"):
         raise ValueError(f"exchange must be 'xla' or 'rdma', got {exchange!r}")
-    _check_selection_width(n + (-n) % D)
-    pad_total = (-n) % D
+    _check_selection_width(D * n_local)
     # pad rows must sort after every real row AND keep the composite strict:
-    # in strict mode the tiebreak plane pads with the distinct n..n+pad-1
+    # in strict mode the tiebreak plane pads with distinct indices >= n
+    gidx = _gindex(lay, planes[0])
     fills = None
-    if strict and pad_total:
+    if strict and lay.pad:
         fills = [None] * len(planes)
-        fills[num_key_planes - 1] = torch.arange(n, n + pad_total, dtype=torch.int32,
-                                                 device=planes[0].device)
-    planes = _pad(planes, pad_total, fills)
-    n_local = (n + pad_total) // D
-    counts = _ints(np.clip(n - np.arange(D) * n_local, 0, n_local), mesh)
-    overflow = _ints([0] * D, mesh)
+        fills[num_key_planes - 1] = gidx[lay.s:]
+    planes = _pad(planes, lay.pad, fills)
+    counts = _ints(np.clip(n - np.asarray(mesh.ranks) * n_local, 0, n_local), mesh)
+    overflow = _ints([0] * len(mesh.devices), mesh)
     shards = _shard_planes(planes, mesh)
 
     if D == 1:
@@ -293,7 +293,8 @@ def _run_balanced(planes, mesh: SortMesh, axis_name, num_key_planes, strict, chu
         chunk = -(-n_local // D)
     chunk = max(1, min(int(chunk), n_local))
     return (_balanced_body(shards, mesh, num_key_planes, strict, chunk, n_local,
-                           overlap, exchange), counts, overflow)
+                           overlap, exchange, None if strict else _mesh.shard(gidx, mesh)),
+            counts, overflow)
 
 
 def distributed_sort_balanced_u32(x, mesh: SortMesh, axis_name: str = "shards",
@@ -315,7 +316,7 @@ def distributed_argsort_balanced_u32(x, mesh: SortMesh, axis_name: str = "shards
     """Balanced distributed stable rank sort of a u32 array (global-index
     tiebreak). Returns (sorted_keys_padded, perm_padded, counts, overflow)."""
     w = _u32_plane(x, mesh)
-    sp, counts, overflow = _run_balanced((w, _iota(w.shape[0], w)), mesh, axis_name,
+    sp, counts, overflow = _run_balanced((w, _iota(w, mesh)), mesh, axis_name,
                                          num_key_planes=2, strict=True, chunk=chunk,
                                          overlap=overlap, exchange=exchange)
     return _as_u32(sp, 0), _as_u32(sp, 1), counts, overflow
@@ -330,7 +331,7 @@ def distributed_sort_pairs_balanced_u32(x, payload, mesh: SortMesh,
     overflow)."""
     w = _u32_plane(x, mesh)
     sp, counts, overflow = _run_balanced(
-        (w, _iota(w.shape[0], w), _payload_u32(payload, w)), mesh, axis_name,
+        (w, _iota(w, mesh), _payload_u32(payload, w)), mesh, axis_name,
         num_key_planes=2, strict=True, chunk=chunk, overlap=overlap, exchange=exchange)
     return _as_u32(sp, 0), _as_u32(sp, 2), counts, overflow
 
@@ -357,7 +358,7 @@ def distributed_argsort_balanced(x, mesh: SortMesh, axis_name: str = "shards",
     words, dtype = _as_words(x, descending, mesh)
     nw = len(words)
     out, counts, overflow = _run_balanced(
-        words + (_iota(words[0].shape[0], words[0]),), mesh, axis_name,
+        words + (_iota(words[0], mesh),), mesh, axis_name,
         num_key_planes=nw + 1, strict=True, chunk=chunk, overlap=overlap,
         exchange=exchange)
     return _decode([o[:nw] for o in out], dtype, descending), _as_u32(out, nw), \
@@ -376,7 +377,7 @@ def distributed_sort_pairs_balanced(keys, values, mesh: SortMesh, axis_name: str
     payload_planes, ctx = encode_payload_tree(values, n, words[0].device)
     nk = len(words) + 1
     out, counts, overflow = _run_balanced(
-        words + (_iota(n, words[0]),) + payload_planes, mesh, axis_name,
+        words + (_iota(words[0], mesh),) + payload_planes, mesh, axis_name,
         num_key_planes=nk, strict=True, chunk=chunk, overlap=overlap, exchange=exchange)
     return (_decode([o[:len(words)] for o in out], dtype, descending),
             decode_payload_tree([o[nk:] for o in out], ctx), counts, overflow)
@@ -387,7 +388,7 @@ def distributed_sort_pairs_balanced(keys, values, mesh: SortMesh, axis_name: str
 
 
 def distributed_unique_sorted(x, mesh: SortMesh, axis_name: str = "shards",
-                              chunk: Optional[int] = None):
+                              chunk: Optional[int] = None, exchange: str = "xla"):
     """Sorted unique values of a mesh-sharded array, fixed-shape contract.
 
     A balanced distributed sort, then per-shard boundary dedup: each shard
@@ -395,12 +396,13 @@ def distributed_unique_sorted(x, mesh: SortMesh, axis_name: str = "shards",
     (one :func:`._mesh.ppermute`) and compacts its new-value boundaries to
     the front. Returns (values_padded, counts, overflow[=0]): shard d's
     first ``counts[d]`` entries are its slice of the global sorted uniques.
+    ``exchange`` is the sort's (the port's keyword: a gloo group of CUDA
+    ranks needs ``"rdma"``).
     """
     words, dtype = _as_words(x, False, mesh)
     out, sort_counts, overflow = _run_balanced(words, mesh, axis_name,
                                                num_key_planes=len(words), strict=False,
-                                               chunk=chunk)
-    D = mesh.size
+                                               chunk=chunk, exchange=exchange)
     n_local = int(out[0][0].shape[0])
     # the left neighbour's last valid row (rank 0's incoming row is unused)
     last = [torch.stack([p[(nv - 1).clamp(min=0)][0] for p in planes])
@@ -416,8 +418,8 @@ def distributed_unique_sorted(x, mesh: SortMesh, axis_name: str = "shards",
         for i, p in enumerate(planes):
             differs_prev_row |= torch.cat([differs_prev_row.new_zeros(1), p[1:] != p[:-1]])
             differs_left = differs_left | (p[0] != prev[me][i])
-        first_is_new = (differs_left if me else torch.ones((), dtype=torch.bool, device=dev)) \
-            & (nv[0] > 0)
+        first_is_new = (differs_left if mesh.ranks[me]
+                        else torch.ones((), dtype=torch.bool, device=dev)) & (nv[0] > 0)
         is_new = torch.where(slot == 0, first_is_new, differs_prev_row) & in_valid
         count = is_new.sum(dtype=torch.int32)
         idx = nonzero_static(is_new, n_local, n_local - 1)
@@ -444,6 +446,7 @@ def _distributed_group_reduce_dense(keys, values, mesh: SortMesh, reduce: str, g
     kt, kdtype = _as_input(keys, mesh)
     G = int(groups)
     D = mesh.size
+    lay = _layout(mesh, int(kt.shape[0]), D)
     w = extras._u32_values(kt, kdtype)
     bins = 1 << max(2, (G - 1).bit_length())
     rbits = bins.bit_length() - 1
@@ -466,13 +469,13 @@ def _distributed_group_reduce_dense(keys, values, mesh: SortMesh, reduce: str, g
             va = extras._u32_values(vt, vdtype)
             if bias is not None:
                 va = cuda_kernels.low32(va.long() + bias)
-    pad = (-int(w.shape[0])) % D
+    pad = lay.pad
     if pad:
         w = torch.cat([w, w.new_full((pad,), bins)])            # dropped
         if va is not None:
             va = torch.cat([va, va.new_zeros(pad)])
     wl = _mesh.shard(w, mesh)
-    vl = _mesh.shard(va, mesh) if va is not None else [None] * D
+    vl = _mesh.shard(va, mesh) if va is not None else [None] * len(wl)
 
     # per-rank tables, then one sum over ranks (integer sums wrap mod 2^32)
     counts_l, tot_l = [], []
@@ -503,7 +506,7 @@ def _distributed_group_reduce_dense(keys, values, mesh: SortMesh, reduce: str, g
         # sized D*S so that no shard's (start, S) window runs past the end
         ids_full = nonzero_static(present, D * S, G)
         q = (R + D - 1) // D                      # rows per shard (last may be short)
-        start = me * q
+        start = mesh.ranks[me] * q
         ids = ids_full.clamp(0, G - 1)[start + torch.arange(S, device=dev)]
         emit = torch.minimum((R - start).clamp(min=0), q).to(torch.int32)
         live = torch.arange(S, device=dev) < emit
@@ -518,7 +521,8 @@ def _distributed_group_reduce_dense(keys, values, mesh: SortMesh, reduce: str, g
         else:
             red.append(extras._where_live(live, hw_engine.gather(tot, ids)))
         emits.append(emit.reshape(1))
-    return _decode(ukeys, kdtype, False), tuple(red), tuple(emits), _ints([0] * D, mesh)
+    return (_decode(ukeys, kdtype, False), tuple(red), tuple(emits),
+            _ints([0] * len(mesh.devices), mesh))
 
 
 def _dense_planes(reduce: str, values) -> Optional[int]:
@@ -535,7 +539,8 @@ def _dense_planes(reduce: str, values) -> Optional[int]:
 
 def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "shards",
                              reduce: str = "sum", chunk: Optional[int] = None,
-                             groups: Optional[int] = None, validate: bool = False):
+                             groups: Optional[int] = None, validate: bool = False,
+                             exchange: str = "xla"):
     """Mesh-scale group-by: sum / mean / min / max / count per unique key.
 
     One balanced distributed sort of the (key, value) composite, then
@@ -555,6 +560,8 @@ def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "sha
     (:func:`_distributed_group_reduce_dense`), gated as the local tier
     (``planes * bins <= 2^17``); shards then hold ``ceil(G/D)`` rows, and
     keys outside [0, G) are dropped (``validate=True`` raises instead).
+    ``exchange`` is the sort's (the port's keyword: a gloo group of CUDA
+    ranks needs ``"rdma"``).
     """
     if reduce not in ("sum", "mean", "min", "max", "count"):
         raise ValueError(f"reduce must be sum|mean|min|max|count, got {reduce!r}")
@@ -569,6 +576,8 @@ def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "sha
         if validate and int(keys.shape[0] if torch.is_tensor(keys) else len(keys)):
             kt, kd = _as_input(keys, mesh)
             hi = extras._max_u32(extras._u32_values(kt, kd))
+            if mesh.group is not None:      # every process raises alike
+                hi = max(_mesh._gather_ints([hi], mesh))
             if hi >= groups:
                 raise ValueError(f"group keys outside [0, {groups}): max raw bits 0x{hi:X}")
         planes = _dense_planes(reduce, values)
@@ -593,7 +602,7 @@ def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "sha
     nk, nv = len(kw), len(vw)
     out, sort_counts, overflow = _run_balanced(kw + vw, mesh, axis_name,
                                                num_key_planes=nk + nv, strict=False,
-                                               chunk=chunk)
+                                               chunk=chunk, exchange=exchange)
     n_local = int(out[0][0].shape[0])
     acc = extras._accum_dtype(vdtype) if reduce in ("sum", "mean") else None
 
@@ -636,7 +645,8 @@ def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "sha
         ranks.append(rk)
 
     # one all-gather of the edge summaries; the carry scan on the first
-    # rank's device (replicated in the JAX package)
+    # local rank's device (replicated in the JAX package; on every process of
+    # a group)
     def gath(f):
         return _mesh.all_gather([f(rk) for rk in ranks], mesh)[0]
 
@@ -676,18 +686,19 @@ def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "sha
 
     keys_sh, red_sh, emits = [], [], []
     for me, rk in enumerate(ranks):
+        g = mesh.ranks[me]
         dev = rk["lens"].device
         slot = torch.arange(n_local, device=dev)
         # emit each run exactly once: the shard where it ends keeps it
-        emit = (rk["r"] - link_out[me][me].long()).clamp(min=0)
+        emit = (rk["r"] - link_out[me][g].long()).clamp(min=0)
         live2 = slot < emit
         keys_sh.append(tuple(torch.where(live2, w, _SENTINEL) for w in rk["keys_out"]))
         emits.append(emit.to(torch.int32).reshape(1))
         lens = rk["lens"].clone()
         if reduce in ("sum", "mean"):
             sums = rk["sums"].clone()
-            sums[0] += inc[0][me][me]
-            lens[0] += inc[1][me][me]
+            sums[0] += inc[0][me][g]
+            lens[0] += inc[1][me][g]
             if not acc.is_floating_point:
                 sums = cuda_kernels.low32(sums)
                 if acc == torch.uint32:
@@ -699,13 +710,13 @@ def distributed_group_reduce(keys, values, mesh: SortMesh, axis_name: str = "sha
             else:
                 red_sh.append(extras._where_live(live2, sums))
         elif reduce == "count":
-            lens[0] += inc[0][me][me]
+            lens[0] += inc[0][me][g]
             red_sh.append(torch.where(live2, lens, 0).to(torch.int32))
         else:
             red_w = list(rk["red_w"])
             if reduce == "min":
-                has_inc = inc[0][me][me]
-                red_w = [torch.cat([torch.where(has_inc, iw[me][me], w[0]).reshape(1), w[1:]])
+                has_inc = inc[0][me][g]
+                red_w = [torch.cat([torch.where(has_inc, iw[me][g], w[0]).reshape(1), w[1:]])
                          for w, iw in zip(red_w, inc[1:])]
             red_sh.append(tuple(torch.where(live2, w, 0) for w in red_w))
     ukeys = _decode(keys_sh, kdtype, False)
@@ -727,21 +738,21 @@ def distributed_select(x, ranks, mesh: SortMesh, axis_name: str = "shards",
     ranks = [int(r) for r in ranks]
     D = axis_size(mesh, axis_name)
     words, dtype = _as_words(x, descending, mesh)
-    n = int(words[0].shape[0])
+    lay = _layout(mesh, int(words[0].shape[0]), D)
+    n, n_local = lay.n, lay.n_local
     if not ranks:
         raise ValueError("ranks must be non-empty")
     if not all(0 <= r < n for r in ranks):
         raise ValueError(f"ranks must be in [0, {n})")
-    _check_selection_width(n + (-n) % D)
-    pad_total = (-n) % D
-    planes = _pad(words, pad_total)
-    n_local = (n + pad_total) // D
+    _check_selection_width(D * n_local)
+    planes = _pad(words, lay.pad)
     targets = torch.tensor(ranks, dtype=torch.int64, device=mesh.devices[0])
     if D == 1:
         s = _local_sort(_shard_planes(planes, mesh)[0], len(planes))
         return kdf.decode(tuple(p[targets] for p in s), dtype, descending)
-    parts = [_local_sort(ps + (r * n_local + _iota(n_local, ps[0]),), len(ps) + 1)
-             for r, ps in enumerate(_shard_planes(planes, mesh))]
+    slots = _mesh.shard(_gindex(lay, planes[0]), mesh)
+    parts = [_local_sort(ps + (slot,), len(ps) + 1)
+             for ps, slot in zip(_shard_planes(planes, mesh), slots)]
     piv = _select_pivots(parts, [_search_key(p) for p in parts], targets, mesh, n_local)
     # drop the slot plane: the key planes ARE the values at the ranks
     return kdf.decode(piv[: len(planes)], dtype, descending)
@@ -771,7 +782,7 @@ def distributed_quantile(x, q, mesh: SortMesh, axis_name: str = "shards",
     shape = tuple(x.shape) if torch.is_tensor(x) else np.shape(x)
     if len(shape) != 1:
         raise ValueError(f"keys must be 1-D, got shape {shape}")
-    n = shape[0]
+    n = shape[0] * mesh.num_processes      # a group mesh: equal slices
     if n == 0:
         raise ValueError("quantile of an empty array is undefined")
     lo_i, hi_i, frac = _quantile_positions(qs, n, method)
@@ -809,10 +820,10 @@ def distributed_top_k(x, k: int, mesh: SortMesh, axis_name: str = "shards",
     from .. import api
 
     words, dtype = _as_words(x, largest, mesh)
-    n = int(words[0].shape[0])
     D = axis_size(mesh, axis_name)
-    pad_total = (-n) % D
-    n_local = (n + pad_total) // D
+    lay = _layout(mesh, int(words[0].shape[0]), D)
+    n, n_local = lay.n, lay.n_local
+    pad_total = D * n_local - n
     if not 0 < k <= n:
         raise ValueError(f"k must be in [1, {n}], got {k}")
     if k > n_local:
@@ -823,13 +834,14 @@ def distributed_top_k(x, k: int, mesh: SortMesh, axis_name: str = "shards",
     api._check_index_width(n + pad_total, idt)
     # pad with the KDF-order maximum: pads sort last and never displace a
     # real candidate (k <= n); real elements keep slot == original index
-    planes = _pad(words, pad_total)
+    planes = _pad(words, lay.pad)
     nw = len(planes)
+    gidx = _gindex(lay, planes[0])
     if D == 1:
-        out = _local_sort(planes + (_iota(n + pad_total, planes[0]),), nw + 1)
+        out = _local_sort(planes + (gidx,), nw + 1)
     else:
-        local = [_local_sort(ps + (r * n_local + _iota(n_local, ps[0]),), nw + 1)
-                 for r, ps in enumerate(_shard_planes(planes, mesh))]
+        local = [_local_sort(ps + (slot,), nw + 1)
+                 for ps, slot in zip(_shard_planes(planes, mesh), _mesh.shard(gidx, mesh))]
         cand = [_mesh.all_gather([loc[i][:k] for loc in local], mesh, tiled=True)[0]
                 for i in range(nw + 1)]
         out = _local_sort(cand, nw + 1)

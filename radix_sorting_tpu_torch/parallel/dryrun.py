@@ -60,6 +60,9 @@ def dryrun_multichip(mesh: SortMesh, n: int = 40_000_000, n_rest: int = 1 << 20,
     ``default_mesh`` adds one call on ``make_sort_mesh()``, the mesh over
     the visible cards.
     """
+    if mesh.group is not None:
+        raise ValueError("dryrun_multichip drives one process's global arrays; on a group "
+                         "mesh each process runs radix_sorting_tpu_torch.scripts.mp_worker")
     D = mesh.size
     rng = np.random.Generator(np.random.PCG64(seed))
     m = max(n_rest, D * D * 8)

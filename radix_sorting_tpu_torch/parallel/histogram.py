@@ -4,8 +4,9 @@ The counterpart of ``radix_sorting_tpu.parallel.histogram``: every rank
 histograms its shard and one :func:`._mesh.psum` gives the exact global
 per-digit distribution (the distributed form of `radix_sort.hpp:47-58`'s
 histogram pass). Inputs are global tensors or numpy arrays (placed on the
-mesh's first device, then sharded); the results are replicated, returned
-once, on the first rank's device.
+mesh's first device, then sharded), on a group mesh each process's slice;
+the results are replicated, returned once, on the first local rank's
+device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..extras import _u32_values, bincount
 from ..ops.histogram import digit_histogram, extract_digit
 from ..ops.probes import and_reduce, or_reduce
 from ._mesh import SortMesh, all_gather, axis_size, psum, shard
-from .shuffle import _as_input, _u32_plane
+from .shuffle import _as_input, _layout, _u32_plane
 
 __all__ = ["global_digit_histogram", "global_live_bit_mask", "distributed_bincount"]
 
@@ -29,10 +30,12 @@ def global_digit_histogram(x, mesh: SortMesh, pass_index: int = 0,
         raise ValueError(
             f"pass_index {pass_index} out of range for {radix_bits}-bit "
             f"digits of a u32 plane (valid: 0..{num_passes - 1})")
-    axis_size(mesh, axis_name)
+    D = axis_size(mesh, axis_name)
+    w = _u32_plane(x, mesh)
+    _layout(mesh, int(w.shape[0]), D)
     bins = 1 << radix_bits
-    local = [digit_histogram(extract_digit((w,), pass_index, radix_bits), bins)
-             for w in shard(_u32_plane(x, mesh), mesh)]
+    local = [digit_histogram(extract_digit((s,), pass_index, radix_bits), bins)
+             for s in shard(w, mesh)]
     return psum(local, mesh)[0]
 
 
@@ -40,9 +43,10 @@ def global_live_bit_mask(x, mesh: SortMesh, axis_name: str = "shards") -> torch.
     """Global live-bit mask (OR ^ AND) of a mesh-sharded u32 array, a 0-d
     uint32 tensor: the per-rank (OR, AND) pairs gathered in one collective,
     then folded."""
-    axis_size(mesh, axis_name)
-    local = [torch.stack([or_reduce(w), and_reduce(w)])
-             for w in shard(_u32_plane(x, mesh), mesh)]
+    D = axis_size(mesh, axis_name)
+    w = _u32_plane(x, mesh)
+    _layout(mesh, int(w.shape[0]), D)
+    local = [torch.stack([or_reduce(s), and_reduce(s)]) for s in shard(w, mesh)]
     g = all_gather(local, mesh)[0]                  # (D, 2)
     return (or_reduce(g[:, 0]) ^ and_reduce(g[:, 1])).view(torch.uint32)
 
@@ -62,7 +66,7 @@ def distributed_bincount(x, mesh: SortMesh, length: int,
     t, dtype = _as_input(x, mesh)
     w = _u32_values(t, dtype)
     D = axis_size(mesh, axis_name)
-    pad = (-int(w.shape[0])) % D
+    pad = _layout(mesh, int(w.shape[0]), D).pad
     if pad:
         w = torch.cat([w, w.new_full((pad,), -1)])
     return psum([bincount(s, length=length) for s in shard(w, mesh)], mesh)[0]

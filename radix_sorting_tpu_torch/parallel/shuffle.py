@@ -24,17 +24,28 @@ port's ``torch.sort`` stand-in for ``lax.sort``; keys-only sorts may be
 unstable, and every sort that carries a payload has a strict key (an index
 plane), so its order does not depend on stability.
 
-Results are per-rank: each sharded output is a tuple of D tensors, shard
-``r`` on rank ``r``'s device (``torch.cat`` gathers them); ``counts`` and
-``overflow`` are tuples of (1,) int32 tensors. A numpy input is placed on
-the mesh's first device and sharded from there; a tensor is sharded from its
-own device. Decoded values are tensors of the key dtype (carriers for the
-numpy-only dtypes, :mod:`..ops.kdf`).
+Results are per-rank: each sharded output is a tuple of one tensor a local
+rank, shard ``i`` on local rank ``i``'s device (``torch.cat`` gathers them);
+``counts`` and ``overflow`` are tuples of (1,) int32 tensors. A numpy input
+is placed on the mesh's first device and sharded from there; a tensor is
+sharded from its own device. Decoded values are tensors of the key dtype
+(carriers for the numpy-only dtypes, :mod:`..ops.kdf`).
+
+On a group mesh (:mod:`._mesh`) every process passes its own slice of the
+keys, the counterpart of ``jax.make_array_from_process_local_data``: the
+slices are equal (a process whose slice differs raises ValueError on every
+process, after one all_gather of the lengths), the global array is their
+concatenation in process order, and a sharded output holds this process's
+ranks only. Where the global length needs pad rows, each process appends
+the same number to its slice (the single-controller form appends them all
+at the global tail); they are maximal rows either way, so every output is
+the same. ``gather_sorted(..., mesh=)`` gathers a sharded output over the
+group (without ``mesh=`` it raises there).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,11 +72,20 @@ _SENTINEL = -1      # 0xFFFFFFFF in an int32 plane
 
 
 def make_sort_mesh(num_devices: Optional[int] = None, axis_name: str = "shards", *,
-                   devices=None) -> SortMesh:
+                   devices=None, group=None) -> SortMesh:
     """1-D mesh over ``devices`` (which may name one device more than once),
     or by default over every CUDA device, ``cuda:0`` to ``cuda:k-1``; the
     first ``num_devices`` of them when given. Without a card and without
-    ``devices=`` it raises RuntimeError: no path falls back to the CPU."""
+    ``devices=`` it raises RuntimeError: no path falls back to the CPU.
+
+    With ``group`` (a ``torch.distributed`` process group; every process of
+    it calls this together) the devices are this process's ranks, the
+    counterpart of the JAX worker's global mesh after
+    ``jax.distributed.initialize``: the visible CUDA devices by default,
+    which a launcher scopes per process (one card a process), or
+    ``devices=`` (e.g. ``["cpu"] * 4`` for four ranks a process over
+    gloo); every process must drive the same number (one all_gather of the
+    numbers checks it)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_sort_mesh: no CUDA device; pass devices= "
@@ -79,7 +99,13 @@ def make_sort_mesh(num_devices: Optional[int] = None, axis_name: str = "shards",
             raise ValueError(f"make_sort_mesh: requested {num_devices} devices, only "
                              f"{len(devs)} available")
         devs = devs[:num_devices]
-    return SortMesh(devs, axis_name)
+    mesh = SortMesh(devs, axis_name, group)
+    if group is not None:
+        local = _mesh._gather_ints([len(devs)], mesh)
+        if len(set(local)) != 1:
+            raise ValueError(f"make_sort_mesh: every process of a group mesh drives the "
+                             f"same number of ranks; the processes drive {local}")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -106,9 +132,48 @@ def _decode(planes_by_rank, dtype, descending: bool) -> tuple:
     return tuple(kdf.decode(tuple(p), dtype, descending) for p in planes_by_rank)
 
 
+class _Layout(NamedTuple):
+    """Where a call's rows lie. ``n`` keys in all, ``s`` of them this
+    process's (all of them without a group); ``n_local`` rows a rank, pad
+    rows included; this process appends ``pad`` pad rows to its slice (the
+    same number on every process). Global index ``first + j`` is key ``j``
+    of the slice, ``pad_first + j`` its pad row ``j``."""
+    n: int
+    s: int
+    n_local: int
+    pad: int
+    first: int
+    pad_first: int
+
+
+def _layout(mesh: SortMesh, s: int, multiple: int) -> _Layout:
+    """The layout of ``s`` keys a process, padded to the least multiple of
+    ``multiple`` (a multiple of D). On a group mesh the slices must be equal:
+    one all_gather of their lengths, and every process raises if they
+    differ."""
+    P, me = mesh.num_processes, mesh.process_index
+    if P > 1:
+        lens = _mesh._gather_ints([s], mesh)
+        if len(set(lens)) != 1:
+            raise ValueError(f"every process passes a slice of the same length; the "
+                             f"processes pass {lens} keys")
+    n = s * P
+    pad_total = (-n) % multiple
+    return _Layout(n, s, (n + pad_total) // mesh.size, pad_total // P, me * s,
+                   n + me * (pad_total // P))
+
+
+def _gindex(lay: _Layout, like: torch.Tensor) -> torch.Tensor:
+    """The global index of each of this process's padded rows, an int32
+    plane: ``0..n + pad_total - 1`` without a group, pad rows after every
+    key."""
+    idx = torch.arange(lay.s + lay.pad, dtype=torch.int32, device=like.device)
+    return torch.where(idx < lay.s, idx + lay.first, idx - lay.s + lay.pad_first)
+
+
 def _pad(planes, total: int, fills=None) -> tuple:
-    """Append ``total`` rows to each global plane: the sentinel, or
-    ``fills[i]`` (a tensor) for plane i where given."""
+    """Append ``total`` rows to each of this process's planes: the sentinel,
+    or ``fills[i]`` (a tensor) for plane i where given."""
     if not total:
         return tuple(planes)
     return tuple(torch.cat([p, p.new_full((total,), _SENTINEL)
@@ -117,9 +182,9 @@ def _pad(planes, total: int, fills=None) -> tuple:
 
 
 def _shard_planes(planes, mesh: SortMesh):
-    """Global planes -> per-rank tuples of planes."""
+    """This process's planes -> per-rank tuples of planes."""
     cols = [_mesh.shard(p, mesh) for p in planes]
-    return [tuple(c[r] for c in cols) for r in range(mesh.size)]
+    return [tuple(c[r] for c in cols) for r in range(len(mesh.devices))]
 
 
 def _local_sort(planes, num_keys: int) -> tuple:
@@ -133,16 +198,18 @@ def _local_sort(planes, num_keys: int) -> tuple:
 
 
 def _ints(values, mesh: SortMesh):
-    """Host ints as per-rank (1,) int32 tensors."""
+    """Host ints, one a local rank, as per-rank (1,) int32 tensors."""
     return tuple(torch.tensor([int(v)], dtype=torch.int32, device=dev)
                  for v, dev in zip(values, mesh.devices))
 
 
 def _exchange(sends, mesh: SortMesh, axis: int, exchange: str):
-    """The bulk all-to-all of per-rank sends along ``axis``."""
+    """The bulk all-to-all of per-rank sends along ``axis``. Never over gloo
+    for CUDA tensors (:func:`._mesh._check_bulk`)."""
     if exchange == "rdma":
         from .rdma import rdma_all_to_all
         return rdma_all_to_all(sends, mesh, axis=axis)
+    _mesh._check_bulk(mesh, sends, "exchange='xla'")
     return _mesh.all_to_all(sends, mesh, axis=axis)
 
 
@@ -176,25 +243,26 @@ def _device_of_bucket(global_hist: torch.Tensor, num_devices: int) -> torch.Tens
 
 
 def _shard_body(shards, mesh: SortMesh, splitter_bits: int, capacity_per_peer: int,
-                deal: bool, num_key_planes: int, valid_total: int, exchange: str = "xla"):
-    """The SPMD body over every rank. ``shards[r]`` is rank r's tuple of
-    (n_local,) planes: the first ``num_key_planes`` are key planes (plane 0
-    drives the partition), the rest payload. With an index key plane the
-    order is strict. n_local % D == 0. Returns each rank's (merged planes,
-    count (1,), overflow (1,))."""
-    D = mesh.size
+                deal: bool, num_key_planes: int, valid_rows: int, exchange: str = "xla"):
+    """The SPMD body over this process's ranks. ``shards[i]`` is local rank
+    i's tuple of (n_local,) planes: the first ``num_key_planes`` are key
+    planes (plane 0 drives the partition), the rest payload. With an index
+    key plane the order is strict. n_local % D == 0. The first
+    ``valid_rows`` rows of the process's shards are keys, the rest pads.
+    Returns each local rank's (merged planes, count (1,), overflow (1,))."""
+    D, L = mesh.size, len(shards)
     n_local = int(shards[0][0].shape[0])
     nbuckets = 1 << splitter_bits
     nplanes = len(shards[0])
 
-    # Live-bit reduction over *valid* keys only (global slot < valid_total),
-    # before the deal, where each rank knows which of its slots are ragged-n
-    # pads: pads would force the adaptive splitter domain to full scale.
+    # Live-bit reduction over *valid* keys only, before the deal, where each
+    # rank knows which of its slots are ragged-n pads: pads would force the
+    # adaptive splitter domain to full scale.
     local_or, local_and = [], []
     for r, planes in enumerate(shards):
         w = planes[0]
-        gslot = r * n_local + torch.arange(n_local, device=w.device)
-        is_valid = gslot < valid_total
+        slot = r * n_local + torch.arange(n_local, device=w.device)
+        is_valid = slot < valid_rows
         local_or.append(or_reduce(torch.where(is_valid, w, 0)))
         local_and.append(and_reduce(torch.where(is_valid, w, _SENTINEL)))
     gor = or_reduce(_mesh.all_gather(local_or, mesh)[0])
@@ -231,7 +299,7 @@ def _shard_body(shards, mesh: SortMesh, splitter_bits: int, capacity_per_peer: i
 
     out_counts, sends = [], []
     C = capacity_per_peer
-    for r in range(D):
+    for r in range(L):
         # 3. skew-aware bucket -> rank assignment (identical on every rank)
         dev_of_bucket = _device_of_bucket(global_hist[r], D)
         # destination rank per local key; non-decreasing because ws is sorted
@@ -256,8 +324,8 @@ def _shard_body(shards, mesh: SortMesh, splitter_bits: int, capacity_per_peer: i
     # sentinel index plane is maximal too, so key ties keep real rows ahead)
     outs = []
     bypass_ok = (num_key_planes == 1 and nplanes == 1
-                 and valid_total == D * n_local)
-    for r in range(D):
+                 and valid_rows == L * n_local)
+    for r in range(L):
         merged = _local_sort(tuple(recv[r][i].reshape(-1) for i in range(nplanes)),
                              num_key_planes)
         count = recv_counts[r].sum(dtype=torch.int32)
@@ -282,14 +350,15 @@ def _run_shuffle(planes, mesh: SortMesh, axis_name, splitter_bits, slack, exact,
     if exchange not in ("xla", "rdma"):
         raise ValueError(f"exchange must be 'xla' or 'rdma', got {exchange!r}")
     D = axis_size(mesh, axis_name)
-    n = int(planes[0].shape[0])
+    lay = _layout(mesh, int(planes[0].shape[0]), D * D)
+    n = lay.n
     if n < D * D:
         raise ValueError(f"n={n} too small for a {D}-device shuffle (need n >= D^2)")
     # pad to a multiple of D^2 with maximal sentinel rows: they sort to the
     # global tail, so the count adjustment below is exact
-    pad_total = (-n) % (D * D)
-    planes = _pad(planes, pad_total)
-    n_local = (n + pad_total) // D
+    pad_total = D * lay.n_local - n
+    planes = _pad(planes, lay.pad)
+    n_local = lay.n_local
     if exact:
         cap = n_local
     else:
@@ -297,7 +366,7 @@ def _run_shuffle(planes, mesh: SortMesh, axis_name, splitter_bits, slack, exact,
         cap = min(n_local,
                   int(expect * (1.0 + slack)) + -(-n_local // (1 << splitter_bits)) + 8)
     outs = _shard_body(_shard_planes(planes, mesh), mesh, splitter_bits, cap,
-                       deal=not exact, num_key_planes=num_key_planes, valid_total=n,
+                       deal=not exact, num_key_planes=num_key_planes, valid_rows=lay.s,
                        exchange=exchange)
     sorted_planes = [o[0] for o in outs]
     counts = tuple(o[1] for o in outs)
@@ -307,11 +376,11 @@ def _run_shuffle(planes, mesh: SortMesh, axis_name, splitter_bits, slack, exact,
         # valid sequence, usually all on rank D-1 but possibly on an earlier
         # rank for a degenerate input: rank d sheds clip(pad_total - (# shed
         # by the ranks after d), 0, counts[d])
-        c = torch.cat([x.to(mesh.devices[0]) for x in counts])
+        c = _mesh.all_gather(counts, mesh, tiled=True)[0]
         suffix_after = torch.flip(torch.cumsum(torch.flip(c, (0,)), 0), (0,)) - c
         shed = torch.minimum((pad_total - suffix_after).clamp(min=0), c)
         c = (c - shed).to(torch.int32)
-        counts = tuple(c[r:r + 1].to(dev) for r, dev in enumerate(mesh.devices))
+        counts = tuple(c[r:r + 1].to(dev) for r, dev in zip(mesh.ranks, mesh.devices))
     return sorted_planes, counts, overflow
 
 
@@ -323,9 +392,11 @@ def _u32_plane(x, mesh: SortMesh) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
 
 
-def _iota(n: int, like: torch.Tensor) -> torch.Tensor:
-    """The global index plane: 0..n-1 as int32 carriers of u32."""
-    return torch.arange(n, dtype=torch.int32, device=like.device)
+def _iota(like: torch.Tensor, mesh: SortMesh) -> torch.Tensor:
+    """The global index of each of this process's keys ``like`` (all of
+    them: 0..n-1 without a group), int32 carriers of u32."""
+    s = int(like.shape[0])
+    return torch.arange(s, dtype=torch.int32, device=like.device) + mesh.process_index * s
 
 
 def _as_u32(planes_by_rank, i: int) -> tuple:
@@ -363,7 +434,7 @@ def distributed_argsort_u32(x, mesh: SortMesh, axis_name: str = "shards",
     permutation is the unique stable one. Returns (sorted_keys_padded,
     perm_padded, counts, overflow); perm shards are uint32 global indices."""
     w = _u32_plane(x, mesh)
-    sp, counts, overflow = _run_shuffle((w, _iota(w.shape[0], w)), mesh, axis_name,
+    sp, counts, overflow = _run_shuffle((w, _iota(w, mesh)), mesh, axis_name,
                                         splitter_bits, slack, exact, num_key_planes=2,
                                         exchange=exchange)
     return _as_u32(sp, 0), _as_u32(sp, 1), counts, overflow
@@ -377,7 +448,7 @@ def distributed_sort_pairs_u32(x, payload, mesh: SortMesh, axis_name: str = "sha
     payload_padded, counts, overflow)."""
     w = _u32_plane(x, mesh)
     p = _payload_u32(payload, w)
-    sp, counts, overflow = _run_shuffle((w, _iota(w.shape[0], w), p), mesh, axis_name,
+    sp, counts, overflow = _run_shuffle((w, _iota(w, mesh), p), mesh, axis_name,
                                         splitter_bits, slack, exact, num_key_planes=2,
                                         exchange=exchange)
     return _as_u32(sp, 0), _as_u32(sp, 2), counts, overflow
@@ -451,7 +522,7 @@ def distributed_argsort(x, mesh: SortMesh, axis_name: str = "shards",
         return distributed_argsort_balanced(x, mesh, axis_name, descending=descending, **kw)
     words, dtype = _as_words(x, descending, mesh)
     nw = len(words)
-    out, counts, overflow = _run_shuffle(words + (_iota(words[0].shape[0], words[0]),),
+    out, counts, overflow = _run_shuffle(words + (_iota(words[0], mesh),),
                                          mesh, axis_name, *_shuffle_kw(kw),
                                          num_key_planes=nw + 1,
                                          exchange=kw.get("exchange", "xla"))
@@ -479,7 +550,7 @@ def distributed_sort_pairs(keys, values, mesh: SortMesh, axis_name: str = "shard
     payload_planes, ctx = encode_payload_tree(values, n, words[0].device)
     nk = len(words) + 1
     out, counts, overflow = _run_shuffle(
-        words + (_iota(n, words[0]),) + payload_planes, mesh, axis_name,
+        words + (_iota(words[0], mesh),) + payload_planes, mesh, axis_name,
         *_shuffle_kw(kw), num_key_planes=nk, exchange=kw.get("exchange", "xla"))
     return (_decode([o[:len(words)] for o in out], dtype, descending),
             decode_payload_tree([o[nk:] for o in out], ctx), counts, overflow)
@@ -492,12 +563,30 @@ def _host(a) -> np.ndarray:
     return kdf.to_numpy(a) if torch.is_tensor(a) else np.asarray(a)
 
 
-def gather_sorted(sorted_padded, counts, overflow=None) -> np.ndarray:
+def gather_sorted(sorted_padded, counts, overflow=None, *, mesh: Optional[SortMesh] = None
+                  ) -> np.ndarray:
     """Assemble the exact sorted array on the host from the padded per-rank
     shards and their counts. Raises if the shuffle reported overflow.
 
+    On a group mesh the shards are this process's, and they are always
+    gathered over the group first: every process calls it together with
+    ``mesh=`` and gets the whole array (the counterpart of an explicit
+    replication in the JAX package). The shards do not name their mesh, so
+    a call without ``mesh=`` in a ``torch.distributed`` world of more than
+    one process raises ValueError rather than return this process's part;
+    sharded consumption reads the shards with their counts instead.
+
     Shards of a numpy-only key dtype hold its carrier (``kdf.to_numpy(out,
     dtype)`` reads them as that dtype)."""
+    if mesh is None:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError("gather_sorted: in a group of processes the shards are this "
+                             "process's part; pass mesh= to gather them over the group, "
+                             "or read the shards with their counts")
+    elif mesh.group is not None:
+        sorted_padded = tuple(_mesh.all_gather(list(sorted_padded), mesh)[0])
+        counts = _mesh.all_gather(list(counts), mesh, tiled=True)[0]
     if overflow is not None and int(_host(overflow)[0]) != 0:
         raise RuntimeError(
             "distributed_sort exchange capacity exceeded (skewed input); "

@@ -1171,6 +1171,56 @@ def test_dryrun_multichip_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the group mesh on the card: processes over torch.distributed
+
+
+def _mp_workers(nproc, local, backend, tmp_path, extra=()):
+    """``scripts.mp_worker`` in ``nproc`` processes on cuda:0, ``local`` ranks
+    each, at 2^20 keys with K13; each one's stats (launches, times)."""
+    import json
+    import os
+    import sys
+    from radix_sorting_tpu_torch.ops import _build
+    from radix_sorting_tpu_torch.utils import mpharness
+    _build.build()          # the parent builds; the workers only load
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = mpharness.free_port()
+    env = mpharness.worker_env(local, {"PYTHONPATH": repo})
+    outs = [str(tmp_path / f"w{pid}.npz") for pid in range(nproc)]
+    res = mpharness.run_workers(
+        [[sys.executable, "-m", "radix_sorting_tpu_torch.scripts.mp_worker", str(pid),
+          str(nproc), str(port), "--backend", backend, "--device", "cuda", "--exchange",
+          "rdma", "--n", str(1 << 20), "--out", outs[pid], *extra] for pid in range(nproc)],
+        env=env, cwd=repo, timeout_s=600)
+    for pid, (rc, text) in enumerate(res):
+        assert rc == 0 and f"MP_OK {pid}" in text, text[-4000:]
+    return [json.loads(str(np.load(o)["stats"])) for o in outs], [t for _, t in res]
+
+
+def test_group_mesh_four_processes_on_one_card(cuda, tmp_path):
+    # K13 across processes through CUDA IPC handles, the control tensors over
+    # gloo in host copies, the bulk exchange over gloo refused; a second mesh
+    # over the group opens its own handles
+    stats, texts = _mp_workers(4, 1, "gloo", tmp_path, ("--main-n", str(4_000_000)))
+    for st, text in zip(stats, texts):
+        launches = st["launches"]
+        assert launches["rdma_exchange"] > 0 and launches["hist"] > 0 and launches["whist"] > 0
+        # the main path's checked sort alone: K13 once a round on the one rank
+        assert st["main_launches"]["rdma_exchange"] > 0
+        assert st["k13_max_abs_err"] == 0 and st["opens"] == 3
+        assert "a second mesh opens fresh handles, closed with it: ok" in text
+        assert "exchange='xla' of CUDA tensors over gloo refused: ok" in text
+        assert "gather_sorted without mesh= refused: ok" in text
+
+
+def test_group_mesh_nccl_world_of_one(cuda, tmp_path):
+    # every group collective over NCCL; four ranks of the one process on cuda:0
+    stats, texts = _mp_workers(1, 4, "nccl", tmp_path)
+    assert stats[0]["launches"]["rdma_exchange"] > 0
+    assert "exchange='rdma' equals 'xla': ok (nccl" in texts[0]
+
+
+# ---------------------------------------------------------------------------
 # the sorter composites of extras and stats on the card
 
 
