@@ -38,6 +38,9 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      digit (r = 8 and 16), all keys one digit (r = 16: whole tiles of
      65,536 keys in one bin), and three planes 1, 2 and 3 words off the
      16-byte grid (r = 8 and 11);
+     lsd_sort (K0: hist_multi, then L1 and L2 a live digit) against its plain
+     version, torch.sort(stable=True) of the signed key, at LSD_MIN_KEYS and
+     n keys: keys-only, argsort, sort_pairs with a 4- and an 8-byte payload;
      bitonic (K12) at 1,024, 4,097 and 131,072 keys: one key plane, (hi, lo)
      keys, (key, index) keys with a payload, and 16 key values with a
      payload and num_keys=1, whose records must stay a permutation (R1);
@@ -126,8 +129,12 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      exact=True, a many-round exchange) and one sort on make_sort_mesh(),
      the default mesh over the visible cards; each against numpy, with its
      size, time, peak device memory and launches;
-  5. require every kernel's launch count from phase 4 to be non-zero, and
-     print the torch.sort calls of phase 4 (K0's stand-in);
+     the headline case (full-entropy u32, AUTO) must run K0 alone (hist_multi
+     1, lsd_hist 4, lsd_scatter 4, lsd_sort 1, no torch.sort), and each LSD
+     case one hist_multi a plane; each case prints its torch.sort calls;
+  5. require every kernel's launch count from phase 4 to be non-zero (K0's
+     lsd_sort among them), and print the torch.sort calls of phase 4 (two or
+     more planes, fewer than LSD_MIN_KEYS keys, the batched sorts);
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
      steady-state loops); K1, K2 and K3 with the launch shape each ran, the
@@ -147,6 +154,14 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      (values, counts, unique_all) beside torch.unique, unique(axis=0)
      beside torch.unique(dim=0), isin beside torch.isin, union1d beside
      torch.unique(torch.cat);
+     K0 (keys-only) beside its plain version (hw_engine's torch.sort route)
+     and torch.sort of the signed key, with the device time of all its
+     kernels; the AUTO sort, argsort and sort_pairs (f32 payload) of the n
+     u32 keys (K0) beside torch.sort of the same signed key (stable, and a
+     gather, where they carry an index or payload), and the LSD sort of the
+     u64 keys beside the AUTO sort and torch.sort int64, in turns; the sweep
+     of scripts/k0_gate.py (K0 against torch.sort, keys-only and argsort, at
+     n = 2^12 to 2^26 and 40M) and the gate it gives;
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
      with its byte bound (12 bytes a key for each live pass: L1 reads the
@@ -435,14 +450,15 @@ def main() -> None:
           f"cuda {torch.version.cuda} | {kind}", flush=True)
 
     import radix_sorting_tpu_torch as rt
-    from radix_sorting_tpu_torch.ops import _build, counting_engine, lsd_engine, probes, scan
+    from radix_sorting_tpu_torch.ops import (_build, counting_engine, hw_engine, lsd_engine,
+                                             probes, scan)
     from radix_sorting_tpu_torch.ops import cuda_kernels as ck
     from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem
     from radix_sorting_tpu_torch.ops.histogram import multi_digit_histogram
     from radix_sorting_tpu_torch.ops.kdf import i32
     from radix_sorting_tpu_torch.ops.vmem_sort import vmem_sort_ok
     from radix_sorting_tpu_torch import cli
-    from radix_sorting_tpu_torch.scripts import exp_sol_probe, exp_sol_round2
+    from radix_sorting_tpu_torch.scripts import exp_sol_probe, exp_sol_round2, k0_gate
     from radix_sorting_tpu_torch.utils import timing, verify
     from radix_sorting_tpu_torch.parallel import _mesh, distributed_sort, make_sort_mesh
     from radix_sorting_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -461,6 +477,7 @@ def main() -> None:
     keys64 = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
     hi64 = torch.from_numpy((keys64 >> np.uint64(32)).astype(np.uint32).view(np.int32)).to(dev)
     lo64 = torch.from_numpy(keys64.astype(np.uint32).view(np.int32)).to(dev)
+    keys64_t = torch.from_numpy(keys64.view(np.int64)).to(dev)
 
     # -- phase 3: kernels against their plain versions ----------------------
     errs = {name: 0 for name in ck.LAUNCHES}
@@ -692,6 +709,32 @@ def main() -> None:
         print(f"[3 kernel] lsd_hist and lsd_scatter r={bits} tile={tile} {label}, "
               f"{len(planes)} planes: equal to plain (max |err| 0)", flush=True)
     del skew90, one_digit, grid, views
+    # K0, the sorter of one plane (hist_multi, then L1 and L2 a live digit),
+    # against its plain version, torch.sort, at the gate and at n keys:
+    # keys-only, argsort, and sort_pairs with a 4-byte payload (it rides L2)
+    # and an 8-byte one (gathered through the index plane)
+    pay4 = lo64.view(torch.float32)
+    for m in [m for m in sorted({hw_engine.LSD_MIN_KEYS, n}) if m <= n]:
+        km = w[:m]
+        ref = torch.sort(km ^ i32(1 << 31), stable=True)
+        before = ck.LAUNCHES["lsd_sort"]
+        (got,), _ = hw_engine.sort_words((km,), stable=False)
+        _, perm = hw_engine.argsort_words((km,), torch.int64)
+        (pk,), (p4, p8) = hw_engine.sort_words((km,), (pay4[:m], keys64_t[:m]))
+        torch.cuda.synchronize()
+        if ck.LAUNCHES["lsd_sort"] != before + 3:
+            fail(f"K0 n={m}: {ck.LAUNCHES['lsd_sort'] - before} of 3 calls took K0")
+        want_keys = ref.values ^ i32(1 << 31)
+        err = max(max_err(got, want_keys), max_err(pk, want_keys),
+                  int((perm - ref.indices).abs().max()),
+                  max_err(p4.view(torch.int32), lo64[:m][ref.indices]),
+                  int((p8 - keys64_t[:m][ref.indices]).abs().max()))
+        errs["lsd_sort"] = max(errs["lsd_sort"], err)
+        if err:
+            fail(f"K0 n={m}: max |err| {err} against torch.sort")
+        del ref, got, perm, pk, p4, p8, want_keys
+        print(f"[3 kernel] lsd_sort (K0) n={m}: keys-only, argsort and sort_pairs (4- and "
+              "8-byte payloads) equal to torch.sort(stable=True) (max |err| 0)", flush=True)
     # K12: the records of equal key tuples must stay a permutation (R1)
     for m in (1024, 4097, 131_072):
         dup, iota = w[:m] & 15, idx32[:m]
@@ -1529,8 +1572,9 @@ def main() -> None:
               for name, make, run, host, oracle in cases]
     torch.cuda.synchronize()
     rt.reset_launch_counts()
-    # K0's stand-in is a library call with no counter of its own: count the
-    # torch.sort calls of the main path here (restored after phase 4)
+    # torch.sort sorts what K0 does not (two or more planes, short planes,
+    # the batched sorts): count its calls in each case and in all (restored
+    # after phase 4)
     real_sort, sort_calls = torch.sort, [0]
 
     def counted_sort(*a, **k):
@@ -1549,12 +1593,13 @@ def main() -> None:
         cummax_calls[0] += 1
         return real_cummax[1](self, *a, **k)
     torch.cummax, torch.Tensor.cummax = counted_cummax, counted_cummax_method
-    outputs, case_launches = [], []
+    outputs, case_launches, case_sorts = [], [], []
     for name, x, run, _, _ in inputs:
-        before, cummax_before = rt.launch_counts(), cummax_calls[0]
+        before, cummax_before, sorts_before = rt.launch_counts(), cummax_calls[0], sort_calls[0]
         outputs.append(run(x))
         case_launches.append({k: c - before[k] for k, c in rt.launch_counts().items()
                               if c != before[k]})
+        case_sorts.append(sort_calls[0] - sorts_before)
         if name in sets_cases and cummax_calls[0] != cummax_before:
             fail(f"{name}: torch.cummax was called")
     torch.cummax, torch.Tensor.cummax = real_cummax
@@ -1627,7 +1672,19 @@ def main() -> None:
             if name.startswith(prefix) and not (
                     counts.get("lsd_hist") == counts.get("lsd_scatter") == want):
                 fail(f"{name}: launches {counts}, {want} passes expected")
-    for (name, x, run, host, oracle), out, counts in zip(inputs, outputs, case_launches):
+        # the live digits: one hist_multi a plane on the LSD path
+        if name.startswith("LSD u") and "value_mask" not in name and \
+                counts.get("hist_multi") != (2 if "u64" in name else 1):
+            fail(f"{name}: launches {counts}, one hist_multi a plane expected")
+    # the headline runs K0: the live digits from one K1 read, four passes,
+    # no torch.sort
+    k0_want = {"hist_multi": 1, "lsd_hist": 4, "lsd_scatter": 4, "lsd_sort": 1}
+    for (name, *_), counts, sorts in zip(inputs, case_launches, case_sorts):
+        if name == "u32 full entropy (sorter)" and (sorts or counts != k0_want):
+            fail(f"{name}: launches {counts} and {sorts} torch.sort calls; K0 alone, "
+                 f"{k0_want}, expected")
+    for (name, x, run, host, oracle), out, counts, sorts in zip(inputs, outputs, case_launches,
+                                                                 case_sorts):
         size = case_size(x)
         first = out[0] if isinstance(out, tuple) else out
         if torch.is_tensor(x) and (first.device != x.device or (
@@ -1641,7 +1698,7 @@ def main() -> None:
             if bad:
                 fail(f"{name}: {bad}")
             print(f"[4 sort] {name}: n={size} within the bound of the numpy oracle; "
-                  f"launches {counts}", flush=True)
+                  f"launches {counts}; torch.sort calls {sorts}", flush=True)
             continue
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -1651,12 +1708,13 @@ def main() -> None:
             if not np.array_equal(g, wv):
                 bad = int(np.flatnonzero(g != wv)[0])
                 fail(f"{name}: differs from the numpy oracle first at {bad}")
-        print(f"[4 sort] {name}: n={size} equal to the numpy oracle; launches {counts}",
-              flush=True)
+        print(f"[4 sort] {name}: n={size} equal to the numpy oracle; launches {counts}; "
+              f"torch.sort calls {sorts}", flush=True)
 
     # -- phase 5: the main path went through every kernel -------------------
-    print(f"[5 launches] {json.dumps(launches)}; torch.sort (K0's stand-in) calls "
-          f"{sort_calls[0]}", flush=True)
+    print(f"[5 launches] {json.dumps(launches)}; torch.sort calls {sort_calls[0]} (two "
+          f"or more planes, fewer than {hw_engine.LSD_MIN_KEYS} keys, the batched sorts)",
+          flush=True)
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was not launched by the main path")
@@ -1668,8 +1726,7 @@ def main() -> None:
         m = case_size(x)
         print(f"[6 time] {name}: {ms:.3f} ms, {m / ms / 1e3:.1f} Mkeys/s",
               flush=True)
-    w64 = torch.from_numpy(keys64.view(np.int64)).to(dev)
-    for label, t in (("int32", w), ("int64", w64)):
+    for label, t in (("int32", w), ("int64", keys64_t)):
         ms = time_ms(lambda: torch.sort(t), reps)
         print(f"[6 time] torch.sort {label} (reference point): {ms:.3f} ms, "
               f"{n / ms / 1e3:.1f} Mkeys/s", flush=True)
@@ -1938,6 +1995,18 @@ def main() -> None:
             keys="90% one digit", device_ms=device_trace(kernel, "lsd_hist")[1])
         del g
     del skew90
+    # K0 (keys-only, the AUTO sort's sorter) beside its plain version, the
+    # torch.sort route of hw_engine (sign flip, torch.sort, flip back), and
+    # torch.sort of the signed key; bound: the plane read and written once;
+    # the device time of all its kernels (busy time a call)
+    key32 = w ^ i32(1 << 31)
+
+    def k0_plain():
+        with k0_gate.k0_gate(1 << 31):
+            return hw_engine.sort_words((w,), stable=False)
+    kernel = lambda: hw_engine.sort_words((w,), stable=False)
+    row("lsd_sort", None, n * 8, kernel, k0_plain, lambda: torch.sort(key32),
+        digits=8, device_ms=device_trace(kernel)[1])
     def k12_trace(kernel, library):
         """K12's launches and device ms per sort, and torch.sort's device ms:
         the comparison free of host time and of the timer's noise."""
@@ -2037,6 +2106,34 @@ def main() -> None:
         f"{k} {v:.3f} ms" for k, v in mean.items())
         + f"; bound r=8 {bound_ms(4 * 12 * n):.3f} ms (4 passes x 12 B/key), "
         f"r=11 {bound_ms(3 * 12 * n):.3f} ms (3 passes)", flush=True)
+    # K0 through the public entry points beside torch.sort of the same signed
+    # key, in turns: the AUTO sort, argsort, sort_pairs with a 4-byte payload
+    # (beside torch.sort(stable=True) and a gather); the LSD sort of u64 (two
+    # planes: the AUTO sort takes torch.sort int64)
+    x64 = u64_tensor(keys64)
+    k0_rows = {
+        "sort": {"AUTO (K0)": lambda: rt.sort(xf),
+                 "torch.sort int32": lambda: torch.sort(key32)},
+        "argsort": {"AUTO (K0)": lambda: rt.argsort(xf),
+                    "torch.sort(stable=True) int32": lambda: torch.sort(key32, stable=True)},
+        "sort_pairs, f32 payload": {
+            "AUTO (K0)": lambda: rt.sort_pairs(xf, pay_f32_t),
+            "torch.sort(stable=True) int32 + gather": lambda: pay_f32_t[
+                torch.sort(key32, stable=True).indices]},
+        "u64": {"LSD r=8": lambda: rt.sort(x64, config=lsd8),
+                "AUTO (torch.sort int64)": lambda: rt.sort(x64),
+                "torch.sort int64": lambda: torch.sort(keys64_t)}}
+    for label, fns in k0_rows.items():
+        ms = in_turns(fns)
+        print(f"[6 k0] {label} of {n} keys, in turns: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+    del x64
+    # the sweep behind LSD_MIN_KEYS: K0 against torch.sort by n
+    gate = k0_gate.sweep(dev, seed=args.seed, reps=reps,
+                         log=lambda line: print(f"[6 gate] {line}", flush=True))
+    print(f"[6 gate] K0 no slower than torch.sort from n={gate['gate_sort']} on "
+          f"keys-only, from n={gate['gate_argsort']} on in the argsort, from "
+          f"n={gate['gate']} on in both; LSD_MIN_KEYS {hw_engine.LSD_MIN_KEYS}", flush=True)
     # R4: what the stream's traffic model counts, beside E1 and copy_ on the
     # same n keys, E1 and copy_ in turns
     out_buf = torch.empty_like(w)
@@ -2150,6 +2247,8 @@ def main() -> None:
         "dma_copy": (f"{csrc}/sol.cu", "scripts/exp_sol_probe.py:117"),
         "msd_spread": (f"{csrc}/sol.cu", "scripts/exp_sol_round2.py:128"),
         "rdma_exchange": (f"{csrc}/exchange.cu", "radix_sorting_tpu/parallel/rdma.py:90"),
+        "lsd_sort": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/hw_engine.py:56 "
+                     "(lax.sort, no Pallas kernel; K0 also runs K1 hist_multi, hist.cu)"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],

@@ -20,7 +20,9 @@ read of what it measured (the JAX package's ``device_probe`` decides on the
 device with ``lax.cond``; eager PyTorch has no device-side branch).
 ``argsort``, ``rank_sort`` and ``sort_pairs`` accept both flags and ignore
 them. ``Strategy.LSD`` runs the hand-written LSD radix engine
-(:mod:`.ops.lsd_engine`); AUTO and HW_SORT keep ``torch.sort``.
+(:mod:`.ops.lsd_engine`); AUTO and HW_SORT sort one word plane on the card
+with K0, the same engine at its defaults, from ``hw_engine.LSD_MIN_KEYS``
+keys, and the rest with ``torch.sort`` (:mod:`.ops.hw_engine`).
 
 The batched sorts (``sort_batched``, ``argsort_batched``,
 ``sort_pairs_batched``) sort every 1-D slice along an axis with one
@@ -390,10 +392,11 @@ def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,
     operands = _operands(words, _compaction_masks(words, value_mask, dtype, cfg))
     # the presorted guard (`radix_sort.hpp:60-62`): an ordered input's
     # stable permutation is the identity
-    if n <= 1 or (cfg.detect_presorted and bool(probes.is_sorted_words(operands))):
+    if n <= 1:
         perm = torch.arange(n, device=words[0].device).to(idt)
     else:
-        _, perm = hw_engine.argsort_words(operands, index_dtype=idt)
+        _, perm = hw_engine.argsort_words(operands, index_dtype=idt,
+                                          guard=cfg.detect_presorted)
     return kdf.to_numpy(perm) if from_numpy else perm
 
 

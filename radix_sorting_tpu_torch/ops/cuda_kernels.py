@@ -31,6 +31,8 @@ whist_f32               csrc/whist.cu   K11 ``_whist_f32_kernel`` (sums)
 bitonic                 csrc/bitonic.cu K12 ``vmem_sort._bitonic_kernel``
 lsd_hist                csrc/lsd.cu     L1, no Pallas kernel (LSD pass)
 lsd_scatter             csrc/lsd.cu     L2, no Pallas kernel (LSD pass)
+lsd_sort                csrc/lsd.cu,    K0, no Pallas kernel: ``lax.sort`` of one
+                        csrc/hist.cu    plane (``hw_engine``: K1 + L1 + L2)
 dma_copy                csrc/sol.cu     E1 ``scripts/exp_sol_probe.py``
 msd_spread              csrc/sol.cu     E2 ``scripts/exp_sol_round2.py``
 rdma_exchange           csrc/exchange.cu K13 ``parallel/rdma.py::_exchange_kernel``
@@ -44,7 +46,10 @@ launches are counted under the contract's name. One weighted histogram
 kernel sums integer values (K10) or f32 weights (K11) per key. K12 sorts a
 few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
 sort (per-tile digit histograms, stable scatter); the JAX package's LSD
-engine is XLA with no Pallas kernel, so they replace none. E1 and E2 are
+engine is XLA with no Pallas kernel, so they replace none. ``lsd_sort``
+counts the calls of K0, the port's sorter of one plane on the card
+(:mod:`.hw_engine`), which launches ``hist_multi`` once and L1 and L2 once
+a live digit; it replaces ``lax.sort``, which is no Pallas kernel either. E1 and E2 are
 the kernels of the speed-of-light scripts (:mod:`..scripts`): a staged
 device-memory copy and the spread step of the two-level MSD sort. K13 is the
 all-to-all of the distributed tier (:mod:`..parallel.rdma`), one launch a
@@ -90,7 +95,7 @@ LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
             "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
-            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0,
+            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0, "lsd_sort": 0,
             "dma_copy": 0, "msd_spread": 0, "rdma_exchange": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)

@@ -1,13 +1,22 @@
 """HW_SORT engine: sort by the derived key with the device's general sorter.
 
 The counterpart of ``radix_sorting_tpu.ops.hw_engine``, whose sorter is XLA's
-``lax.sort``, a library routine outside every Pallas kernel. The port's
-stand-in for it is ``torch.sort``, until the hand-written LSD radix sort
-(:mod:`.lsd_engine`, ``Strategy.LSD``) beats it (ROADMAP.md, port queue
-item 2).
+``lax.sort``, a library routine outside every Pallas kernel. Here the sorter
+of one word plane on the card is **K0**, the port's own LSD radix sort
+(:func:`.lsd_engine.sort_words_lsd` at 8-bit digits and tiles of 8,192 keys,
+the ``SortConfig`` defaults): the live digits from one K1 ``hist_multi`` read,
+then per live digit L1 ``lsd_hist``, the scan of :mod:`.scan` and L2
+``lsd_scatter`` (``csrc/hist.cu``, ``csrc/lsd.cu``), on the unsigned words
+themselves, with no sign flip. :func:`sorter_route` picks it on the host
+before any launch; a kernel that fails to build or launch raises, and the
+call never falls back. Every 1-D sorter call of the port comes through this
+module, so each one-plane sort above ``LSD_MIN_KEYS`` takes K0.
 
-``torch.sort`` takes one key tensor (``lax.sort`` takes ``num_keys``), so
-multi-plane keys are sorted in one of two ways:
+``torch.sort`` sorts the rest (ROADMAP.md, port queue item 2): keys of two or
+more planes, fewer than ``LSD_MIN_KEYS`` keys, and CPU tensors, where it is
+K0's plain version (the same function). ``torch.sort`` takes one key tensor
+(``lax.sort`` takes ``num_keys``), so multi-plane keys are sorted in one of
+two ways:
 
 * one or two planes become one key: the sign-flipped int32 plane, or the two
   planes packed into one int64 ``((hi ^ INT32_MIN) << 32) | lo`` (one
@@ -18,9 +27,11 @@ multi-plane keys are sorted in one of two ways:
   pass is stable (`README.md:471-473`), as in the multipass u64 sort.
 
 Payloads (1-D planes, or ``(n, W)`` byte rows) follow the stable permutation
-through a gather. ``argsort_words`` returns ``torch.sort(stable=True)``'s
-indices in place of the JAX package's index-as-last-key: the permutation is
-the same, the unique stable one.
+through a gather (on K0, 4-byte payloads ride the scatter and the rest one
+index plane, :mod:`.lsd_engine`). ``argsort_words`` returns the stable
+permutation in place of the JAX package's index-as-last-key: the same
+permutation, the unique stable one (on K0 the index rides L2 as an int32
+plane).
 """
 
 from __future__ import annotations
@@ -29,13 +40,45 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from . import probes
-from .kdf import INT32_MIN, join64, split64
+from . import cuda_kernels, lsd_engine, probes
+from .kdf import INT32_MIN, SIGNED_VIEW, gather, join64, split64
 
-__all__ = ["sort_words", "argsort_words", "sort_words_presort_guard", "gather"]
+__all__ = ["sort_words", "argsort_words", "sort_words_presort_guard", "gather",
+           "SIGNED_VIEW", "sorter_route", "LSD_MIN_KEYS"]
 
-# same-width signed views: torch indexes few of its unsigned dtypes
-SIGNED_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+# The fewest keys K0 sorts: from 2^25 on its keys-only sort was no slower
+# than torch.sort of the same signed key in every sweep of scripts/k0_gate.py
+# on an H100 (PERF.md). A call costs ~0.9 ms of host dispatch and one sync
+# at any n, so shorter planes go to torch.sort. Its argsort was slower at
+# every n, and takes the same gate (PERF.md gives why).
+LSD_MIN_KEYS = 1 << 25
+_K0_RADIX_BITS, _K0_CHUNK = 8, 8192
+_INDEX_LIMIT = 1 << 31     # K0's index plane is int32
+
+
+def sorter_route(device_type: str, planes: int, n: int) -> str:
+    """The sorter of ``n`` keys of ``planes`` word planes on a device of
+    ``device_type``, decided on the host before any launch: ``"k0"`` for
+    one plane on CUDA with ``LSD_MIN_KEYS <= n < 2^31``, else
+    ``"torch.sort"``."""
+    if device_type == "cuda" and planes == 1 and LSD_MIN_KEYS <= n < _INDEX_LIMIT:
+        return "k0"
+    return "torch.sort"
+
+
+def _takes_k0(words: Sequence[torch.Tensor]) -> bool:
+    w = words[0]
+    return sorter_route(w.device.type, len(words), int(w.shape[0])) == "k0"
+
+
+def _k0(words: tuple, payloads: tuple = (), guard: bool = False) -> Tuple[tuple, tuple]:
+    """K0: the stable LSD radix sort of one plane, carrying payloads;
+    ``guard``: the presorted exit, read with the live digits in one sync."""
+    out = lsd_engine.sort_words_lsd(words, payloads, radix_bits=_K0_RADIX_BITS,
+                                    chunk=_K0_CHUNK, skip_trivial=True, guard=guard)
+    if words[0].is_cuda:
+        cuda_kernels.LAUNCHES["lsd_sort"] += 1
+    return out
 
 
 def _key(group: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -54,20 +97,32 @@ def _unkey(s: torch.Tensor, planes: int) -> Tuple[torch.Tensor, ...]:
     return hi ^ INT32_MIN, lo
 
 
-def gather(p: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """``p[perm]`` along dim 0, through a same-width integer view."""
-    v = SIGNED_VIEW[p.element_size()]
-    return p.view(v)[perm].view(p.dtype)
+def _index_as(perm: torch.Tensor, index_dtype) -> torch.Tensor:
+    """K0's int32 permutation as ``index_dtype``: a view for 32-bit types
+    (every index is below 2^31), else a cast."""
+    if index_dtype in (torch.int32, torch.uint32):
+        return perm.view(index_dtype)
+    return perm.to(index_dtype)
 
 
-def _stable_sort(words: Sequence[torch.Tensor]) -> Tuple[tuple, torch.Tensor]:
-    """(sorted words, stable ascending permutation as int64) of multi-plane
-    keys. One or two planes sort as one key, whose sorted values are the
-    sorted words (no gather); more planes chain stable sorts over pairs."""
+def _stable_sort(words: Sequence[torch.Tensor], index_dtype=torch.int64,
+                 guard: bool = False) -> Tuple[tuple, torch.Tensor]:
+    """(sorted words, stable ascending permutation as ``index_dtype``) of
+    multi-plane keys. K0 carries an int32 index plane; on ``torch.sort`` one
+    or two planes sort as one key, whose sorted values are the sorted words
+    (no gather), and more planes chain stable sorts over pairs. ``guard``:
+    an ordered input's permutation is the identity, with no sort."""
     words = tuple(words)
+    n, device = words[0].shape[0], words[0].device
+    if _takes_k0(words):
+        iota = torch.arange(n, dtype=torch.int32, device=device)
+        sw, (perm,) = _k0(words, (iota,), guard)
+        return sw, _index_as(perm, index_dtype)
+    if guard and bool(probes.is_sorted_words(words)):
+        return words, torch.arange(n, device=device).to(index_dtype)
     if len(words) <= 2:
         s = torch.sort(_key(words), stable=True)
-        return _unkey(s.values, len(words)), s.indices
+        return _unkey(s.values, len(words)), s.indices.to(index_dtype)
     # pairs of planes from the least significant end: LSD order
     groups: List[tuple] = [words[max(0, i - 2):i]
                            for i in range(len(words), 0, -2)]
@@ -78,7 +133,12 @@ def _stable_sort(words: Sequence[torch.Tensor]) -> Tuple[tuple, torch.Tensor]:
             key = key[perm]
         idx = torch.sort(key, stable=True).indices
         perm = idx if perm is None else perm[idx]
-    return tuple(gather(w, perm) for w in words), perm
+    return tuple(gather(w, perm) for w in words), perm.to(index_dtype)
+
+
+def _check_stable(payloads: tuple, stable: bool) -> None:
+    if payloads and not stable:
+        raise ValueError("unstable sort is only valid for keys-only sorts")
 
 
 def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] = (),
@@ -88,11 +148,12 @@ def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] =
     ``words`` are int32 planes, most significant first; payloads share their
     length (dim 0). Returns (sorted_words, permuted_payloads).
     ``stable=False`` is exact for keys-only sorts: equal keys are
-    indistinguishable.
+    indistinguishable (K0 is stable either way).
     """
     words, payloads = tuple(words), tuple(payloads)
-    if payloads and not stable:
-        raise ValueError("unstable sort is only valid for keys-only sorts")
+    _check_stable(payloads, stable)
+    if _takes_k0(words):
+        return _k0(words, payloads)
     if not payloads and len(words) <= 2:
         s = torch.sort(_key(words), stable=stable).values
         return _unkey(s, len(words)), ()
@@ -100,15 +161,16 @@ def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] =
     return sw, tuple(gather(p, perm) for p in payloads)
 
 
-def argsort_words(words: Sequence[torch.Tensor],
-                  index_dtype=torch.uint32) -> Tuple[tuple, torch.Tensor]:
+def argsort_words(words: Sequence[torch.Tensor], index_dtype=torch.uint32,
+                  guard: bool = False) -> Tuple[tuple, torch.Tensor]:
     """Stable argsort: (sorted_words, permutation as ``index_dtype``).
 
     The permutation is the unique stable rank order, the reference rank
-    sort's output (`radix_sort_rank.hpp:22-92`).
+    sort's output (`radix_sort_rank.hpp:22-92`). ``guard``: the presorted
+    early exit (`radix_sort.hpp:60-62`), an ordered input's permutation the
+    identity; on K0 read with the live digits in one sync.
     """
-    sw, perm = _stable_sort(words)
-    return sw, perm.to(index_dtype)
+    return _stable_sort(words, index_dtype, guard)
 
 
 def sort_words_presort_guard(words: Sequence[torch.Tensor],
@@ -117,10 +179,15 @@ def sort_words_presort_guard(words: Sequence[torch.Tensor],
     """:func:`sort_words` with the presorted early exit (`radix_sort.hpp:60-62`).
 
     The JAX package branches on the device with ``lax.cond``. Eager torch
-    has no device-side branch, so the probe's answer comes to the host (one
-    sync) and an ordered input skips the sort, as in the reference.
+    has no device-side branch, so the probe's answer comes to the host and
+    an ordered input skips the sort, as in the reference. On K0 the answer
+    comes in the same read as the live digits (one sync a call): an ordered
+    input then costs the probe and the K1 read, and launches no pass.
     """
     words, payloads = tuple(words), tuple(payloads)
+    if _takes_k0(words):
+        _check_stable(payloads, stable)
+        return _k0(words, payloads, guard=True)
     if bool(probes.is_sorted_words(words)):
         return words, payloads
     return sort_words(words, payloads, stable=stable)

@@ -57,6 +57,8 @@ __all__ = [
     "raw_bits",
     "split64",
     "join64",
+    "gather",
+    "SIGNED_VIEW",
     "encode64_np",
     "decode64_np",
     "pack_bytes_be",
@@ -213,6 +215,16 @@ def join64(hi: torch.Tensor, lo: torch.Tensor, dtype) -> torch.Tensor:
     """
     pairs = torch.stack([lo, hi]).t().reshape(-1)
     return pairs.view(torch.int64).view(dtype)
+
+
+# same-width signed views: torch indexes few of its unsigned dtypes
+SIGNED_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather(p: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``p[perm]`` along dim 0, through a same-width integer view."""
+    v = SIGNED_VIEW[p.element_size()]
+    return p.view(v)[perm].view(p.dtype)
 
 
 def _sub_byte_bits(x: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,16 @@ with its pass structure, for each live digit from the least significant
      (:func:`.cuda_kernels.lsd_scatter`, `radix_sort_u32.c:59-90`): within a
      tile the j-th key of a digit lands at its base + j.
 
+It serves ``Strategy.LSD`` and, for one plane on the card, the AUTO /
+HW_SORT sorter K0 (:mod:`.hw_engine`).
+
 A digit that is the same in every key is skipped when ``skip_trivial`` is set
 (column skipping, `radix_sort.hpp:64-70`). The JAX package skips it on the
-device with ``lax.cond``; here the live-digit flags come to the host in one
-read per call (:func:`.probes.live_digit_mask`), as the other probes do.
+device with ``lax.cond``; here the live-digit flags come from one K1
+``hist_multi`` read of every digit's histogram a plane (a digit is dead where
+one bin holds all n keys, :func:`live_digit_flags`; every digit width of 1
+to 16 bits is one K1 launch) and reach the host in one read a call, with the
+presorted guard's flag when it is asked for.
 
 The JAX engine pads n to a multiple of its chunk with all-ones sentinels;
 the kernels here take a short last tile instead. The output of a stable sort
@@ -28,11 +34,12 @@ from typing import Sequence, Tuple
 
 import torch
 
-from . import cuda_kernels, hw_engine, probes
+from . import cuda_kernels, probes
 from .histogram import chunked_digit_histogram
+from .kdf import gather
 from .scan import scatter_bases
 
-__all__ = ["sort_words_lsd", "lsd_tile"]
+__all__ = ["sort_words_lsd", "lsd_tile", "live_digit_flags"]
 
 
 def lsd_tile(chunk: int, radix_bits: int) -> int:
@@ -43,10 +50,21 @@ def lsd_tile(chunk: int, radix_bits: int) -> int:
     return max(int(chunk), 1 << radix_bits)
 
 
+def live_digit_flags(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Tensor:
+    """(digits,) bool on the planes' device, one flag per digit position,
+    least significant first across the words (the order of
+    :func:`.probes.live_digit_mask`): True where the digit varies. One K1
+    ``hist_multi`` a plane; a digit is dead where one of its bins holds all
+    n keys. No host read."""
+    n = int(words[0].shape[0])
+    return torch.cat([cuda_kernels.hist_multi(w, radix_bits).max(dim=1).values != n
+                      for w in reversed(tuple(words))])
+
+
 def sort_words_lsd(words: Sequence[torch.Tensor],
                    payloads: Sequence[torch.Tensor] = (),
                    radix_bits: int = 8, chunk: int = 8192,
-                   skip_trivial: bool = True) -> Tuple[tuple, tuple]:
+                   skip_trivial: bool = True, guard: bool = False) -> Tuple[tuple, tuple]:
     """Stable ascending LSD radix sort of int32 word planes (most
     significant first), carrying payloads: (sorted words, payloads).
 
@@ -55,15 +73,28 @@ def sort_words_lsd(words: Sequence[torch.Tensor],
     1-byte elements, ``(n, W)`` byte rows) rides as one shared int32 index
     plane and is gathered once at the end: a pass then moves 4 bytes for
     them all, where a 64-bit leaf would move 8 and a row W.
+
+    ``guard``: the presorted early exit (`radix_sort.hpp:60-62`), its flag
+    read with the live digits in one host read; an ordered input comes back
+    as given and launches no pass.
     """
     words, payloads = tuple(words), tuple(payloads)
     n = int(words[0].shape[0])
     if n <= 1:
         return words, payloads
-    live = probes.live_digit_mask(probes.live_bit_mask(words), radix_bits) \
-        if skip_trivial else None
+    words = tuple(w.contiguous() for w in words)      # the kernels read dense planes
+    live = None
+    if skip_trivial or guard:
+        flags = [probes.is_sorted_words(words).view(1)] if guard else []
+        if skip_trivial:
+            flags.append(live_digit_flags(words, radix_bits))
+        read = torch.cat(flags).tolist()          # the call's one host read
+        if guard and read.pop(0):
+            return words, payloads
+        live = read if skip_trivial else None
     rides = [p.ndim == 1 and p.element_size() == 4 for p in payloads]
-    planes = list(words) + [p.view(torch.int32) for p, r in zip(payloads, rides) if r]
+    planes = list(words) + [p.contiguous().view(torch.int32)
+                            for p, r in zip(payloads, rides) if r]
     gathered = not all(rides)
     if gathered:
         planes.append(torch.arange(n, dtype=torch.int32, device=words[0].device))
@@ -78,6 +109,6 @@ def sort_words_lsd(words: Sequence[torch.Tensor],
         planes = list(cuda_kernels.lsd_scatter(w, planes, shift, radix_bits, tile, bases))
     perm = planes.pop().long() if gathered else None
     riding = iter(planes[len(words):])
-    out = tuple(next(riding).view(p.dtype) if r else hw_engine.gather(p, perm)
+    out = tuple(next(riding).view(p.dtype) if r else gather(p, perm)
                 for p, r in zip(payloads, rides))
     return tuple(planes[:len(words)]), out

@@ -881,6 +881,132 @@ def test_lsd_scatter_refuses_other_shapes(cuda):
                                                                     good.keys, 13)))
 
 
+# ---------------------------------------------------------------------------
+# K0: one plane of AUTO / HW_SORT on the card through the LSD radix sort
+
+
+def _gate_sizes():
+    from radix_sorting_tpu_torch.ops.hw_engine import LSD_MIN_KEYS
+    return {"below the gate": LSD_MIN_KEYS - 1, "at the gate": LSD_MIN_KEYS,
+            "above the gate": max(3_000_017, LSD_MIN_KEYS + 12_345)}
+
+
+@pytest.fixture
+def sort_spy(monkeypatch):
+    """The torch.sort calls made (the function and the method)."""
+    calls = [0]
+    real, real_method = torch.sort, torch.Tensor.sort
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    def spy_method(self, *a, **k):
+        calls[0] += 1
+        return real_method(self, *a, **k)
+    monkeypatch.setattr(torch, "sort", spy)
+    monkeypatch.setattr(torch.Tensor, "sort", spy_method)
+    return calls
+
+
+@pytest.mark.parametrize("where", ["below the gate", "at the gate", "above the gate"])
+def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where):
+    from radix_sorting_tpu_torch.ops import hw_engine
+    n = _gate_sizes()[where]
+    k0 = where != "below the gate"
+    w = rand_plane(n, n, cuda)
+    w[::7] = w[3]                                  # ties: stability shows
+    key = w ^ i32(1 << 31)
+    ref = torch.sort(key, stable=True)
+    pay = (torch.arange(n, dtype=torch.int64, device=cuda) * 3,
+           rand_plane(n, 5, cuda).view(torch.float32))
+    rt.reset_launch_counts()
+    (s,), _ = hw_engine.sort_words((w,), stable=False)
+    sw, perm = hw_engine.argsort_words((w,), torch.int64)
+    (gs,), (p8, p4) = hw_engine.sort_words_presort_guard((w,), pay)
+    counts = rt.launch_counts()
+    assert counts["lsd_sort"] == (3 if k0 else 0)
+    if k0:
+        assert counts["hist_multi"] == 3 and counts["lsd_scatter"] == 12
+    for got in (s, sw[0], gs):
+        assert torch.equal(got ^ i32(1 << 31), ref.values)
+    assert torch.equal(perm, ref.indices)
+    assert torch.equal(p8, pay[0][ref.indices])
+    assert torch.equal(p4.view(torch.int32), pay[1].view(torch.int32)[ref.indices])
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32], ids=str)
+def test_one_plane_sorts_above_the_gate_call_no_torch_sort(cuda, sort_spy, dtype):
+    n = _gate_sizes()["above the gate"]
+    bits = np.random.Generator(np.random.PCG64(21)).integers(
+        0, 1 << 32, size=n, dtype=np.uint32)
+    bits[::11] = bits[5]
+    x = torch.from_numpy(bits.view(np.int32)).to(cuda).view(dtype)
+    want = _oracle(bits, dtype)
+    perm_want = np.argsort(bits, kind="stable") if dtype == torch.uint32 else None
+    rt.reset_launch_counts()
+    got = rt.sort(x)
+    perm = rt.argsort(x, index_dtype=torch.int64)
+    sk, sv = rt.sort_pairs(x, {"i": torch.arange(n, device=cuda, dtype=torch.int32)})
+    assert sort_spy[0] == 0
+    assert rt.launch_counts()["lsd_sort"] == 3
+    assert np.array_equal(got.view(torch.int32).cpu().numpy().view(np.uint32), want)
+    assert np.array_equal(sk.view(torch.int32).cpu().numpy().view(np.uint32), want)
+    assert torch.equal(sv["i"].long(), perm)
+    if perm_want is not None:
+        assert np.array_equal(perm.cpu().numpy(), perm_want)
+
+
+def test_presorted_one_plane_launches_no_pass(cuda):
+    n = _gate_sizes()["above the gate"]
+    x = (torch.sort(rand_plane(n, 4, cuda) ^ i32(1 << 31)).values ^ i32(1 << 31)
+         ).view(torch.uint32)                      # ascending as u32
+    rt.reset_launch_counts()
+    assert torch.equal(rt.sort(x), x)
+    counts = rt.launch_counts()
+    assert counts["lsd_sort"] == 1 and counts["hist_multi"] == 1
+    assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
+
+
+def test_k0_raises_and_never_falls_back(cuda, sort_spy, monkeypatch):
+    def refused(*a, **k):
+        raise RuntimeError("launch refused")
+    monkeypatch.setattr(ck, "_launch", refused)
+    x = rand_plane(_gate_sizes()["above the gate"], 8, cuda).view(torch.uint32)
+    for call in (lambda: rt.sort(x), lambda: rt.argsort(x),
+                 lambda: rt.sort(x, config=rt.SortConfig(detect_presorted=False))):
+        with pytest.raises(RuntimeError):
+            call()
+    assert sort_spy[0] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
+def test_lsd_live_digits_come_from_hist_multi(cuda, monkeypatch, dtype):
+    """Strategy.LSD and K0 read their live digits from one hist_multi a
+    plane: the live-bit folds are never called on that path."""
+    from radix_sorting_tpu_torch.ops import probes
+
+    def folds(*a, **k):
+        raise AssertionError("probes.live_bit_mask ran on the LSD path")
+    monkeypatch.setattr(probes, "live_bit_mask", folds)
+    n = 2_000_003
+    width = 8 * torch.empty((), dtype=dtype).element_size()
+    ut = np.uint32 if width == 32 else np.uint64
+    bits = np.random.Generator(np.random.PCG64(width)).integers(
+        0, 1 << width, size=n, dtype=ut) & ut(0xF0F00000F0F0FFFF & ((1 << width) - 1))
+    x = torch.from_numpy(bits.view(np.int32 if width == 32 else np.int64)).to(cuda).view(dtype)
+    lsd = rt.SortConfig(strategy="lsd")
+    rt.reset_launch_counts()
+    got = rt.sort(x, config=lsd)
+    counts = rt.launch_counts()
+    assert np.array_equal(got.view(torch.int32 if width == 32 else torch.int64)
+                          .cpu().numpy().view(ut), np.sort(bits))
+    planes = width // 32
+    assert counts["hist_multi"] == planes
+    live = {32: 4, 64: 6}[width]       # lo 0xF0F0FFFF: four live digits; hi 0xF0F00000: two
+    assert counts["lsd_hist"] == counts["lsd_scatter"] == live
+
+
 def _bitonic_planes(n, planes, keys, seed, device, distinct=16):
     rng = np.random.Generator(np.random.PCG64(seed))
     out = [rng.integers(0, distinct, size=n).astype(np.uint32) for _ in range(keys)]

@@ -1,0 +1,233 @@
+"""K0, the port's sorter of one word plane, on the CPU.
+
+K0 is the LSD radix sort (``lsd_engine.sort_words_lsd`` at 8-bit digits,
+tiles of 8,192 keys) that ``hw_engine`` routes one plane on the card to.
+On CPU tensors the route is ``torch.sort``, K0's plain version; here it is
+monkeypatched to K0, so the AUTO / HW_SORT entry points run K0's pass
+structure with the plain versions of K1 ``hist_multi``, L1 and L2, and are
+held bit for bit against the JAX package on its CPU route (its ``lax.sort``).
+Every case shares one length, N = 20,000 (three tiles, the last short), so
+the JAX package compiles once a dtype and configuration; a spy shows each
+call went through K0. Also: the route itself (a pure function of device
+type, planes and n), and the live digits from one ``hist_multi`` read
+against the live-bit folds.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import radix_sorting_tpu as rst
+import radix_sorting_tpu_torch as rt
+from radix_sorting_tpu_torch.ops import cuda_kernels as ck
+from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine, probes
+
+from test_torch_api import assert_trees_equal, dup_keys, keys
+from test_torch_kdf import raw
+from test_torch_sort import jax_in
+
+N = 20_000
+
+
+def cfgs(**kw):
+    jcfg = rst.SortConfig(**kw)
+    return jcfg, rt.SortConfig.from_dict(dataclasses.asdict(jcfg))
+
+
+# ---------------------------------------------------------------------------
+# (a) the route
+
+
+@pytest.mark.parametrize("n_at", ["below", "gate", "index limit"])
+@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+def test_sorter_route(device_type, planes, n_at):
+    n = {"below": hw_engine.LSD_MIN_KEYS - 1, "gate": hw_engine.LSD_MIN_KEYS,
+         "index limit": 1 << 31}[n_at]
+    k0 = device_type == "cuda" and planes == 1 and n_at == "gate"
+    assert hw_engine.sorter_route(device_type, planes, n) == ("k0" if k0 else "torch.sort")
+
+
+def test_cpu_tensors_keep_torch_sort(monkeypatch):
+    """Without the patch a CPU plane above the gate takes torch.sort."""
+    def boom(*a, **k):
+        raise AssertionError("K0 ran on a CPU tensor")
+    monkeypatch.setattr(lsd_engine, "sort_words_lsd", boom)
+    monkeypatch.setattr(hw_engine, "LSD_MIN_KEYS", N // 2)
+    w = torch.from_numpy(keys("uint32", N, 1).view(np.int32))
+    (s,), _ = hw_engine.sort_words((w,), stable=False)
+    assert np.array_equal(s.numpy().view(np.uint32), np.sort(w.numpy().view(np.uint32)))
+
+
+# ---------------------------------------------------------------------------
+# (b) the entry points through K0's plain passes, against the JAX package
+
+
+@pytest.fixture
+def k0(monkeypatch):
+    """Route every one-plane sort to K0 on any device; the K0 calls made."""
+    calls = []
+    real_route, real_lsd = hw_engine.sorter_route, lsd_engine.sort_words_lsd
+
+    def route(device_type, planes, n):
+        return "k0" if planes == 1 else real_route(device_type, planes, n)
+
+    def lsd(words, payloads=(), **kw):
+        calls.append((len(words), len(payloads), kw))
+        return real_lsd(words, payloads, **kw)
+    monkeypatch.setattr(hw_engine, "sorter_route", route)
+    monkeypatch.setattr(lsd_engine, "sort_words_lsd", lsd)
+    return calls
+
+
+K0_ARGS = {"radix_bits": 8, "chunk": 8192, "skip_trivial": True}
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name", ["uint32", "int32", "float32"])
+def test_sort_through_k0_matches_jax(k0, name, descending):
+    x = keys(name, N, 3 + descending)            # float32: +-0, +-inf, NaN payloads
+    jcfg, tcfg = cfgs(descending=descending)
+    want = np.asarray(rst.sort(jax_in(x), config=jcfg))
+    got = rt.sort(x, config=tcfg, device="cpu")
+    assert got.dtype == x.dtype and np.array_equal(raw(got), raw(want))
+    assert k0 == [(1, 0, dict(K0_ARGS, guard=True))]     # AUTO: the guarded sorter
+
+
+@pytest.mark.parametrize("index_dtype", [np.uint16, np.int32, np.int64, np.uint32])
+def test_argsort_through_k0_matches_jax(k0, index_dtype):
+    x = dup_keys("uint32", N, 5)
+    want = np.asarray(rst.argsort(jax_in(x), index_dtype=index_dtype))
+    got = rt.argsort(x, index_dtype=index_dtype, device="cpu")
+    assert got.dtype == np.dtype(index_dtype)
+    assert np.array_equal(got, want) and np.array_equal(got, np.argsort(x, kind="stable"))
+    assert k0 == [(1, 1, dict(K0_ARGS, guard=True))]     # the index rides L2
+
+
+def _leaves(which, seed):
+    rng = np.random.Generator(np.random.PCG64(seed))
+    f32 = rng.standard_normal(N).astype(np.float32)
+    i64 = rng.integers(-2**62, 2**62, size=N, dtype=np.int64)
+    return {"4-byte": {"f32": f32}, "8-byte": {"i64": i64},
+            "both": {"f32": f32, "i64": i64}}[which]
+
+
+@pytest.mark.parametrize("which", ["4-byte", "8-byte", "both"])
+def test_sort_pairs_through_k0_matches_jax(k0, which):
+    x = dup_keys("uint32", N, 7)
+    vals = _leaves(which, 8)
+    wk, wv = rst.sort_pairs(jax_in(x), {k: jax_in(v) for k, v in vals.items()})
+    gk, gv = rt.sort_pairs(x, vals, device="cpu")
+    assert np.array_equal(gk, np.asarray(wk))
+    assert_trees_equal(gv, wv)
+    assert k0 == [(1, len(vals), dict(K0_ARGS, guard=True))]
+
+
+def test_unique_with_counts_through_k0_matches_jax(k0):
+    x = dup_keys("uint32", N, 9)
+    got = rt.unique(x, return_counts=True, device="cpu")
+    want = rst.unique(jax_in(x), return_counts=True)
+    assert got._fields == want._fields
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or np.asarray(g).tobytes() == np.asarray(w).tobytes()
+    assert k0 and all(c[0] == 1 for c in k0)
+
+
+@pytest.mark.parametrize("name,mask", [("uint64", 0x0FFF00000000FFF0),   # 24 live bits:
+                                       ("uint32", 0x0001FFFF)])          # one operand; 2^17 bins
+def test_compacted_and_counting_fallbacks_through_k0_match_jax(k0, name, mask):
+    """u64 with 24 live bits sorts one compacted operand; u32 with 17 live
+    bits takes COUNTING, whose 2^17 bins at N keys fall back to the sorter."""
+    x = keys(name, N, 11)
+    x = (raw(x) & raw(x).dtype.type(mask)).view(x.dtype)
+    want = np.asarray(rst.sort(jax_in(x), value_mask=mask))
+    got = rt.sort(x, value_mask=mask, device="cpu")
+    assert np.array_equal(raw(got), raw(want)) and np.array_equal(got, np.sort(x))
+    assert len(k0) == 1 and k0[0][:2] == (1, 0)
+
+
+@pytest.mark.parametrize("detect_presorted", [True, False])
+def test_all_equal_keys_through_k0_launch_no_pass(k0, monkeypatch, detect_presorted):
+    passes = []
+    real = ck.lsd_scatter
+    monkeypatch.setattr(ck, "lsd_scatter", lambda *a: passes.append(a[2]) or real(*a))
+    x = np.full(N, 0xDEADBEEF, np.uint32)
+    jcfg, tcfg = cfgs(detect_presorted=detect_presorted)
+    want = np.asarray(rst.sort(jax_in(x), config=jcfg))
+    assert np.array_equal(rt.sort(x, config=tcfg, device="cpu"), want)
+    perm = rt.argsort(x, config=tcfg, device="cpu")
+    assert np.array_equal(perm, np.asarray(rst.argsort(jax_in(x), config=jcfg)))
+    assert passes == [] and k0
+
+
+def test_two_keys_through_k0_match_jax(k0):
+    x = np.array([0x80000001, 0x7FFFFFFF], np.uint32)
+    assert np.array_equal(rt.sort(x, device="cpu"), np.asarray(rst.sort(jax_in(x))))
+    assert np.array_equal(rt.argsort(x, device="cpu"), np.asarray(rst.argsort(jax_in(x))))
+    v = np.array([1.5, -2.5], np.float32)
+    gk, gv = rt.sort_pairs(x, v, device="cpu")
+    wk, wv = rst.sort_pairs(jax_in(x), jax_in(v))
+    assert np.array_equal(gk, np.asarray(wk)) and np.array_equal(gv, np.asarray(wv))
+    assert len(k0) == 3
+
+
+def test_strided_planes_through_k0(k0):
+    """A caller of hw_engine may pass views with a stride; K0's kernels read
+    dense planes."""
+    base = keys("uint32", 2 * N, 15)
+    w = torch.from_numpy(base.view(np.int32))[::2]
+    v = torch.arange(2 * N, dtype=torch.float32)[1::2]
+    (sk,), (sv,) = hw_engine.sort_words((w,), (v,))
+    order = np.argsort(base[::2], kind="stable")
+    assert np.array_equal(sk.numpy().view(np.uint32), base[::2][order])
+    assert np.array_equal(sv.numpy(), np.arange(1, 2 * N, 2, dtype=np.float32)[order])
+    assert k0 == [(1, 1, dict(K0_ARGS, guard=False))]
+
+
+def test_presorted_input_exits_before_any_pass(k0, monkeypatch):
+    """The guard's flag comes in the live digits' read; an ordered input
+    launches no pass and comes back as given."""
+    monkeypatch.setattr(ck, "lsd_scatter", lambda *a: pytest.fail("a pass ran"))
+    w = torch.from_numpy(np.sort(keys("uint32", N, 13)).view(np.int32))
+    p = torch.arange(N, dtype=torch.int64)
+    (s,), (q,) = hw_engine.sort_words_presort_guard((w,), (p,))
+    assert s.data_ptr() == w.data_ptr() and q is p
+
+
+# ---------------------------------------------------------------------------
+# (c) the live digits from one hist_multi read, against the folds
+
+
+def _crafted(case, seed):
+    """(hi, lo) planes of 1,000 keys."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    hi, lo = (rng.integers(0, 1 << 32, size=1000, dtype=np.uint32) for _ in range(2))
+    if case == "one constant digit":
+        lo = (lo & np.uint32(0xFFFF00FF)) | np.uint32(0x0000A500)
+    elif case == "one differing key":
+        hi[:], lo[:] = 0x12345678, 0x9ABCDEF0
+        lo[417] ^= np.uint32(1 << 13)
+    elif case == "all equal":
+        hi[:], lo[:] = 0xFFFFFFFF, 0x00000000
+    elif case == "dead top digit":                 # at r = 11: bits 22-31 of both words
+        hi &= np.uint32((1 << 22) - 1)
+        lo &= np.uint32((1 << 22) - 1)
+    return tuple(torch.from_numpy(a.view(np.int32)) for a in (hi, lo))
+
+
+@pytest.mark.parametrize("case", ["one constant digit", "one differing key", "all equal",
+                                  "dead top digit"])
+@pytest.mark.parametrize("radix_bits", range(1, 17))
+def test_live_digits_from_hist_multi_match_the_folds(radix_bits, case):
+    words = _crafted(case, radix_bits)
+    total = -(-32 // radix_bits) << radix_bits        # the card's launch takes the width too
+    assert ck.hist_shape_ok(ck.hist_shape(total), total)
+    got = lsd_engine.live_digit_flags(words, radix_bits)
+    want = probes.live_digit_mask(probes.live_bit_mask(words), radix_bits)
+    assert got.dtype == torch.bool and tuple(got.tolist()) == want
+    if case == "all equal":
+        assert not any(want)
+    if case == "dead top digit" and radix_bits == 11:
+        assert want == (True, True, False, True, True, False)
