@@ -38,9 +38,14 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      digit (r = 8 and 16), all keys one digit (r = 16: whole tiles of
      65,536 keys in one bin), and three planes 1, 2 and 3 words off the
      16-byte grid (r = 8 and 11);
-     lsd_sort (K0: hist_multi, then L1 and L2 a live digit) against its plain
-     version, torch.sort(stable=True) of the signed key, at LSD_MIN_KEYS and
-     n keys: keys-only, argsort, sort_pairs with a 4- and an 8-byte payload;
+     k0_sweep (K0's pass: L2's staged form with a decoupled look-back) against
+     its plain version at n keys: the keys alone, the index born as the
+     position (int32, and int64 as a last pass), an index plane written as
+     int64 behind a payload, keys of which 90% or all share the digit;
+     lsd_sort (K0: hist_multi, then one k0_sweep a live digit) against
+     torch.sort(stable=True) of the signed key, at LSD_MIN_KEYS and n keys:
+     keys-only, argsort (int64 and uint32 indices), sort_pairs with a 4- and
+     an 8-byte payload;
      bitonic (K12) at 1,024, 4,097 and 131,072 keys: one key plane, (hi, lo)
      keys, (key, index) keys with a payload, and 16 key values with a
      payload and num_keys=1, whose records must stay a permutation (R1);
@@ -130,8 +135,9 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      the default mesh over the visible cards; each against numpy, with its
      size, time, peak device memory and launches;
      the headline case (full-entropy u32, AUTO) must run K0 alone (hist_multi
-     1, lsd_hist 4, lsd_scatter 4, lsd_sort 1, no torch.sort), and each LSD
-     case one hist_multi a plane; each case prints its torch.sort calls;
+     1, k0_sweep 4, lsd_sort 1; no lsd_hist, lsd_scatter or torch.sort), and
+     each LSD case one hist_multi a plane; each case prints its torch.sort
+     calls;
   5. require every kernel's launch count from phase 4 to be non-zero (K0's
      lsd_sort among them), and print the torch.sort calls of phase 4 (two or
      more planes, fewer than LSD_MIN_KEYS keys, the batched sorts);
@@ -156,12 +162,15 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      torch.unique(torch.cat);
      K0 (keys-only) beside its plain version (hw_engine's torch.sort route)
      and torch.sort of the signed key, with the device time of all its
-     kernels; the AUTO sort, argsort and sort_pairs (f32 payload) of the n
-     u32 keys (K0) beside torch.sort of the same signed key (stable, and a
-     gather, where they carry an index or payload), and the LSD sort of the
-     u64 keys beside the AUTO sort and torch.sort int64, in turns; the sweep
-     of scripts/k0_gate.py (K0 against torch.sort, keys-only and argsort, at
-     n = 2^12 to 2^26 and 40M) and the gate it gives;
+     kernels; k0_sweep one pass in each form the main path gives it (keys
+     alone, an argsort's first and last pass) beside its plain version, with
+     its device time; the AUTO sort, argsort (uint32 and int64 indices) and
+     sort_pairs (f32 payload) of the n u32 keys (K0) beside torch.sort of
+     the same signed key (stable, and a gather, where they carry an index or
+     payload), and the LSD sort of the u64 keys beside the AUTO sort and
+     torch.sort int64, in turns; the sweep of scripts/k0_gate.py (K0 against
+     torch.sort, keys-only and argsort with int64 and uint32 indices, at
+     n = 2^12 to 2^26 and 40M) and the gates it gives;
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
      with its byte bound (12 bytes a key for each live pass: L1 reads the
@@ -708,11 +717,45 @@ def main() -> None:
         del gp, rp, bases
         print(f"[3 kernel] lsd_hist and lsd_scatter r={bits} tile={tile} {label}, "
               f"{len(planes)} planes: equal to plain (max |err| 0)", flush=True)
-    del skew90, one_digit, grid, views
-    # K0, the sorter of one plane (hist_multi, then L1 and L2 a live digit),
-    # against its plain version, torch.sort, at the gate and at n keys:
-    # keys-only, argsort, and sort_pairs with a 4-byte payload (it rides L2)
-    # and an 8-byte one (gathered through the index plane)
+    del grid, views
+    # K0's sweep (one launch a live digit: L2's staged form with the
+    # look-back) against its plain version at n keys, one pass each: the keys
+    # alone, the index born as the position (int32, and int64 where it is
+    # also the last pass), an index plane written as int64 behind a payload,
+    # and keys of which 90% or all share the digit (every look-back on one
+    # column); the starts the exclusive scan of the digit's histogram
+    def sweep_starts(keys_in, shift):
+        h = torch.bincount(((keys_in >> shift) & 0xFF).long(), minlength=256)
+        return (torch.cumsum(h, 0) - h).to(torch.int32)
+
+    sweep_cases = [("keys alone", w, 0, (w,), False, torch.int32),
+                   ("index born, int32", w, 8, (w,), True, torch.int32),
+                   ("index born, int64", w, 16, (w, lo64), True, torch.int64),
+                   ("index plane to int64", w, 24, (lo64, w, idx32), False, torch.int64),
+                   ("90% one digit", skew90, 8, (skew90,), True, torch.int64),
+                   ("all one digit", one_digit, 0, (one_digit,), True, torch.int32)]
+    for label, keys_in, shift, planes, position, index_dtype in sweep_cases:
+        starts = sweep_starts(keys_in, shift)
+        got = ck.k0_sweep(keys_in, planes, shift, 8, ck.K0_SWEEP_TILE, starts,
+                          ck.k0_sweep_status(n, dev), 1, position=position,
+                          index_dtype=index_dtype)
+        ref = ck.k0_sweep_plain(keys_in, planes, shift, 8, ck.K0_SWEEP_TILE, starts,
+                                position=position, index_dtype=index_dtype)
+        torch.cuda.synchronize()
+        if [g.dtype for g in got] != [r.dtype for r in ref]:
+            fail(f"k0_sweep {label}: dtypes {[g.dtype for g in got]}")
+        err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+        errs["k0_sweep"] = max(errs["k0_sweep"], err)
+        if err:
+            fail(f"k0_sweep {label}: max |err| {err}")
+        del got, ref
+        print(f"[3 kernel] k0_sweep {label} (shift {shift}, {len(planes) + position} planes, "
+              f"index {index_dtype}): equal to plain (max |err| 0)", flush=True)
+    # K0, the sorter of one plane (hist_multi, then one k0_sweep a live
+    # digit), against torch.sort(stable=True), at the gate and at n keys:
+    # keys-only, argsort with int64 and uint32 indices, and sort_pairs with a
+    # 4-byte payload (it rides the sweep) and an 8-byte one (gathered through
+    # the index)
     pay4 = lo64.view(torch.float32)
     for m in [m for m in sorted({hw_engine.LSD_MIN_KEYS, n}) if m <= n]:
         km = w[:m]
@@ -720,21 +763,27 @@ def main() -> None:
         before = ck.LAUNCHES["lsd_sort"]
         (got,), _ = hw_engine.sort_words((km,), stable=False)
         _, perm = hw_engine.argsort_words((km,), torch.int64)
+        _, perm32 = hw_engine.argsort_words((km,), torch.uint32)
         (pk,), (p4, p8) = hw_engine.sort_words((km,), (pay4[:m], keys64_t[:m]))
         torch.cuda.synchronize()
-        if ck.LAUNCHES["lsd_sort"] != before + 3:
-            fail(f"K0 n={m}: {ck.LAUNCHES['lsd_sort'] - before} of 3 calls took K0")
+        if ck.LAUNCHES["lsd_sort"] != before + 4:
+            fail(f"K0 n={m}: {ck.LAUNCHES['lsd_sort'] - before} of 4 calls took K0")
+        if perm.dtype != torch.int64 or perm32.dtype != torch.uint32:
+            fail(f"K0 n={m}: argsort dtypes {perm.dtype}, {perm32.dtype}")
         want_keys = ref.values ^ i32(1 << 31)
         err = max(max_err(got, want_keys), max_err(pk, want_keys),
                   int((perm - ref.indices).abs().max()),
+                  int((perm32.view(torch.int32).long() - ref.indices).abs().max()),
                   max_err(p4.view(torch.int32), lo64[:m][ref.indices]),
                   int((p8 - keys64_t[:m][ref.indices]).abs().max()))
         errs["lsd_sort"] = max(errs["lsd_sort"], err)
         if err:
             fail(f"K0 n={m}: max |err| {err} against torch.sort")
-        del ref, got, perm, pk, p4, p8, want_keys
-        print(f"[3 kernel] lsd_sort (K0) n={m}: keys-only, argsort and sort_pairs (4- and "
-              "8-byte payloads) equal to torch.sort(stable=True) (max |err| 0)", flush=True)
+        del ref, got, perm, perm32, pk, p4, p8, want_keys
+        print(f"[3 kernel] lsd_sort (K0) n={m}: keys-only, argsort (int64 and uint32) and "
+              "sort_pairs (4- and 8-byte payloads) equal to torch.sort(stable=True) "
+              "(max |err| 0)", flush=True)
+    del skew90, one_digit
     # K12: the records of equal key tuples must stay a permutation (R1)
     for m in (1024, 4097, 131_072):
         dup, iota = w[:m] & 15, idx32[:m]
@@ -1676,9 +1725,9 @@ def main() -> None:
         if name.startswith("LSD u") and "value_mask" not in name and \
                 counts.get("hist_multi") != (2 if "u64" in name else 1):
             fail(f"{name}: launches {counts}, one hist_multi a plane expected")
-    # the headline runs K0: the live digits from one K1 read, four passes,
-    # no torch.sort
-    k0_want = {"hist_multi": 1, "lsd_hist": 4, "lsd_scatter": 4, "lsd_sort": 1}
+    # the headline runs K0: the live digits and starts from one K1 read, one
+    # sweep a live digit (no L1, no L2), no torch.sort
+    k0_want = {"hist_multi": 1, "k0_sweep": 4, "lsd_sort": 1}
     for (name, *_), counts, sorts in zip(inputs, case_launches, case_sorts):
         if name == "u32 full entropy (sorter)" and (sorts or counts != k0_want):
             fail(f"{name}: launches {counts} and {sorts} torch.sort calls; K0 alone, "
@@ -2007,6 +2056,32 @@ def main() -> None:
     kernel = lambda: hw_engine.sort_words((w,), stable=False)
     row("lsd_sort", None, n * 8, kernel, k0_plain, lambda: torch.sort(key32),
         digits=8, device_ms=device_trace(kernel)[1])
+    # K0's sweep, one pass at n keys in each form the main path gives it (the
+    # keys alone; the first pass of an argsort, the index born; its last
+    # pass, the index read and written as int64), beside its plain version;
+    # no one torch call computes a pass. One status buffer serves every
+    # timed call, each its own epoch, as the passes of a call share it. The
+    # bound: the planes read and written once, the index read by no first
+    # pass and written 8 bytes a key by a wide last one.
+    sweep_status, sweep_epoch = ck.k0_sweep_status(n, dev), [0]
+    starts0 = sweep_starts(w, 0)
+
+    def sweep_call(planes, position, index_dtype):
+        def run():
+            sweep_epoch[0] += 1
+            return ck.k0_sweep(w, planes, 0, 8, ck.K0_SWEEP_TILE, starts0, sweep_status,
+                               sweep_epoch[0], position=position, index_dtype=index_dtype)
+        return run
+    for form, planes, position, index_dtype, nbytes in (
+            ("keys alone", (w,), False, torch.int32, n * 8),
+            ("first argsort pass: index born", (w,), True, torch.int32, n * 12),
+            ("last argsort pass: index to int64", (w, idx32), False, torch.int64, n * 20)):
+        kernel = sweep_call(planes, position, index_dtype)
+        row("k0_sweep", 256, nbytes + 1024, kernel,
+            lambda: ck.k0_sweep_plain(w, planes, 0, 8, ck.K0_SWEEP_TILE, starts0,
+                                      position, index_dtype),
+            tile=ck.K0_SWEEP_TILE, form=form, device_ms=device_trace(kernel, "k0_sweep")[1])
+    del sweep_status
     def k12_trace(kernel, library):
         """K12's launches and device ms per sort, and torch.sort's device ms:
         the comparison free of host time and of the timer's noise."""
@@ -2114,7 +2189,8 @@ def main() -> None:
     k0_rows = {
         "sort": {"AUTO (K0)": lambda: rt.sort(xf),
                  "torch.sort int32": lambda: torch.sort(key32)},
-        "argsort": {"AUTO (K0)": lambda: rt.argsort(xf),
+        "argsort": {"AUTO (K0) uint32": lambda: rt.argsort(xf),
+                    "AUTO (K0) int64": lambda: rt.argsort(xf, index_dtype=torch.int64),
                     "torch.sort(stable=True) int32": lambda: torch.sort(key32, stable=True)},
         "sort_pairs, f32 payload": {
             "AUTO (K0)": lambda: rt.sort_pairs(xf, pay_f32_t),
@@ -2128,12 +2204,13 @@ def main() -> None:
         print(f"[6 k0] {label} of {n} keys, in turns: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
     del x64
-    # the sweep behind LSD_MIN_KEYS: K0 against torch.sort by n
+    # the sweep behind the gates: K0 against torch.sort by n
     gate = k0_gate.sweep(dev, seed=args.seed, reps=reps,
                          log=lambda line: print(f"[6 gate] {line}", flush=True))
     print(f"[6 gate] K0 no slower than torch.sort from n={gate['gate_sort']} on "
-          f"keys-only, from n={gate['gate_argsort']} on in the argsort, from "
-          f"n={gate['gate']} on in both; LSD_MIN_KEYS {hw_engine.LSD_MIN_KEYS}", flush=True)
+          f"keys-only, from n={gate['gate_argsort']} on in the int64 argsort, from "
+          f"n={gate['gate_argsort32']} on in the uint32 argsort, from n={gate['gate']} on "
+          f"in all three; LSD_MIN_KEYS {hw_engine.LSD_MIN_KEYS}", flush=True)
     # R4: what the stream's traffic model counts, beside E1 and copy_ on the
     # same n keys, E1 and copy_ in turns
     out_buf = torch.empty_like(w)
@@ -2247,8 +2324,11 @@ def main() -> None:
         "dma_copy": (f"{csrc}/sol.cu", "scripts/exp_sol_probe.py:117"),
         "msd_spread": (f"{csrc}/sol.cu", "scripts/exp_sol_round2.py:128"),
         "rdma_exchange": (f"{csrc}/exchange.cu", "radix_sorting_tpu/parallel/rdma.py:90"),
+        "k0_sweep": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/hw_engine.py:56 "
+                     "(lax.sort, no Pallas kernel; :75 for the argsort): K0's pass"),
         "lsd_sort": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/hw_engine.py:56 "
-                     "(lax.sort, no Pallas kernel; K0 also runs K1 hist_multi, hist.cu)"),
+                     "(lax.sort, no Pallas kernel; K0 runs K1 hist_multi, hist.cu, and "
+                     "k0_sweep)"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],

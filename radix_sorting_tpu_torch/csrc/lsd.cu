@@ -95,6 +95,42 @@
 //
 // The tile bounds the histogram: tiles * 2^bits int32 are written, scanned
 // and read once per pass, so the caller takes tiles of at least 2^bits keys.
+//
+// K0's sweep (rst_k0_sweep): one launch a live digit of K0, the port's
+// sorter of one plane (ops/hw_engine.py). It replaces no Pallas kernel but
+// XLA's lax.sort (radix_sorting_tpu/ops/hw_engine.py:56, and :75 for the
+// argsort with the index as a last key). Contract: for 8-bit digits and
+// tiles of 8,192 keys, out_p[starts[d(i)] + #{j < i : d(j) == d(i)}] =
+// in_p[i], with starts the exclusive scan of the digit's global histogram
+// (K0 reads every digit's in one K1 hist_multi); a null in_p is the
+// position i, and a wide out_p takes i's word zero-extended to 8 bytes.
+// What it removes from K0's L1 + scan + L2 pass (Onesweep, Adinets &
+// Merrill 2022): L1's second read of the keys, the (tiles, 256) counts
+// written and read, the scan's two transposes and cumsum; and for the
+// argsort the index plane's generic fill and first read (the first live
+// pass takes the position) and the int64 cast (the last live pass writes
+// the asked width).
+//   * The body is L2's staged form at (256 threads, 32 keys): one stage a
+//     tile, a digit a thread. The block takes its tile from a ticket
+//     (atomicAdd on a device counter), not blockIdx, so every tile it waits
+//     on belongs to a block already running.
+//   * Once the tile's counts are known, each thread publishes its digit's
+//     count in the tile's status word (tile 0: as inclusive). After the
+//     keys are staged in their slots, it looks back over the earlier
+//     tiles' words, summing counts to the first inclusive one, and
+//     publishes the tile's inclusive prefix; the wait overlaps the block's
+//     own scan and staging. Then the write-out as L2's.
+//   * Status words are 64 bits: (tag << 32) | count, so counts of up to
+//     n < 2^31 keys need no bits of their own. The tag carries the pass's
+//     epoch (2e aggregate, 2e + 1 inclusive), so one buffer of (tiles, 256)
+//     words and the ticket counter serve every pass of a call, zeroed once
+//     a call; pass e's tickets run from (e - 1) * tiles. Stores and loads
+//     are relaxed at GPU scope: the word itself is the only datum.
+//   * A look-back that polls one word 2^24 times traps (a failed launch,
+//     never a hung card); so does a ticket outside the pass.
+// Bound on the H100: bytes, each plane read once and written once a pass
+// (the index written alone by the first pass, 8 bytes a key by a wide last
+// pass), 2 KB of status words a tile; the rank's arithmetic is L2's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -119,10 +155,11 @@ constexpr int kUnroll = 4;                  // direct form: key loads in flight 
 #define RST_LSD_SHAPES(X) X(256, 8) X(256, 16) X(256, 32)
 
 struct Planes {
-  const uint32_t* in[kMaxPlanes];
+  const uint32_t* in[kMaxPlanes];   // K0's sweep: null for the index as each key's position
   uint32_t* out[kMaxPlanes];
   int count;
-  int digit;  // the index of the digit plane among them, or -1
+  int digit;      // the index of the digit plane among them, or -1
+  unsigned wide;  // K0's sweep: bit p set where out[p] takes 8-byte words (zero-extended)
 };
 
 // Shared-memory bytes of a staged L2 block: per-warp counters, the digits'
@@ -335,6 +372,24 @@ __device__ __forceinline__ int next_payload(const Planes& planes, int p) {
   return p == planes.digit ? p + 1 : p;
 }
 
+// A thread's K words of the plane `in` at the stage positions own_first +
+// 32k of the stage that starts at key s0 (0 past `valid`); with kPosition,
+// a null plane gives each key's position.
+template <bool kPosition, int K>
+__device__ __forceinline__ void load_stage(const uint32_t* in, long long s0, int own_first,
+                                           int valid, uint32_t (&v)[K]) {
+  if (kPosition && in == nullptr) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = static_cast<uint32_t>(s0 + own_first + k * 32);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = own_first + k * 32;
+    v[k] = p < valid ? __ldg(in + s0 + p) : 0u;
+  }
+}
+
 // Blocks an SM the registers allow: a thread holds 3K words (its keys or
 // destinations, the carried plane, its slots two to a word) and about 32
 // more.
@@ -343,13 +398,76 @@ constexpr int stage_blocks_per_sm() {
   return 65536 / (T * (3 * K + 32));
 }
 
-// Staged L2: one block of T threads per tile, the tile in stages of T * K
-// keys; shared memory (ints): counters [T / 32][bins], first [bins],
-// dest_off [bins], run [bins], 32 warp sums, slots [T * K].
-template <int T, int K>
-__global__ void __launch_bounds__(T, stage_blocks_per_sm<T, K>())
-lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long long n,
-                          int shift, int bits, long long tile, const int* __restrict__ bases) {
+// Where a staged block finds its tile and its digits' bases.
+// L2: tile blockIdx.x, the caller's (tiles, 2^bits) table of bases.
+struct TableBases {
+  static constexpr bool kLookBack = false;
+  const int* table;
+};
+
+// K0's sweep: the tile is a ticket, and a digit's base is its start (the
+// exclusive scan of the digit's global histogram) plus the keys of the
+// digit in earlier tiles, found by the decoupled look-back over `status`.
+// A status word is (tag << 32) | count: tag 2 * epoch for the tile's own
+// count (aggregate), 2 * epoch + 1 for its inclusive prefix; any smaller
+// tag is an earlier pass's word or the zero fill, not yet published.
+struct LookBack {
+  static constexpr bool kLookBack = true;
+  const int* starts;             // [2^bits]
+  unsigned long long* status;    // [tiles][2^bits], then the ticket counter
+  long long tiles;
+  unsigned epoch;                // the pass's number in the call, from 1
+};
+
+// Polls of one status word before a look-back gives up and traps: a launch
+// that fails, where a lost predecessor would otherwise hang the card.
+constexpr unsigned kSpinLimit = 1u << 24;
+
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" : : "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long status_word(unsigned tag, unsigned count) {
+  return (static_cast<unsigned long long>(tag) << 32) | count;
+}
+
+// The keys of digit d in the tiles before t: the predecessors' words summed
+// back to the first inclusive one; then t's own inclusive prefix is
+// published. Tile 0 published its inclusive count with its aggregate.
+__device__ unsigned look_back(const LookBack& lb, long long t, int d, int bins, int count) {
+  const unsigned aggregate = 2u * lb.epoch, inclusive = aggregate + 1u;
+  if (t == 0) return 0u;
+  unsigned prefix = 0u, spins = 0u;
+  for (long long j = t - 1;;) {
+    const unsigned long long s = load_relaxed(lb.status + j * bins + d);
+    const unsigned tag = static_cast<unsigned>(s >> 32);
+    if (tag < aggregate) {
+      if (++spins == kSpinLimit) __trap();
+      continue;
+    }
+    prefix += static_cast<unsigned>(s);
+    if (tag == inclusive) break;
+    --j;
+  }
+  store_relaxed(lb.status + t * bins + d, status_word(inclusive, prefix + count));
+  return prefix;
+}
+
+// The staged form, one block of T threads per tile, the tile in stages of
+// T * K keys; shared memory (ints): counters [T / 32][bins], first [bins],
+// dest_off [bins], run [bins], 32 warp sums, slots [T * K]. With LookBack
+// the tile is one stage (the entry refuses any other) and `run` holds the
+// tile's count of each digit until the look-back.
+template <int T, int K, class Bases>
+__device__ __forceinline__ void staged_scatter(const uint32_t* __restrict__ w, Planes planes,
+                                               long long n, int shift, int bits, long long tile,
+                                               const Bases& bases) {
   constexpr int kWarps = T / 32;
   constexpr int kStage = T * K;
   extern __shared__ int smem[];
@@ -362,11 +480,27 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
   int* run = dest_off + bins;                 // [bins]: the tile's bases past earlier stages
   int* warp_sums = run + bins;                // [32]
   uint32_t* slots = reinterpret_cast<uint32_t*>(warp_sums + 32);  // [kStage]
-  const long long t = blockIdx.x;
+  long long t = blockIdx.x;
+  const int* base_row = nullptr;
+  if constexpr (Bases::kLookBack) {
+    // a ticket, not blockIdx: every tile this block waits on belongs to a
+    // block that took its ticket first, so is running or done
+    __shared__ long long ticket;
+    if (threadIdx.x == 0) {
+      const long long got =
+          static_cast<long long>(atomicAdd(bases.status + bases.tiles * bins, 1ull)) -
+          static_cast<long long>(bases.epoch - 1) * bases.tiles;
+      if (got < 0 || got >= bases.tiles) __trap();  // status not zeroed, or a pass skipped
+      ticket = got;
+    }
+    __syncthreads();
+    t = ticket;
+  } else {
+    base_row = bases.table + t * bins;
+  }
   const long long tile_first = t * tile;
   const long long tile_end = min(n, tile_first + tile);
-  const bool staged_run = tile_end - tile_first > kStage;
-  const int* base_row = bases + t * bins;
+  const bool staged_run = !Bases::kLookBack && tile_end - tile_first > kStage;
   if (staged_run) {
     for (int d = threadIdx.x; d < bins; d += T) run[d] = base_row[d];
   }
@@ -377,18 +511,9 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
   for (long long s0 = tile_first; s0 < tile_end; s0 += kStage) {
     const int valid = static_cast<int>(min(static_cast<long long>(kStage), tile_end - s0));
     uint32_t key[K], carried[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int p = own_first + k * 32;
-      key[k] = p < valid ? __ldg(w + s0 + p) : 0u;
-    }
+    load_stage<false>(w, s0, own_first, valid, key);
     if (payload0 < planes.count) {
-      const uint32_t* in = planes.in[payload0] + s0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int p = own_first + k * 32;
-        carried[k] = p < valid ? __ldg(in + p) : 0u;
-      }
+      load_stage<Bases::kLookBack>(planes.in[payload0], s0, own_first, valid, carried);
     }
     int4* counters4 = reinterpret_cast<int4*>(counters);
     for (int c = threadIdx.x; c < kWarps * bins / 4; c += T) counters4[c] = make_int4(0, 0, 0, 0);
@@ -408,7 +533,8 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
     __syncthreads();
 
     // per digit: each warp's first rank within the digit, and its count;
-    // the destination base of the digit
+    // the destination base of the digit (LookBack: the count published, the
+    // base found after the staging)
     for (int d = threadIdx.x; d < bins; d += T) {
       int sum = 0;
 #pragma unroll
@@ -418,7 +544,13 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
         sum += c;
       }
       first[d] = sum;
-      dest_off[d] = staged_run ? run[d] : base_row[d];
+      if constexpr (Bases::kLookBack) {
+        run[d] = sum;
+        const unsigned tag = 2u * bases.epoch + (t == 0 ? 1u : 0u);
+        store_relaxed(bases.status + t * bins + d, status_word(tag, sum));
+      } else {
+        dest_off[d] = staged_run ? run[d] : base_row[d];
+      }
     }
     __syncthreads();
     // the digits' first slots: an exclusive scan of the counts, a run of
@@ -432,7 +564,7 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
       int start = block_exclusive_sum(sum, warp_sums);
       for (int d = d0; d < d1; ++d) {
         const int count = first[d];
-        const int base = dest_off[d];
+        const int base = Bases::kLookBack ? 0 : dest_off[d];
         first[d] = start;
         dest_off[d] = base - start;
         if (staged_run) run[d] = base + count;
@@ -449,6 +581,11 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
         const uint32_t s = static_cast<uint32_t>(first[d] + own[d]) + slot.get(k);
         slot.set(k, s);
         slots[s] = key[k];
+      }
+    }
+    if constexpr (Bases::kLookBack) {
+      for (int d = threadIdx.x; d < bins; d += T) {
+        dest_off[d] += bases.starts[d] + static_cast<int>(look_back(bases, t, d, bins, run[d]));
       }
     }
     __syncthreads();
@@ -475,24 +612,47 @@ lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long lo
       }
       const int after = next_payload(planes, p);
       if (after < planes.count) {
-        const uint32_t* in = planes.in[after] + s0;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int q = own_first + k * 32;
-          carried[k] = q < valid ? __ldg(in + q) : 0u;
-        }
+        load_stage<Bases::kLookBack>(planes.in[after], s0, own_first, valid, carried);
       }
       __syncthreads();
-      uint32_t* out = planes.out[p];
+      if (Bases::kLookBack && ((planes.wide >> p) & 1u)) {
+        unsigned long long* out = reinterpret_cast<unsigned long long*>(planes.out[p]);
 #pragma unroll
-      for (int m = 0; m < K; ++m) {
-        const int j = m * T + threadIdx.x;
-        if (j < valid) out[dest[m]] = slots[j];
+        for (int m = 0; m < K; ++m) {
+          const int j = m * T + threadIdx.x;
+          if (j < valid) out[dest[m]] = slots[j];
+        }
+      } else {
+        uint32_t* out = planes.out[p];
+#pragma unroll
+        for (int m = 0; m < K; ++m) {
+          const int j = m * T + threadIdx.x;
+          if (j < valid) out[dest[m]] = slots[j];
+        }
       }
       p = after;
     }
     __syncthreads();  // before the next stage reuses the counters and slots
   }
+}
+
+// Staged L2.
+template <int T, int K>
+__global__ void __launch_bounds__(T, stage_blocks_per_sm<T, K>())
+lsd_scatter_staged_kernel(const uint32_t* __restrict__ w, Planes planes, long long n,
+                          int shift, int bits, long long tile, const int* __restrict__ bases) {
+  staged_scatter<T, K>(w, planes, n, shift, bits, tile, TableBases{bases});
+}
+
+// K0's sweep: L2's staged form at one stage a tile, with the look-back.
+constexpr int kSweepThreads = 256, kSweepKeys = 32;
+constexpr int kSweepBits = 8;                                  // a digit a thread
+constexpr long long kSweepTile = kSweepThreads * kSweepKeys;   // 8,192 keys
+
+__global__ void __launch_bounds__(kSweepThreads, stage_blocks_per_sm<kSweepThreads, kSweepKeys>())
+k0_sweep_kernel(const uint32_t* __restrict__ w, Planes planes, long long n, int shift,
+                LookBack lb) {
+  staged_scatter<kSweepThreads, kSweepKeys>(w, planes, n, shift, kSweepBits, kSweepTile, lb);
 }
 
 template <int T, int K>
@@ -555,6 +715,7 @@ extern "C" int rst_lsd_scatter(const void* keys, const void* const* in, void* co
   for (int i = 0; i < planes; ++i) {
     p.in[i] = static_cast<const uint32_t*>(in[i]);
     p.out[i] = static_cast<uint32_t*>(out[i]);
+    if (in[i] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (in[i] == keys) p.digit = i;
   }
   const uint32_t* k = static_cast<const uint32_t*>(keys);
@@ -579,5 +740,45 @@ extern "C" int rst_lsd_scatter(const void* keys, const void* const* in, void* co
   if (err != cudaSuccess) return static_cast<int>(err);
   lsd_scatter_kernel<<<static_cast<unsigned>(tiles), 32, 0, s>>>(
       k, p, n, shift, bits, tile, static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K0's sweep: one stable pass of the 8-bit digit at `shift` over tiles of
+// 8,192 keys, `planes` planes (at most 32) in one launch. `starts` holds the
+// digit's 256 global starts, `status` the call's zeroed (tiles x 256) status
+// words and ticket counter, `epoch` the pass's number in the call (1, 2, ...
+// on one status buffer). A null in[p] is the index as each key's position;
+// bit p of `wide` writes out[p] in 8-byte words. Anything else is refused.
+extern "C" int rst_k0_sweep(const void* keys, const void* const* in, void* const* out,
+                            int planes, unsigned wide, long long n, int shift, int bits,
+                            long long tile, const void* starts, void* status, int epoch,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (planes < 1 || planes > kMaxPlanes || bits != kSweepBits || tile != kSweepTile ||
+      shift < 0 || shift >= 32 || epoch < 1 || n < 0 || n >= (1LL << 31) || keys == nullptr ||
+      starts == nullptr || status == nullptr || (planes < 32 && (wide >> planes) != 0u)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tiles = (n + tile - 1) / tile;
+  if (tiles == 0) return 0;
+  Planes p{};
+  p.count = planes;
+  p.digit = -1;
+  p.wide = wide;
+  for (int i = 0; i < planes; ++i) {
+    p.in[i] = static_cast<const uint32_t*>(in[i]);
+    p.out[i] = static_cast<uint32_t*>(out[i]);
+    if (out[i] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (in[i] == keys) p.digit = i;
+  }
+  if (p.digit >= 0 && ((wide >> p.digit) & 1u)) return static_cast<int>(cudaErrorInvalidValue);
+  const LookBack lb{static_cast<const int*>(starts), static_cast<unsigned long long*>(status),
+                    tiles, static_cast<unsigned>(epoch)};
+  constexpr int smem = static_cast<int>(stage_smem(kSweepThreads, kSweepKeys, kSweepBits));
+  const cudaError_t err = cudaFuncSetAttribute(
+      k0_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k0_sweep_kernel<<<static_cast<unsigned>(tiles), kSweepThreads, smem, s>>>(
+      static_cast<const uint32_t*>(keys), p, n, shift, lb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,6 +72,10 @@ _SIGNATURES = {
     "rst_lsd_scatter": (_P, _PP, _PP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _P),
+    # keys, in planes (a null: the position), out planes, planes, wide mask, n, shift,
+    # bits, tile, starts, status, epoch, stream
+    "rst_k0_sweep": (_P, _PP, _PP, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, _P),
     # (planes, n) in, (planes, n) out, planes, keys, n, blocks, trip words, words, stream
     "rst_bitonic": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                     _P, ctypes.c_int, _P),

@@ -31,8 +31,9 @@ whist_f32               csrc/whist.cu   K11 ``_whist_f32_kernel`` (sums)
 bitonic                 csrc/bitonic.cu K12 ``vmem_sort._bitonic_kernel``
 lsd_hist                csrc/lsd.cu     L1, no Pallas kernel (LSD pass)
 lsd_scatter             csrc/lsd.cu     L2, no Pallas kernel (LSD pass)
+k0_sweep                csrc/lsd.cu     K0's pass, no Pallas kernel (``lax.sort``)
 lsd_sort                csrc/lsd.cu,    K0, no Pallas kernel: ``lax.sort`` of one
-                        csrc/hist.cu    plane (``hw_engine``: K1 + L1 + L2)
+                        csrc/hist.cu    plane (``hw_engine``: K1 + sweeps)
 dma_copy                csrc/sol.cu     E1 ``scripts/exp_sol_probe.py``
 msd_spread              csrc/sol.cu     E2 ``scripts/exp_sol_round2.py``
 rdma_exchange           csrc/exchange.cu K13 ``parallel/rdma.py::_exchange_kernel``
@@ -48,8 +49,10 @@ few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
 sort (per-tile digit histograms, stable scatter); the JAX package's LSD
 engine is XLA with no Pallas kernel, so they replace none. ``lsd_sort``
 counts the calls of K0, the port's sorter of one plane on the card
-(:mod:`.hw_engine`), which launches ``hist_multi`` once and L1 and L2 once
-a live digit; it replaces ``lax.sort``, which is no Pallas kernel either. E1 and E2 are
+(:mod:`.hw_engine`), which launches ``hist_multi`` once and ``k0_sweep``
+(L2's staged form with a decoupled look-back in place of L1 and the scan)
+once a live digit; it replaces ``lax.sort``, which is no Pallas kernel
+either. E1 and E2 are
 the kernels of the speed-of-light scripts (:mod:`..scripts`): a staged
 device-memory copy and the spread step of the two-level MSD sort. K13 is the
 all-to-all of the distributed tier (:mod:`..parallel.rdma`), one launch a
@@ -81,7 +84,8 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "whist_shape_candidates", "lsd_hist", "lsd_hist_plain", "lsd_scatter",
            "lsd_scatter_plain", "LSD_MAX_BITS", "LSD_STAGE_MAX_BITS", "LSD_STAGE_SHAPES",
            "LSD_SLOT_BITS", "LsdStageShape", "lsd_stage_smem", "lsd_stage_shapes",
-           "lsd_scatter_shape",
+           "lsd_scatter_shape", "k0_sweep", "k0_sweep_plain", "k0_sweep_status",
+           "K0_SWEEP_BITS", "K0_SWEEP_TILE", "K0_SWEEP_MAX_PLANES",
            "bitonic", "bitonic_plain",
            "bitonic_pad_len", "BITONIC_MIN_PAD", "bitonic_route", "bitonic_trips",
            "bitonic_swizzle", "bitonic_trip_dims", "BITONIC_REGISTER_PLANES",
@@ -95,7 +99,7 @@ LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
             "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
-            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0, "lsd_sort": 0,
+            "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0, "k0_sweep": 0, "lsd_sort": 0,
             "dma_copy": 0, "msd_spread": 0, "rdma_exchange": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
@@ -946,6 +950,126 @@ def _lsd_scatter_launch(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: 
                 threads, keys, smem)
         LAUNCHES["lsd_scatter"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K0's sweep: one launch a live digit of K0 (hw_engine), the look-back in
+# place of L1 and the scan
+
+K0_SWEEP_BITS = 8         # csrc/lsd.cu rst_k0_sweep: 8-bit digits, a digit a thread
+K0_SWEEP_TILE = 8192      # tiles of one stage of 256 x 32 keys
+K0_SWEEP_MAX_PLANES = 32  # planes one launch takes, the index among them
+_SWEEP_INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def k0_sweep_status(n: int, device) -> torch.Tensor:
+    """The zeroed status words of one K0 call of ``n`` keys: (tiles x 256)
+    words and the ticket counter, int64, one zero fill a call. Every pass
+    of the call uses it with its own ``epoch``, 1, 2, ... in order."""
+    tiles = -(-int(n) // K0_SWEEP_TILE)
+    return torch.zeros(tiles * (1 << K0_SWEEP_BITS) + 1, dtype=torch.int64, device=device)
+
+
+def _check_sweep(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+                 radix_bits: int, tile: int, starts: torch.Tensor, position: bool,
+                 index_dtype) -> None:
+    _check_lsd("k0_sweep", w, shift, radix_bits, tile)
+    _check_planes("k0_sweep", planes, w.shape[0], w.device)
+    if not 1 <= len(planes) + bool(position) <= K0_SWEEP_MAX_PLANES:
+        raise ValueError(f"k0_sweep: 1 to {K0_SWEEP_MAX_PLANES} planes a launch, "
+                         "the position among them")
+    if not torch.is_tensor(starts) or starts.dtype != torch.int32 \
+            or tuple(starts.shape) != (1 << radix_bits,) or not starts.is_contiguous() \
+            or starts.device != w.device:
+        raise ValueError(f"k0_sweep: starts must be a contiguous ({1 << radix_bits},) int32 "
+                         "tensor on the keys' device")
+    if index_dtype not in _SWEEP_INDEX_DTYPES:
+        raise ValueError("k0_sweep: the index is written as int32 or int64")
+    if index_dtype == torch.int64 and not position and planes[-1] is w:
+        raise ValueError("k0_sweep: the last plane, written as int64, is the index, "
+                         "not the digit plane")
+
+
+def k0_sweep_plain(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+                   radix_bits: int, tile: int, starts: torch.Tensor,
+                   position: bool = False, index_dtype=torch.int32) -> tuple:
+    """One stable pass: key i with digit d of ``w`` (the ``radix_bits``
+    bits at ``shift``) in tile t goes to ``starts[d]`` + (keys of digit d
+    in the tiles before t) + (its rank among the keys of d in tile t, from a
+    stable sort, as :func:`lsd_scatter_plain`), and every plane with it.
+    ``position``: one more plane, the index as each key's position.
+    ``index_dtype`` int64: the last plane (the index) comes out as int64,
+    its words zero-extended."""
+    _check_sweep(w, planes, shift, radix_bits, tile, starts, position, index_dtype)
+    n, bins = w.shape[0], 1 << radix_bits
+    tiles = -(-n // tile)
+    g = _tile_ids(n, tile, bins, probes.shift_right(w, shift) & (bins - 1))
+    counts = torch.bincount(g, minlength=tiles * bins)
+    earlier = (torch.cumsum(counts.view(tiles, bins), 0) - counts.view(tiles, bins)).view(-1)
+    order = torch.sort(g, stable=True).indices
+    first = torch.cumsum(counts, 0) - counts      # each (tile, digit) group's start in `order`
+    gs = g[order]
+    dest = torch.empty_like(order)
+    dest[order] = (starts.long()[gs % bins] + earlier[gs]
+                   + torch.arange(n, device=w.device) - first[gs])
+    planes = list(planes)
+    if position:
+        planes.append(torch.arange(n, dtype=torch.int32, device=w.device))
+    out = []
+    for i, p in enumerate(planes):
+        if index_dtype == torch.int64 and i == len(planes) - 1:
+            p = p.long() & 0xFFFFFFFF
+        o = torch.empty_like(p)
+        o[dest] = p
+        out.append(o)
+    return tuple(out)
+
+
+def k0_sweep(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+             radix_bits: int, tile: int, starts: torch.Tensor, status: torch.Tensor,
+             epoch: int, position: bool = False, index_dtype=torch.int32) -> tuple:
+    """The contract of :func:`k0_sweep_plain` in one launch: all planes of
+    the pass, the look-back over ``status`` (:func:`k0_sweep_status`, the
+    call's buffer; ``epoch`` the pass's number in the call, from 1) in
+    place of per-tile histograms and their scan. Built for 8-bit digits and
+    tiles of 8,192 keys only: anything else raises, as does a launch that
+    fails; nothing falls back."""
+    _check_sweep(w, planes, shift, radix_bits, tile, starts, position, index_dtype)
+    if radix_bits != K0_SWEEP_BITS or tile != K0_SWEEP_TILE:
+        raise ValueError(f"k0_sweep: built for {K0_SWEEP_BITS}-bit digits and tiles of "
+                         f"{K0_SWEEP_TILE} keys")
+    words = -(-w.shape[0] // tile) * (1 << radix_bits) + 1
+    if not torch.is_tensor(status) or status.dtype != torch.int64 \
+            or tuple(status.shape) != (words,) or not status.is_contiguous() \
+            or status.device != w.device:
+        raise ValueError(f"k0_sweep: status must be a contiguous ({words},) int64 tensor "
+                         "on the keys' device (k0_sweep_status)")
+    if int(epoch) < 1:
+        raise ValueError("k0_sweep: epoch counts the call's passes from 1")
+    if not use_gpu_routes(w):
+        return k0_sweep_plain(w, planes, shift, radix_bits, tile, starts, position,
+                              index_dtype)
+    return _k0_sweep_launch(w, planes, shift, radix_bits, tile, starts, status, epoch,
+                            position, index_dtype)
+
+
+def _k0_sweep_launch(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
+                     radix_bits: int, tile: int, starts: torch.Tensor, status: torch.Tensor,
+                     epoch: int, position: bool, index_dtype) -> tuple:
+    """The sweep's launch: a null input pointer for the position, the last
+    output int64 where ``index_dtype`` asks for it."""
+    n = w.shape[0]
+    ins = list(planes) + ([None] if position else [])
+    dtypes = [torch.int32] * (len(ins) - 1) + [index_dtype]
+    out = [torch.empty(n, dtype=dt, device=w.device) for dt in dtypes]
+    wide = 1 << (len(out) - 1) if index_dtype == torch.int64 else 0
+    if n == 0:
+        return tuple(out)
+    in_ptrs = (ctypes.c_void_p * len(ins))(*(None if p is None else p.data_ptr() for p in ins))
+    _launch("rst_k0_sweep", w.device, w.data_ptr(), in_ptrs, _pointers(out), len(out), wide,
+            n, shift, radix_bits, tile, starts.data_ptr(), status.data_ptr(), int(epoch))
+    LAUNCHES["k0_sweep"] += 1
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

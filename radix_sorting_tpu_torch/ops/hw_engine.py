@@ -3,17 +3,18 @@
 The counterpart of ``radix_sorting_tpu.ops.hw_engine``, whose sorter is XLA's
 ``lax.sort``, a library routine outside every Pallas kernel. Here the sorter
 of one word plane on the card is **K0**, the port's own LSD radix sort
-(:func:`.lsd_engine.sort_words_lsd` at 8-bit digits and tiles of 8,192 keys,
-the ``SortConfig`` defaults): the live digits from one K1 ``hist_multi`` read,
-then per live digit L1 ``lsd_hist``, the scan of :mod:`.scan` and L2
-``lsd_scatter`` (``csrc/hist.cu``, ``csrc/lsd.cu``), on the unsigned words
-themselves, with no sign flip. :func:`sorter_route` picks it on the host
-before any launch; a kernel that fails to build or launch raises, and the
-call never falls back. Every 1-D sorter call of the port comes through this
-module, so each one-plane sort above ``LSD_MIN_KEYS`` takes K0.
+(:func:`.lsd_engine.sort_words_k0` at 8-bit digits and tiles of 8,192 keys,
+the ``SortConfig`` defaults): the live digits and every digit's global
+starts from one K1 ``hist_multi`` read, then one ``k0_sweep`` launch per live
+digit, its tiles' prefixes from a decoupled look-back (``csrc/hist.cu``,
+``csrc/lsd.cu``), on the unsigned words themselves, with no sign flip.
+:func:`sorter_route` picks it on the host before any launch; a kernel that
+fails to build or launch raises, and the call never falls back. Every 1-D
+sorter call of the port comes through this module, so each one-plane sort
+and argsort from ``LSD_MIN_KEYS`` keys takes K0.
 
 ``torch.sort`` sorts the rest (ROADMAP.md, port queue item 2): keys of two or
-more planes, fewer than ``LSD_MIN_KEYS`` keys, and CPU tensors, where it is
+more planes, shorter planes, and CPU tensors, where it is
 K0's plain version (the same function). ``torch.sort`` takes one key tensor
 (``lax.sort`` takes ``num_keys``), so multi-plane keys are sorted in one of
 two ways:
@@ -30,8 +31,9 @@ Payloads (1-D planes, or ``(n, W)`` byte rows) follow the stable permutation
 through a gather (on K0, 4-byte payloads ride the scatter and the rest one
 index plane, :mod:`.lsd_engine`). ``argsort_words`` returns the stable
 permutation in place of the JAX package's index-as-last-key: the same
-permutation, the unique stable one (on K0 the index rides L2 as an int32
-plane).
+permutation, the unique stable one (on K0 the index is born as each key's
+position in the first live pass and written as int32 or int64 by the
+last).
 """
 
 from __future__ import annotations
@@ -46,14 +48,15 @@ from .kdf import INT32_MIN, SIGNED_VIEW, gather, join64, split64
 __all__ = ["sort_words", "argsort_words", "sort_words_presort_guard", "gather",
            "SIGNED_VIEW", "sorter_route", "LSD_MIN_KEYS"]
 
-# The fewest keys K0 sorts: from 2^25 on its keys-only sort was no slower
-# than torch.sort of the same signed key in every sweep of scripts/k0_gate.py
-# on an H100 (PERF.md). A call costs ~0.9 ms of host dispatch and one sync
-# at any n, so shorter planes go to torch.sort. Its argsort was slower at
-# every n, and takes the same gate (PERF.md gives why).
-LSD_MIN_KEYS = 1 << 25
-_K0_RADIX_BITS, _K0_CHUNK = 8, 8192
-_INDEX_LIMIT = 1 << 31     # K0's index plane is int32
+# The fewest keys K0 sorts and argsorts: from 2^24 on, K0's keys-only sort
+# and its argsort (int64 and uint32 indices) were faster than torch.sort of
+# the same signed key (stable=True for the argsort) at every n of five
+# sweeps of scripts/k0_gate.py on an H100; at 2^23 two of the five had the
+# keys-only sort, and four the argsort, slower (PERF.md). A call costs one
+# sync and 0.23 to 0.86 ms of host dispatch at any n, so shorter planes go
+# to torch.sort.
+LSD_MIN_KEYS = 1 << 24
+_INDEX_LIMIT = 1 << 31     # K0's index is born as an int32 position
 
 
 def sorter_route(device_type: str, planes: int, n: int) -> str:
@@ -71,11 +74,12 @@ def _takes_k0(words: Sequence[torch.Tensor]) -> bool:
     return sorter_route(w.device.type, len(words), int(w.shape[0])) == "k0"
 
 
-def _k0(words: tuple, payloads: tuple = (), guard: bool = False) -> Tuple[tuple, tuple]:
-    """K0: the stable LSD radix sort of one plane, carrying payloads;
+def _k0(words: tuple, payloads: tuple = (), guard: bool = False,
+        index_dtype=None) -> Tuple[tuple, tuple, torch.Tensor]:
+    """K0: the stable LSD radix sort of one plane, carrying payloads, and
+    the permutation as ``index_dtype`` (int32 / int64, or None: none);
     ``guard``: the presorted exit, read with the live digits in one sync."""
-    out = lsd_engine.sort_words_lsd(words, payloads, radix_bits=_K0_RADIX_BITS,
-                                    chunk=_K0_CHUNK, skip_trivial=True, guard=guard)
+    out = lsd_engine.sort_words_k0(words, payloads, guard=guard, index_dtype=index_dtype)
     if words[0].is_cuda:
         cuda_kernels.LAUNCHES["lsd_sort"] += 1
     return out
@@ -98,9 +102,9 @@ def _unkey(s: torch.Tensor, planes: int) -> Tuple[torch.Tensor, ...]:
 
 
 def _index_as(perm: torch.Tensor, index_dtype) -> torch.Tensor:
-    """K0's int32 permutation as ``index_dtype``: a view for 32-bit types
-    (every index is below 2^31), else a cast."""
-    if index_dtype in (torch.int32, torch.uint32):
+    """K0's int32 or int64 permutation as ``index_dtype``: a view for a
+    type of its width (every index is below 2^31), else a cast."""
+    if index_dtype.itemsize == perm.element_size() and not index_dtype.is_floating_point:
         return perm.view(index_dtype)
     return perm.to(index_dtype)
 
@@ -108,15 +112,16 @@ def _index_as(perm: torch.Tensor, index_dtype) -> torch.Tensor:
 def _stable_sort(words: Sequence[torch.Tensor], index_dtype=torch.int64,
                  guard: bool = False) -> Tuple[tuple, torch.Tensor]:
     """(sorted words, stable ascending permutation as ``index_dtype``) of
-    multi-plane keys. K0 carries an int32 index plane; on ``torch.sort`` one
+    multi-plane keys. K0 writes the index itself, 8 bytes wide where
+    ``index_dtype`` is, else 4; on ``torch.sort`` one
     or two planes sort as one key, whose sorted values are the sorted words
     (no gather), and more planes chain stable sorts over pairs. ``guard``:
     an ordered input's permutation is the identity, with no sort."""
     words = tuple(words)
     n, device = words[0].shape[0], words[0].device
     if _takes_k0(words):
-        iota = torch.arange(n, dtype=torch.int32, device=device)
-        sw, (perm,) = _k0(words, (iota,), guard)
+        wide = index_dtype.itemsize == 8
+        sw, _, perm = _k0(words, (), guard, torch.int64 if wide else torch.int32)
         return sw, _index_as(perm, index_dtype)
     if guard and bool(probes.is_sorted_words(words)):
         return words, torch.arange(n, device=device).to(index_dtype)
@@ -153,7 +158,7 @@ def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] =
     words, payloads = tuple(words), tuple(payloads)
     _check_stable(payloads, stable)
     if _takes_k0(words):
-        return _k0(words, payloads)
+        return _k0(words, payloads)[:2]
     if not payloads and len(words) <= 2:
         s = torch.sort(_key(words), stable=stable).values
         return _unkey(s, len(words)), ()
@@ -187,7 +192,7 @@ def sort_words_presort_guard(words: Sequence[torch.Tensor],
     words, payloads = tuple(words), tuple(payloads)
     if _takes_k0(words):
         _check_stable(payloads, stable)
-        return _k0(words, payloads, guard=True)
+        return _k0(words, payloads, guard=True)[:2]
     if bool(probes.is_sorted_words(words)):
         return words, payloads
     return sort_words(words, payloads, stable=stable)

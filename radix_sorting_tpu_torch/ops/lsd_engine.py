@@ -12,8 +12,12 @@ with its pass structure, for each live digit from the least significant
      (:func:`.cuda_kernels.lsd_scatter`, `radix_sort_u32.c:59-90`): within a
      tile the j-th key of a digit lands at its base + j.
 
-It serves ``Strategy.LSD`` and, for one plane on the card, the AUTO /
-HW_SORT sorter K0 (:mod:`.hw_engine`).
+It serves ``Strategy.LSD``. K0, the AUTO / HW_SORT sorter of one plane on
+the card (:mod:`.hw_engine`), runs the same loop with one launch a live
+digit, :func:`.cuda_kernels.k0_sweep`: the digits' global starts from the
+histograms the live-digit read already made (one cumsum), and each tile's
+prefix from a decoupled look-back in the launch, in place of L1 and the
+scan (:func:`sort_words_k0`).
 
 A digit that is the same in every key is skipped when ``skip_trivial`` is set
 (column skipping, `radix_sort.hpp:64-70`). The JAX package skips it on the
@@ -30,16 +34,16 @@ is unique, so neither the padding nor the tile changes a bit of it.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import cuda_kernels, probes
 from .histogram import chunked_digit_histogram
 from .kdf import gather
-from .scan import scatter_bases
+from .scan import exclusive_scan, scatter_bases
 
-__all__ = ["sort_words_lsd", "lsd_tile", "live_digit_flags"]
+__all__ = ["sort_words_lsd", "sort_words_k0", "lsd_tile", "live_digit_flags"]
 
 
 def lsd_tile(chunk: int, radix_bits: int) -> int:
@@ -50,15 +54,20 @@ def lsd_tile(chunk: int, radix_bits: int) -> int:
     return max(int(chunk), 1 << radix_bits)
 
 
+def _digit_hists(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Tensor:
+    """(digits, 2^radix_bits) int32: every digit's histogram, least
+    significant first across the words, one K1 ``hist_multi`` a plane."""
+    hists = [cuda_kernels.hist_multi(w, radix_bits) for w in reversed(tuple(words))]
+    return hists[0] if len(hists) == 1 else torch.cat(hists)
+
+
 def live_digit_flags(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Tensor:
     """(digits,) bool on the planes' device, one flag per digit position,
     least significant first across the words (the order of
     :func:`.probes.live_digit_mask`): True where the digit varies. One K1
     ``hist_multi`` a plane; a digit is dead where one of its bins holds all
     n keys. No host read."""
-    n = int(words[0].shape[0])
-    return torch.cat([cuda_kernels.hist_multi(w, radix_bits).max(dim=1).values != n
-                      for w in reversed(tuple(words))])
+    return _digit_hists(words, radix_bits).max(dim=1).values != int(words[0].shape[0])
 
 
 def sort_words_lsd(words: Sequence[torch.Tensor],
@@ -67,6 +76,7 @@ def sort_words_lsd(words: Sequence[torch.Tensor],
                    skip_trivial: bool = True, guard: bool = False) -> Tuple[tuple, tuple]:
     """Stable ascending LSD radix sort of int32 word planes (most
     significant first), carrying payloads: (sorted words, payloads).
+    Each live digit takes L1 + the scan + L2.
 
     The contract of :func:`.hw_engine.sort_words`. 1-D payloads of 4-byte
     elements ride the scatter as int32 views. Any other payload (8-, 2- or
@@ -78,37 +88,85 @@ def sort_words_lsd(words: Sequence[torch.Tensor],
     read with the live digits in one host read; an ordered input comes back
     as given and launches no pass.
     """
+    sw, out, _ = _sort(words, payloads, radix_bits, lsd_tile(chunk, radix_bits),
+                       skip_trivial, guard, None, sweep=False)
+    return sw, out
+
+
+def sort_words_k0(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] = (),
+                  guard: bool = False,
+                  index_dtype: Optional[torch.dtype] = None) -> Tuple[tuple, tuple, Optional[torch.Tensor]]:
+    """K0: :func:`sort_words_lsd` at 8-bit digits and tiles of 8,192 keys,
+    one :func:`.cuda_kernels.k0_sweep` a live digit: (sorted words,
+    payloads, the stable permutation as ``index_dtype``, int32 or int64, or
+    None where ``index_dtype`` is None).
+
+    The index, where one is asked for or a payload is gathered, is born in
+    the first live pass (each key's position) and written in its dtype by
+    the last; all planes of a pass go in one launch, so past
+    ``K0_SWEEP_MAX_PLANES`` every payload is gathered through the index.
+    With no live digit, or an ordered input under ``guard``, no pass runs
+    and the index is one ``torch.arange``.
+    """
+    if index_dtype not in (None, torch.int32, torch.int64):
+        raise ValueError("sort_words_k0: the index is int32 or int64")
+    return _sort(words, payloads, cuda_kernels.K0_SWEEP_BITS, cuda_kernels.K0_SWEEP_TILE,
+                 True, guard, index_dtype, sweep=True)
+
+
+def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard: bool,
+          index_dtype, sweep: bool):
+    """The loop of both engines: the one host read (the guard's flag, the
+    live digits), the planes that ride, one pass a live digit (``sweep``:
+    K0's sweep, else L1 + scan + L2), the gathers. Returns (sorted words,
+    payloads, index or None)."""
     words, payloads = tuple(words), tuple(payloads)
-    n = int(words[0].shape[0])
+    n, device = int(words[0].shape[0]), words[0].device
+    identity = lambda: None if index_dtype is None else torch.arange(
+        n, dtype=index_dtype, device=device)
     if n <= 1:
-        return words, payloads
+        return words, payloads, identity()
     words = tuple(w.contiguous() for w in words)      # the kernels read dense planes
-    live = None
+    digits_per_word = -(-32 // radix_bits)
+    live = [True] * (digits_per_word * len(words))
     if skip_trivial or guard:
         flags = [probes.is_sorted_words(words).view(1)] if guard else []
         if skip_trivial:
-            flags.append(live_digit_flags(words, radix_bits))
+            hists = _digit_hists(words, radix_bits)
+            flags.append(hists.max(dim=1).values != n)
+            if sweep:       # every digit's global starts, queued before the read
+                starts = exclusive_scan(hists, axis=1)
+                status = cuda_kernels.k0_sweep_status(n, device)
         read = torch.cat(flags).tolist()          # the call's one host read
         if guard and read.pop(0):
-            return words, payloads
-        live = read if skip_trivial else None
+            return words, payloads, identity()
+        if skip_trivial:
+            live = read
     rides = [p.ndim == 1 and p.element_size() == 4 for p in payloads]
+    indexed = index_dtype is not None or not all(rides)
+    if sweep and len(words) + sum(rides) + indexed > cuda_kernels.K0_SWEEP_MAX_PLANES:
+        rides, indexed = [False] * len(payloads), True   # one launch a pass: gather them all
     planes = list(words) + [p.contiguous().view(torch.int32)
                             for p, r in zip(payloads, rides) if r]
-    gathered = not all(rides)
-    if gathered:
-        planes.append(torch.arange(n, dtype=torch.int32, device=words[0].device))
-    tile = lsd_tile(chunk, radix_bits)
-    digits_per_word = -(-32 // radix_bits)
-    for p in range(digits_per_word * len(words)):
-        if live is not None and not live[p]:
-            continue
+    wide = torch.int64 if index_dtype == torch.int64 else torch.int32
+    if indexed and not sweep:
+        planes.append(torch.arange(n, dtype=torch.int32, device=device))
+    passes = [p for p in range(digits_per_word * len(words)) if live[p]]
+    for e, p in enumerate(passes, 1):
         w = planes[len(words) - 1 - p // digits_per_word]
         shift = (p % digits_per_word) * radix_bits
-        bases = scatter_bases(chunked_digit_histogram(w, shift, radix_bits, tile))
-        planes = list(cuda_kernels.lsd_scatter(w, planes, shift, radix_bits, tile, bases))
-    perm = planes.pop().long() if gathered else None
+        if sweep:
+            planes = list(cuda_kernels.k0_sweep(
+                w, planes, shift, radix_bits, tile, starts[p], status, e,
+                position=indexed and e == 1,
+                index_dtype=wide if indexed and e == len(passes) else torch.int32))
+        else:
+            bases = scatter_bases(chunked_digit_histogram(w, shift, radix_bits, tile))
+            planes = list(cuda_kernels.lsd_scatter(w, planes, shift, radix_bits, tile, bases))
+    if indexed and sweep and not passes:
+        planes.append(torch.arange(n, dtype=wide, device=device))
+    perm = planes.pop() if indexed else None
     riding = iter(planes[len(words):])
-    out = tuple(next(riding).view(p.dtype) if r else gather(p, perm)
+    out = tuple(next(riding).view(p.dtype) if r else gather(p, perm.long())
                 for p, r in zip(payloads, rides))
-    return tuple(planes[:len(words)]), out
+    return tuple(planes[:len(words)]), out, perm if index_dtype is not None else None

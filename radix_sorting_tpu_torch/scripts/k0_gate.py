@@ -3,14 +3,16 @@
 At each n (every power of two from 2^12 to 2^26, and 40,000,000 by
 default) full-entropy u32 keys from the seed are sorted keys-only and
 argsorted by K0 (``hw_engine.sort_words`` / ``argsort_words`` with the gate
-set to 0, so one plane on the card always takes K0) and by ``torch.sort`` of
-the same signed int32 key (``stable=True`` for the argsort, whose int64
-indices K0's argsort also returns), in turns (K0, torch.sort, torch.sort,
-K0; CUDA events over ``--reps`` calls each, the mean of the two turns).
-Each K0 output is checked bit for bit against torch.sort's first. A gate
-is the smallest n of the sweep from which K0 was no slower, at that n and
-every larger one (None if it never was): one for the keys-only sort, one
-for the argsort, and one for both.
+set to 0, so one plane on the card always takes K0), the argsort with int64
+indices (``sets.py``'s) and with uint32 ones (the default), and by
+``torch.sort`` of the same signed int32 key (``stable=True`` for the
+argsort, whose indices are int64), in turns (K0, torch.sort, torch.sort,
+K0; for the argsort K0 int64, K0 uint32, torch.sort and back; CUDA events
+over ``--reps`` calls each, the mean of the two turns). Each K0 output is
+checked bit for bit against torch.sort's first. A gate is the smallest n of
+the sweep from which K0 was no slower, at that n and every larger one (None
+if it never was): one for the keys-only sort, one for the argsort in each
+index dtype, and one for all three.
 
 Prints the card's name and power limit, one line an n, and one final JSON
 line (``"exp": "k0_gate"``). ``chip_smoke.py`` phase 6 runs :func:`sweep`.
@@ -88,36 +90,46 @@ def sweep(device, sizes=SIZES, seed: int = 20240601, reps: int = 10, log=print) 
         ref = torch.sort(key, stable=True)
         (got,), _ = _k0(lambda: hw_engine.sort_words((w,), stable=False))()
         _, perm = _k0(lambda: hw_engine.argsort_words((w,), torch.int64))()
-        if not (torch.equal(got ^ INT32_MIN, ref.values) and torch.equal(perm, ref.indices)):
+        _, perm32 = _k0(lambda: hw_engine.argsort_words((w,), torch.uint32))()
+        if not (torch.equal(got ^ INT32_MIN, ref.values) and torch.equal(perm, ref.indices)
+                and torch.equal(perm32.view(torch.int32).long(), ref.indices)):
             raise RuntimeError(f"k0_gate: K0 differs from torch.sort at n={n}")
-        del got, perm, ref
+        del got, perm, perm32, ref
         sort_ms = _turns({"k0": _k0(lambda: hw_engine.sort_words((w,), stable=False)),
                           "torch.sort": lambda: torch.sort(key)}, reps)
         arg_ms = _turns({"k0": _k0(lambda: hw_engine.argsort_words((w,), torch.int64)),
+                         "k0 u32": _k0(lambda: hw_engine.argsort_words((w,), torch.uint32)),
                          "torch.sort": lambda: torch.sort(key, stable=True)}, reps)
         row = {"n": n, "sort_k0_ms": sort_ms["k0"], "sort_torch_ms": sort_ms["torch.sort"],
-               "argsort_k0_ms": arg_ms["k0"], "argsort_torch_ms": arg_ms["torch.sort"]}
+               "argsort_k0_ms": arg_ms["k0"], "argsort32_k0_ms": arg_ms["k0 u32"],
+               "argsort_torch_ms": arg_ms["torch.sort"]}
         rows.append(row)
         log(f"n={n}: sort K0 {row['sort_k0_ms']:.4f} ms, torch.sort "
-            f"{row['sort_torch_ms']:.4f} ms; argsort K0 {row['argsort_k0_ms']:.4f} ms, "
-            f"torch.sort(stable=True) {row['argsort_torch_ms']:.4f} ms")
+            f"{row['sort_torch_ms']:.4f} ms; argsort K0 int64 {row['argsort_k0_ms']:.4f} ms, "
+            f"uint32 {row['argsort32_k0_ms']:.4f} ms, torch.sort(stable=True) "
+            f"{row['argsort_torch_ms']:.4f} ms")
         del w, key
-    def gate(*forms):
+    forms = {"sort": ("sort_k0_ms", "sort_torch_ms"),
+             "argsort": ("argsort_k0_ms", "argsort_torch_ms"),
+             "argsort32": ("argsort32_k0_ms", "argsort_torch_ms")}
+
+    def gate(*names):
         n_min = None
         for row in sorted(rows, key=lambda r: -r["n"]):
-            if any(row[f"{f}_k0_ms"] > row[f"{f}_torch_ms"] for f in forms):
+            if any(row[forms[f][0]] > row[forms[f][1]] for f in names):
                 break
             n_min = row["n"]
         return n_min
     return {"rows": rows, "gate_sort": gate("sort"), "gate_argsort": gate("argsort"),
-            "gate": gate("sort", "argsort"), "current": hw_engine.LSD_MIN_KEYS}
+            "gate_argsort32": gate("argsort32"), "gate": gate(*forms),
+            "current": hw_engine.LSD_MIN_KEYS}
 
 
 def profile(device, n: int, seed: int = 20240601, reps: int = 10, calls: int = 5,
             log=print) -> dict:
     """Where the time of a call goes at ``n`` keys, for K0 keys-only, K0's
-    argsort (int64 indices) and torch.sort of the signed key (unstable and
-    stable): the wall ms a call (CUDA events over ``reps`` calls), the device
+    argsort (int64 and uint32 indices) and torch.sort of the signed key
+    (unstable and stable): the wall ms a call (CUDA events over ``reps`` calls), the device
     busy ms a call and the kernels by device time (torch.profiler over
     ``calls`` calls), and for K0 keys-only the host's own time by Python
     function (cProfile over 20 calls, each ending in its one sync)."""
@@ -128,6 +140,7 @@ def profile(device, n: int, seed: int = 20240601, reps: int = 10, calls: int = 5
     key = w ^ INT32_MIN
     cases = {"K0 keys-only": _k0(lambda: hw_engine.sort_words((w,), stable=False)),
              "K0 argsort int64": _k0(lambda: hw_engine.argsort_words((w,), torch.int64)),
+             "K0 argsort uint32": _k0(lambda: hw_engine.argsort_words((w,), torch.uint32)),
              "torch.sort": lambda: torch.sort(key),
              "torch.sort(stable=True)": lambda: torch.sort(key, stable=True)}
     out = {"n": n}

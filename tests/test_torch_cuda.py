@@ -913,7 +913,7 @@ def sort_spy(monkeypatch):
 def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where):
     from radix_sorting_tpu_torch.ops import hw_engine
     n = _gate_sizes()[where]
-    k0 = where != "below the gate"
+    calls = 0 if where == "below the gate" else 3
     w = rand_plane(n, n, cuda)
     w[::7] = w[3]                                  # ties: stability shows
     key = w ^ i32(1 << 31)
@@ -925,9 +925,9 @@ def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where):
     sw, perm = hw_engine.argsort_words((w,), torch.int64)
     (gs,), (p8, p4) = hw_engine.sort_words_presort_guard((w,), pay)
     counts = rt.launch_counts()
-    assert counts["lsd_sort"] == (3 if k0 else 0)
-    if k0:
-        assert counts["hist_multi"] == 3 and counts["lsd_scatter"] == 12
+    assert counts["lsd_sort"] == calls
+    assert counts["hist_multi"] == calls and counts["k0_sweep"] == 4 * calls
+    assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
     for got in (s, sw[0], gs):
         assert torch.equal(got ^ i32(1 << 31), ref.values)
     assert torch.equal(perm, ref.indices)
@@ -965,7 +965,7 @@ def test_presorted_one_plane_launches_no_pass(cuda):
     assert torch.equal(rt.sort(x), x)
     counts = rt.launch_counts()
     assert counts["lsd_sort"] == 1 and counts["hist_multi"] == 1
-    assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
+    assert counts["lsd_hist"] == counts["lsd_scatter"] == counts["k0_sweep"] == 0
 
 
 def test_k0_raises_and_never_falls_back(cuda, sort_spy, monkeypatch):
@@ -978,6 +978,88 @@ def test_k0_raises_and_never_falls_back(cuda, sort_spy, monkeypatch):
         with pytest.raises(RuntimeError):
             call()
     assert sort_spy[0] == 0
+
+
+def _sweep_starts(w, shift):
+    """The exclusive scan of the 8-bit digit's global histogram."""
+    h = torch.bincount(((w >> shift) & 0xFF).long(), minlength=256)
+    return (torch.cumsum(h, 0) - h).to(torch.int32)
+
+
+def _sweep_matches_plain(w, planes, shift, position=False, index_dtype=torch.int32):
+    """One k0_sweep launch against its plain version, bit for bit."""
+    starts = _sweep_starts(w, shift)
+    status = ck.k0_sweep_status(w.shape[0], w.device)
+    before = ck.launch_counts()["k0_sweep"]
+    got = ck.k0_sweep(w, planes, shift, 8, ck.K0_SWEEP_TILE, starts, status, 1,
+                      position=position, index_dtype=index_dtype)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["k0_sweep"] == before + 1
+    want = ck.k0_sweep_plain(w, planes, shift, 8, ck.K0_SWEEP_TILE, starts,
+                             position=position, index_dtype=index_dtype)
+    assert [g.dtype for g in got] == [x.dtype for x in want]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+SWEEP_N = [1, 8191, 8193, 3 * 8192 + 5, 20_000_003]   # past 20M: ~2,400 tiles, 264 resident
+
+
+@pytest.mark.parametrize("index", ["none", "position int32", "position int64",
+                                   "plane int64"])
+@pytest.mark.parametrize("n", SWEEP_N)
+def test_k0_sweep_matches_plain(cuda, n, index):
+    w = rand_plane(n, n, cuda)
+    w[::7] = int(w[3 % n])                         # ties inside every tile
+    pay = rand_plane(n, n + 1, cuda)
+    idx = torch.randperm(n, device=cuda).to(torch.int32)
+    planes, kw = {"none": ((w, pay), {}),
+                  "position int32": ((w, pay), {"position": True}),
+                  "position int64": ((w, pay), {"position": True, "index_dtype": torch.int64}),
+                  "plane int64": ((pay, w, idx), {"index_dtype": torch.int64})}[index]
+    _sweep_matches_plain(w, planes, 8, **kw)
+
+
+@pytest.mark.parametrize("share", [1.0, 0.9])
+def test_k0_sweep_one_digit_spins_on_one_column(cuda, share):
+    """Every tile's keys in one digit: each look-back waits on one status
+    column, and the other digits' counts are zero all the way back."""
+    n = 20_000_003
+    w = rand_plane(n, 17, cuda)
+    w[: int(n * share)] = 0x5A5A5A5A
+    _sweep_matches_plain(w, (w,), 16, position=True, index_dtype=torch.int64)
+
+
+def test_k0_sweep_passes_share_one_status_by_epoch(cuda):
+    """Four passes on one status buffer (epochs 1 to 4) sort the plane and
+    bear its stable permutation, as torch.sort(stable=True)."""
+    n = 5_000_011
+    w = rand_plane(n, 23, cuda)
+    w[::5] = w[2]
+    ref = torch.sort(w ^ i32(1 << 31), stable=True)
+    status = ck.k0_sweep_status(n, cuda)
+    planes = (w,)
+    for e in range(1, 5):
+        planes = ck.k0_sweep(planes[0], planes, 8 * (e - 1), 8, ck.K0_SWEEP_TILE,
+                             _sweep_starts(w, 8 * (e - 1)), status, e, position=e == 1,
+                             index_dtype=torch.int64 if e == 4 else torch.int32)
+    assert torch.equal(planes[0] ^ i32(1 << 31), ref.values)
+    assert torch.equal(planes[1], ref.indices)
+
+
+def test_k0_sweep_refuses_other_shapes(cuda):
+    w = rand_plane(100_000, 1, cuda)
+    status = ck.k0_sweep_status(w.shape[0], cuda)
+    starts = _sweep_starts(w, 0)
+    starts11 = torch.zeros(1 << 11, dtype=torch.int32, device=cuda)
+    for bits, tile, st, planes, kw in (
+            (11, ck.K0_SWEEP_TILE, starts11, (w,), {}),        # digits of another width
+            (8, 4096, starts, (w,), {}),                         # another tile
+            (8, ck.K0_SWEEP_TILE, starts, (w,), {"index_dtype": torch.int64})):  # a wide key
+        with pytest.raises(RuntimeError):
+            ck._k0_sweep_launch(w, planes, 0, bits, tile, st, status, 1,
+                                kw.get("position", False), kw.get("index_dtype", torch.int32))
+    with pytest.raises(ValueError):                # the wrapper refuses before any launch
+        ck.k0_sweep(w, (w,), 0, 11, ck.K0_SWEEP_TILE, starts11, status, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)

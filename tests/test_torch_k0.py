@@ -1,16 +1,18 @@
 """K0, the port's sorter of one word plane, on the CPU.
 
-K0 is the LSD radix sort (``lsd_engine.sort_words_lsd`` at 8-bit digits,
-tiles of 8,192 keys) that ``hw_engine`` routes one plane on the card to.
-On CPU tensors the route is ``torch.sort``, K0's plain version; here it is
-monkeypatched to K0, so the AUTO / HW_SORT entry points run K0's pass
-structure with the plain versions of K1 ``hist_multi``, L1 and L2, and are
-held bit for bit against the JAX package on its CPU route (its ``lax.sort``).
+K0 is the LSD radix sort (``lsd_engine.sort_words_k0``: 8-bit digits,
+tiles of 8,192 keys, one ``k0_sweep`` a live digit) that ``hw_engine``
+routes one plane on the card to. On CPU tensors the route is ``torch.sort``,
+K0's plain version; here it is monkeypatched to K0, so the AUTO / HW_SORT
+entry points run K0's pass structure with the plain versions of K1
+``hist_multi`` and the sweep, and are held bit for bit against the JAX
+package on its CPU route (its ``lax.sort``).
 Every case shares one length, N = 20,000 (three tiles, the last short), so
 the JAX package compiles once a dtype and configuration; a spy shows each
 call went through K0. Also: the route itself (a pure function of device
-type, planes and n), and the live digits from one ``hist_multi`` read
-against the live-bit folds.
+type, planes and n), the live digits from one ``hist_multi`` read against
+the live-bit folds, and the sweep's plain version against L1 + scan + L2's
+(``scan.scatter_bases(lsd_hist_plain)`` and ``lsd_scatter_plain``).
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ import torch
 import radix_sorting_tpu as rst
 import radix_sorting_tpu_torch as rt
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
-from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine, probes
+from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine, probes, scan
 
 from test_torch_api import assert_trees_equal, dup_keys, keys
 from test_torch_kdf import raw
@@ -44,6 +46,9 @@ def cfgs(**kw):
 @pytest.mark.parametrize("planes", [1, 2, 3])
 @pytest.mark.parametrize("device_type", ["cuda", "cpu"])
 def test_sorter_route(device_type, planes, n_at):
+    """One gate for the sort and the argsort, 2^24: from there both beat
+    torch.sort in every sweep of scripts/k0_gate.py (PERF.md)."""
+    assert hw_engine.LSD_MIN_KEYS == 1 << 24
     n = {"below": hw_engine.LSD_MIN_KEYS - 1, "gate": hw_engine.LSD_MIN_KEYS,
          "index limit": 1 << 31}[n_at]
     k0 = device_type == "cuda" and planes == 1 and n_at == "gate"
@@ -54,11 +59,13 @@ def test_cpu_tensors_keep_torch_sort(monkeypatch):
     """Without the patch a CPU plane above the gate takes torch.sort."""
     def boom(*a, **k):
         raise AssertionError("K0 ran on a CPU tensor")
-    monkeypatch.setattr(lsd_engine, "sort_words_lsd", boom)
+    monkeypatch.setattr(lsd_engine, "sort_words_k0", boom)
     monkeypatch.setattr(hw_engine, "LSD_MIN_KEYS", N // 2)
     w = torch.from_numpy(keys("uint32", N, 1).view(np.int32))
     (s,), _ = hw_engine.sort_words((w,), stable=False)
     assert np.array_equal(s.numpy().view(np.uint32), np.sort(w.numpy().view(np.uint32)))
+    _, perm = hw_engine.argsort_words((w,), torch.int64)
+    assert np.array_equal(perm.numpy(), np.argsort(w.numpy().view(np.uint32), kind="stable"))
 
 
 # ---------------------------------------------------------------------------
@@ -69,20 +76,20 @@ def test_cpu_tensors_keep_torch_sort(monkeypatch):
 def k0(monkeypatch):
     """Route every one-plane sort to K0 on any device; the K0 calls made."""
     calls = []
-    real_route, real_lsd = hw_engine.sorter_route, lsd_engine.sort_words_lsd
+    real_route, real_k0 = hw_engine.sorter_route, lsd_engine.sort_words_k0
 
-    def route(device_type, planes, n):
-        return "k0" if planes == 1 else real_route(device_type, planes, n)
+    def route(device_type, planes, n, *a, **k):
+        return "k0" if planes == 1 else real_route(device_type, planes, n, *a, **k)
 
-    def lsd(words, payloads=(), **kw):
+    def sweep(words, payloads=(), **kw):
         calls.append((len(words), len(payloads), kw))
-        return real_lsd(words, payloads, **kw)
+        return real_k0(words, payloads, **kw)
     monkeypatch.setattr(hw_engine, "sorter_route", route)
-    monkeypatch.setattr(lsd_engine, "sort_words_lsd", lsd)
+    monkeypatch.setattr(lsd_engine, "sort_words_k0", sweep)
     return calls
 
 
-K0_ARGS = {"radix_bits": 8, "chunk": 8192, "skip_trivial": True}
+K0_ARGS = {"index_dtype": None}
 
 
 @pytest.mark.parametrize("descending", [False, True])
@@ -103,7 +110,8 @@ def test_argsort_through_k0_matches_jax(k0, index_dtype):
     got = rt.argsort(x, index_dtype=index_dtype, device="cpu")
     assert got.dtype == np.dtype(index_dtype)
     assert np.array_equal(got, want) and np.array_equal(got, np.argsort(x, kind="stable"))
-    assert k0 == [(1, 1, dict(K0_ARGS, guard=True))]     # the index rides L2
+    born = torch.int64 if np.dtype(index_dtype).itemsize == 8 else torch.int32
+    assert k0 == [(1, 0, dict(guard=True, index_dtype=born))]     # the sweep writes it
 
 
 def _leaves(which, seed):
@@ -151,8 +159,8 @@ def test_compacted_and_counting_fallbacks_through_k0_match_jax(k0, name, mask):
 @pytest.mark.parametrize("detect_presorted", [True, False])
 def test_all_equal_keys_through_k0_launch_no_pass(k0, monkeypatch, detect_presorted):
     passes = []
-    real = ck.lsd_scatter
-    monkeypatch.setattr(ck, "lsd_scatter", lambda *a: passes.append(a[2]) or real(*a))
+    real = ck.k0_sweep
+    monkeypatch.setattr(ck, "k0_sweep", lambda *a, **k: passes.append(a[2]) or real(*a, **k))
     x = np.full(N, 0xDEADBEEF, np.uint32)
     jcfg, tcfg = cfgs(detect_presorted=detect_presorted)
     want = np.asarray(rst.sort(jax_in(x), config=jcfg))
@@ -189,7 +197,7 @@ def test_strided_planes_through_k0(k0):
 def test_presorted_input_exits_before_any_pass(k0, monkeypatch):
     """The guard's flag comes in the live digits' read; an ordered input
     launches no pass and comes back as given."""
-    monkeypatch.setattr(ck, "lsd_scatter", lambda *a: pytest.fail("a pass ran"))
+    monkeypatch.setattr(ck, "k0_sweep", lambda *a, **k: pytest.fail("a pass ran"))
     w = torch.from_numpy(np.sort(keys("uint32", N, 13)).view(np.int32))
     p = torch.arange(N, dtype=torch.int64)
     (s,), (q,) = hw_engine.sort_words_presort_guard((w,), (p,))
@@ -231,3 +239,126 @@ def test_live_digits_from_hist_multi_match_the_folds(radix_bits, case):
         assert not any(want)
     if case == "dead top digit" and radix_bits == 11:
         assert want == (True, True, False, True, True, False)
+
+
+# ---------------------------------------------------------------------------
+# (d) the sweep: its plain version against L1 + scan + L2's, the index it
+# bears and writes, and what its wrapper refuses
+
+
+def _sweep_keys(case, seed):
+    x = np.random.Generator(np.random.PCG64(seed)).integers(0, 1 << 32, size=N,
+                                                           dtype=np.uint32)
+    if case == "90% one digit":
+        x[: N * 9 // 10] = 0x5A5A5A5A
+    elif case == "one differing key":
+        x[:] = 0x12345678
+        x[417] ^= np.uint32(0xFF << 8)
+    elif case == "all equal":
+        x[:] = 0xDEADBEEF
+    return torch.from_numpy(x.view(np.int32))
+
+
+def _starts(w, shift, radix_bits):
+    """The exclusive scan of the digit's global histogram."""
+    bins = 1 << radix_bits
+    h = torch.bincount((probes.shift_right(w, shift) & (bins - 1)).long(), minlength=bins)
+    return (torch.cumsum(h, 0) - h).to(torch.int32)
+
+
+@pytest.mark.parametrize("shift", [0, 8, 13])
+@pytest.mark.parametrize("tile", [8192, 7000, 1 << 15], ids=["short last tile",
+                                                             "tiles of 7,000", "one tile"])
+@pytest.mark.parametrize("case", ["random", "90% one digit", "one differing key",
+                                  "all equal"])
+def test_sweep_plain_matches_l1_scan_l2(case, tile, shift):
+    w = _sweep_keys(case, tile + shift)
+    pay = torch.from_numpy(np.arange(N, dtype=np.int32) * 7)
+    iota = torch.arange(N, dtype=torch.int32)
+    bases = scan.scatter_bases(ck.lsd_hist_plain(w, shift, 8, tile))
+    want = ck.lsd_scatter_plain(w, (w, pay, iota), shift, 8, tile, bases)
+    starts = _starts(w, shift, 8)
+    got = ck.k0_sweep_plain(w, (w, pay), shift, 8, tile, starts, position=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    wide = ck.k0_sweep_plain(w, (w, iota), shift, 8, tile, starts, index_dtype=torch.int64)
+    assert wide[1].dtype == torch.int64 and torch.equal(wide[1], want[2].long())
+    if tile == ck.K0_SWEEP_TILE:           # the wrapper on CPU tensors: the plain version
+        status = ck.k0_sweep_status(N, w.device)
+        again = ck.k0_sweep(w, (w, pay), shift, 8, tile, starts, status, 1, position=True)
+        assert all(torch.equal(a, b) for a, b in zip(again, want))
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=str)
+@pytest.mark.parametrize("live", ["four digits", "one digit", "no digit"])
+def test_sweep_bears_the_index_first_and_writes_its_dtype_last(monkeypatch, live,
+                                                               index_dtype):
+    """The first live pass takes the index as the position, the last writes
+    it in the asked dtype (one live digit: both at once; none: arange)."""
+    calls = []
+    real = ck.k0_sweep
+
+    def spy(w, planes, *a, position=False, index_dtype=torch.int32):
+        calls.append((len(planes), position, index_dtype))
+        return real(w, planes, *a, position=position, index_dtype=index_dtype)
+    monkeypatch.setattr(ck, "k0_sweep", spy)
+    x = _sweep_keys("random", 31).numpy().view(np.uint32)
+    x = {"four digits": x, "one digit": x & np.uint32(0x0000FF00),
+         "no digit": np.full(N, 0xC0FFEE, np.uint32)}[live]
+    w = torch.from_numpy(x.view(np.int32))
+    (sw,), (), perm = lsd_engine.sort_words_k0((w,), index_dtype=index_dtype)
+    order = np.argsort(x, kind="stable")
+    assert perm.dtype == index_dtype and np.array_equal(perm.numpy(), order)
+    assert np.array_equal(sw.numpy().view(np.uint32), x[order])
+    passes = {"four digits": 4, "one digit": 1, "no digit": 0}[live]
+    want = [(1 if e == 0 else 2, e == 0, index_dtype if e == passes - 1 else torch.int32)
+            for e in range(passes)]
+    assert calls == want
+
+
+def test_sweep_gathers_every_payload_past_its_plane_limit(monkeypatch):
+    """All planes of a pass go in one launch: past the limit the payloads
+    ride one index plane and are gathered once."""
+    seen = []
+    real = ck.k0_sweep
+    monkeypatch.setattr(ck, "k0_sweep",
+                        lambda w, planes, *a, **k: seen.append(len(planes)) or
+                        real(w, planes, *a, **k))
+    w = _sweep_keys("random", 41)
+    pays = tuple(torch.full((N,), float(i), dtype=torch.float32) + torch.arange(N)
+                 for i in range(ck.K0_SWEEP_MAX_PLANES))     # with the keys, one too many
+    (sw,), out, perm = lsd_engine.sort_words_k0((w,), pays)
+    order = np.argsort(w.numpy().view(np.uint32), kind="stable")
+    assert perm is None and seen == [1, 2, 2, 2]
+    assert all(np.array_equal(o.numpy(), p.numpy()[order]) for o, p in zip(out, pays))
+    (sw2,), out2, _ = lsd_engine.sort_words_k0((w,), pays[:2])     # under it: they ride
+    assert seen[4:] == [3, 3, 3, 3] and torch.equal(sw, sw2)
+    assert all(torch.equal(a, b) for a, b in zip(out[:2], out2))
+
+
+@pytest.mark.parametrize("bad", ["11-bit digits", "tiles of 4,096", "status short",
+                                 "epoch 0", "int64 digit plane", "int16 index",
+                                 "starts int64", "33 planes"])
+def test_sweep_wrapper_refuses_what_the_entry_was_not_built_for(bad):
+    w = _sweep_keys("random", 51)
+    args = dict(w=w, planes=(w,), shift=0, radix_bits=8, tile=ck.K0_SWEEP_TILE,
+                starts=_starts(w, 0, 8), status=ck.k0_sweep_status(N, w.device), epoch=1)
+    kw = {}
+    if bad == "11-bit digits":
+        args.update(radix_bits=11, starts=_starts(w, 0, 11))
+    elif bad == "tiles of 4,096":
+        args["tile"] = 4096
+    elif bad == "status short":
+        args["status"] = args["status"][1:]
+    elif bad == "epoch 0":
+        args["epoch"] = 0
+    elif bad == "int64 digit plane":
+        kw["index_dtype"] = torch.int64
+    elif bad == "int16 index":
+        kw.update(position=True, index_dtype=torch.int16)
+    elif bad == "starts int64":
+        args["starts"] = args["starts"].long()
+    elif bad == "33 planes":
+        args["planes"] = (w,) * ck.K0_SWEEP_MAX_PLANES
+        kw["position"] = True
+    with pytest.raises(ValueError):
+        ck.k0_sweep(*args.values(), **kw)
