@@ -39,6 +39,7 @@ from torch.utils import _pytree as pytree
 
 from .config import DEFAULT_CONFIG, SortConfig, Strategy
 from .ops import counting_engine, hw_engine, kdf, lsd_engine, probes
+from .utils.timing import ARGSORT, DECODE, ENCODE, READ, SORT, SORT_PAIRS, span
 
 __all__ = ["sort", "argsort", "rank_sort", "sort_pairs", "counting_sort",
            "sort_u64_multipass", "sort_batched", "argsort_batched",
@@ -77,12 +78,14 @@ def _as_words(x, descending: bool, device) -> Tuple[tuple, object, bool]:
     Returns (words, key dtype, from_numpy), as :func:`_as_input` gives them.
     """
     t, dtype, from_numpy = _as_input(x, device)
-    return kdf.encode(t, descending, dtype), dtype, from_numpy
+    with span(ENCODE):
+        return kdf.encode(t, descending, dtype), dtype, from_numpy
 
 
 def _decode(words, dtype, descending: bool, from_numpy: bool):
-    out = kdf.decode(words, dtype, descending)
-    return kdf.to_numpy(out, dtype) if from_numpy else out
+    with span(DECODE):
+        out = kdf.decode(words, dtype, descending)
+        return kdf.to_numpy(out, dtype) if from_numpy else out
 
 
 def _index_dtype(index_dtype) -> torch.dtype:
@@ -195,7 +198,9 @@ def _validate_value_mask(x, dtype, value_mask: int) -> None:
     if torch.is_tensor(x):
         bits_or = 0
         for p in kdf.raw_bits(x.contiguous(), dtype):
-            bits_or = (bits_or << 32) | (int(probes.or_reduce(p)) & 0xFFFFFFFF)
+            folded = probes.or_reduce(p)
+            with span(READ):
+                bits_or = (bits_or << 32) | (int(folded) & 0xFFFFFFFF)
     else:
         a = np.asarray(x)
         bits_or = int(np.bitwise_or.reduce(
@@ -278,16 +283,17 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
     ValueError instead. ``device`` places a numpy input (the CUDA device by
     default).
     """
-    cfg = config
-    words, dtype, from_numpy = _as_words(x, cfg.descending, device)
-    _reject_bytes_mask(dtype, value_mask)
-    n = int(words[0].shape[0])
-    if n <= 1:
-        return np.asarray(x).copy() if from_numpy else x.clone()
-    if value_mask is not None and validate_mask:
-        _validate_value_mask(x, dtype, value_mask)
-    sw = _sort_words(words, dtype, cfg, value_mask)
-    return _decode(sw, dtype, cfg.descending, from_numpy)
+    with span(SORT):
+        cfg = config
+        words, dtype, from_numpy = _as_words(x, cfg.descending, device)
+        _reject_bytes_mask(dtype, value_mask)
+        n = int(words[0].shape[0])
+        if n <= 1:
+            return np.asarray(x).copy() if from_numpy else x.clone()
+        if value_mask is not None and validate_mask:
+            _validate_value_mask(x, dtype, value_mask)
+        sw = _sort_words(words, dtype, cfg, value_mask)
+        return _decode(sw, dtype, cfg.descending, from_numpy)
 
 
 def _sort_lsd(words, payloads, cfg: SortConfig):
@@ -310,8 +316,9 @@ def _sort_words(words, dtype, cfg: SortConfig, value_mask: Optional[int] = None)
         if mask is None and cfg.dynamic_probe and len(words) <= 2:
             # the runtime column-skip probe (`radix_sort.hpp:64-70`, live-bit
             # form): dead bits are constant by measurement; one host read
-            measured = tuple(int(m) & 0xFFFFFFFF for m in
-                             torch.stack(probes.live_bit_mask(words)).tolist())
+            masks = torch.stack(probes.live_bit_mask(words))
+            with span(READ):
+                measured = tuple(int(m) & 0xFFFFFFFF for m in masks.tolist())
             if 0 < sum(bin(m).count("1") for m in measured) \
                     <= min(cfg.counting_max_bits, 32):
                 mask = measured
@@ -370,34 +377,35 @@ def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,
     ``value_mask`` (the promise of :func:`sort`) lets masked 64-bit keys
     with <= 32 live bits rank with ONE compacted key operand.
     """
-    cfg = config
-    words, dtype, from_numpy = _as_words(x, cfg.descending, device)
-    _reject_bytes_mask(dtype, value_mask)
-    n = int(words[0].shape[0])
-    idt = _index_dtype(index_dtype)
-    _check_index_width(n, idt)
-    if n > 1 and value_mask is not None and validate_mask:
-        _validate_value_mask(x, dtype, value_mask)
-    if n > 1 and cfg.strategy == Strategy.COUNTING:
-        raise ValueError(
-            "Strategy.COUNTING is keys-only (regeneration rebuilds values "
-            "from the histogram and cannot carry a permutation); use AUTO, "
-            "LSD, or HW_SORT for argsort")
-    if n > 1 and cfg.strategy == Strategy.LSD:
-        # the index rides as the one payload plane (no compaction, as in
-        # the JAX package)
-        iota = torch.arange(n, dtype=torch.int32, device=words[0].device)
-        perm = _sort_lsd(words, (iota,), cfg)[1][0].to(idt)
+    with span(ARGSORT):
+        cfg = config
+        words, dtype, from_numpy = _as_words(x, cfg.descending, device)
+        _reject_bytes_mask(dtype, value_mask)
+        n = int(words[0].shape[0])
+        idt = _index_dtype(index_dtype)
+        _check_index_width(n, idt)
+        if n > 1 and value_mask is not None and validate_mask:
+            _validate_value_mask(x, dtype, value_mask)
+        if n > 1 and cfg.strategy == Strategy.COUNTING:
+            raise ValueError(
+                "Strategy.COUNTING is keys-only (regeneration rebuilds values "
+                "from the histogram and cannot carry a permutation); use AUTO, "
+                "LSD, or HW_SORT for argsort")
+        if n > 1 and cfg.strategy == Strategy.LSD:
+            # the index rides as the one payload plane (no compaction, as in
+            # the JAX package)
+            iota = torch.arange(n, dtype=torch.int32, device=words[0].device)
+            perm = _sort_lsd(words, (iota,), cfg)[1][0].to(idt)
+            return kdf.to_numpy(perm) if from_numpy else perm
+        operands = _operands(words, _compaction_masks(words, value_mask, dtype, cfg))
+        # the presorted guard (`radix_sort.hpp:60-62`): an ordered input's
+        # stable permutation is the identity
+        if n <= 1:
+            perm = torch.arange(n, device=words[0].device).to(idt)
+        else:
+            _, perm = hw_engine.argsort_words(operands, index_dtype=idt,
+                                              guard=cfg.detect_presorted)
         return kdf.to_numpy(perm) if from_numpy else perm
-    operands = _operands(words, _compaction_masks(words, value_mask, dtype, cfg))
-    # the presorted guard (`radix_sort.hpp:60-62`): an ordered input's
-    # stable permutation is the identity
-    if n <= 1:
-        perm = torch.arange(n, device=words[0].device).to(idt)
-    else:
-        _, perm = hw_engine.argsort_words(operands, index_dtype=idt,
-                                          guard=cfg.detect_presorted)
-    return kdf.to_numpy(perm) if from_numpy else perm
 
 
 # Reference naming alias: rank sort == argsort (`radix_sort_rank.hpp:7`).
@@ -415,33 +423,34 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
     keys with <= 32 live bits ship one compacted key operand (a bijection on
     the masked domain, so the stable payload order is unchanged).
     """
-    cfg = config
-    words, dtype, from_numpy = _as_words(keys, cfg.descending, device)
-    _reject_bytes_mask(dtype, value_mask)
-    leaves, pmeta = _flatten_payload(values, words[0].device)
-    n = int(words[0].shape[0])
-    if n != (leaves[0].shape[0] if leaves else n):
-        raise ValueError("keys and payload lengths differ")
-    if value_mask is not None and validate_mask:
-        _validate_value_mask(keys, dtype, value_mask)
+    with span(SORT_PAIRS):
+        cfg = config
+        words, dtype, from_numpy = _as_words(keys, cfg.descending, device)
+        _reject_bytes_mask(dtype, value_mask)
+        leaves, pmeta = _flatten_payload(values, words[0].device)
+        n = int(words[0].shape[0])
+        if n != (leaves[0].shape[0] if leaves else n):
+            raise ValueError("keys and payload lengths differ")
+        if value_mask is not None and validate_mask:
+            _validate_value_mask(keys, dtype, value_mask)
 
-    if cfg.strategy == Strategy.COUNTING:
-        raise ValueError(
-            "Strategy.COUNTING is keys-only (regeneration rebuilds values "
-            "from the histogram and cannot carry a payload); use AUTO, LSD, "
-            "or HW_SORT for sort_pairs")
-    cmasks = _compaction_masks(words, value_mask, dtype, cfg)
-    operands = _operands(words, cmasks)
-    if cfg.strategy == Strategy.LSD:
-        sw, sp = _sort_lsd(operands, leaves, cfg)
-    elif cfg.detect_presorted:
-        sw, sp = hw_engine.sort_words_presort_guard(operands, leaves)
-    else:
-        sw, sp = hw_engine.sort_words(operands, leaves)
-    if cmasks is not None:
-        sw = probes.expand_word_planes(sw[0], words, cmasks)
-    sorted_keys = _decode(sw, dtype, cfg.descending, from_numpy)
-    return sorted_keys, _unflatten_payload(sp, pmeta)
+        if cfg.strategy == Strategy.COUNTING:
+            raise ValueError(
+                "Strategy.COUNTING is keys-only (regeneration rebuilds values "
+                "from the histogram and cannot carry a payload); use AUTO, LSD, "
+                "or HW_SORT for sort_pairs")
+        cmasks = _compaction_masks(words, value_mask, dtype, cfg)
+        operands = _operands(words, cmasks)
+        if cfg.strategy == Strategy.LSD:
+            sw, sp = _sort_lsd(operands, leaves, cfg)
+        elif cfg.detect_presorted:
+            sw, sp = hw_engine.sort_words_presort_guard(operands, leaves)
+        else:
+            sw, sp = hw_engine.sort_words(operands, leaves)
+        if cmasks is not None:
+            sw = probes.expand_word_planes(sw[0], words, cmasks)
+        sorted_keys = _decode(sw, dtype, cfg.descending, from_numpy)
+        return sorted_keys, _unflatten_payload(sp, pmeta)
 
 
 def counting_sort(keys, values=None, *, config: SortConfig = DEFAULT_CONFIG,

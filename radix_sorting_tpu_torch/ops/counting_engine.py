@@ -42,6 +42,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.timing import READ, span
 from . import cuda_kernels, hw_engine, probes
 from .histogram import digit_histogram
 from .kdf import INT32_MIN
@@ -115,8 +116,9 @@ def _unsigned(v: int) -> int:
 
 def _ranges(planes: Sequence[torch.Tensor]) -> Tuple[Tuple[int, int], ...]:
     """Unsigned (min, max) of each plane, in ONE host read."""
-    mm = [torch.stack(torch.aminmax(p ^ INT32_MIN)) for p in planes]
-    flat = torch.cat(mm).tolist()
+    mm = torch.cat([torch.stack(torch.aminmax(p ^ INT32_MIN)) for p in planes])
+    with span(READ):
+        flat = mm.tolist()
     return tuple((_unsigned(flat[2 * i]), _unsigned(flat[2 * i + 1]))
                  for i in range(len(planes)))
 

@@ -68,6 +68,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..utils.timing import LAUNCH, span
 from . import probes
 from .kdf import INT32_MIN, i32
 
@@ -178,10 +179,11 @@ def _popcount2_checked(mask_hi: int, mask_lo: int) -> int:
 
 def _launch(fn_name: str, device: torch.device, *args) -> None:
     from ._build import load_library
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+    with span(LAUNCH):
+        lib = load_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn_name)(*args, stream)
     if err:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.rst_error_string(err).decode()}")

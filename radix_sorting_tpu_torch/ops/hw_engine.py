@@ -42,6 +42,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..utils.timing import READ, TORCH_SORT, span
 from . import cuda_kernels, lsd_engine, probes
 from .kdf import INT32_MIN, SIGNED_VIEW, gather, join64, split64
 
@@ -109,6 +110,13 @@ def _index_as(perm: torch.Tensor, index_dtype) -> torch.Tensor:
     return perm.to(index_dtype)
 
 
+def _ordered(words: tuple) -> bool:
+    """The presorted guard off K0: its flag, read on the host."""
+    flag = probes.is_sorted_words(words)
+    with span(READ):
+        return bool(flag)
+
+
 def _stable_sort(words: Sequence[torch.Tensor], index_dtype=torch.int64,
                  guard: bool = False) -> Tuple[tuple, torch.Tensor]:
     """(sorted words, stable ascending permutation as ``index_dtype``) of
@@ -123,22 +131,23 @@ def _stable_sort(words: Sequence[torch.Tensor], index_dtype=torch.int64,
         wide = index_dtype.itemsize == 8
         sw, _, perm = _k0(words, (), guard, torch.int64 if wide else torch.int32)
         return sw, _index_as(perm, index_dtype)
-    if guard and bool(probes.is_sorted_words(words)):
+    if guard and _ordered(words):
         return words, torch.arange(n, device=device).to(index_dtype)
-    if len(words) <= 2:
-        s = torch.sort(_key(words), stable=True)
-        return _unkey(s.values, len(words)), s.indices.to(index_dtype)
-    # pairs of planes from the least significant end: LSD order
-    groups: List[tuple] = [words[max(0, i - 2):i]
-                           for i in range(len(words), 0, -2)]
-    perm = None
-    for group in groups:
-        key = _key(group)
-        if perm is not None:
-            key = key[perm]
-        idx = torch.sort(key, stable=True).indices
-        perm = idx if perm is None else perm[idx]
-    return tuple(gather(w, perm) for w in words), perm.to(index_dtype)
+    with span(TORCH_SORT):
+        if len(words) <= 2:
+            s = torch.sort(_key(words), stable=True)
+            return _unkey(s.values, len(words)), s.indices.to(index_dtype)
+        # pairs of planes from the least significant end: LSD order
+        groups: List[tuple] = [words[max(0, i - 2):i]
+                               for i in range(len(words), 0, -2)]
+        perm = None
+        for group in groups:
+            key = _key(group)
+            if perm is not None:
+                key = key[perm]
+            idx = torch.sort(key, stable=True).indices
+            perm = idx if perm is None else perm[idx]
+        return tuple(gather(w, perm) for w in words), perm.to(index_dtype)
 
 
 def _check_stable(payloads: tuple, stable: bool) -> None:
@@ -160,8 +169,9 @@ def sort_words(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor] =
     if _takes_k0(words):
         return _k0(words, payloads)[:2]
     if not payloads and len(words) <= 2:
-        s = torch.sort(_key(words), stable=stable).values
-        return _unkey(s, len(words)), ()
+        with span(TORCH_SORT):
+            s = torch.sort(_key(words), stable=stable).values
+            return _unkey(s, len(words)), ()
     sw, perm = _stable_sort(words)
     return sw, tuple(gather(p, perm) for p in payloads)
 
@@ -193,6 +203,6 @@ def sort_words_presort_guard(words: Sequence[torch.Tensor],
     if _takes_k0(words):
         _check_stable(payloads, stable)
         return _k0(words, payloads, guard=True)[:2]
-    if bool(probes.is_sorted_words(words)):
+    if _ordered(words):
         return words, payloads
     return sort_words(words, payloads, stable=stable)

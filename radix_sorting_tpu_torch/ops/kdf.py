@@ -45,6 +45,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.timing import READ, span
+
 __all__ = [
     "encode",
     "decode",
@@ -438,7 +440,8 @@ def to_numpy(t: torch.Tensor, dtype=None) -> np.ndarray:
     ``dtype`` names a numpy dtype the carrier stands for (``S``/``V``
     fields, int4/uint4); by default the tensor's own dtype.
     """
-    t = t.detach().cpu()
+    with span(READ):
+        t = t.detach().cpu()
     d = None if dtype is None or isinstance(dtype, torch.dtype) else np.dtype(dtype)
     if d is not None and is_byte_field(d):
         return np.ascontiguousarray(t.numpy()).view(d).reshape(t.shape[:-1])

@@ -38,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.timing import K0, LIVE_DIGITS, READ, span
 from . import cuda_kernels, probes
 from .histogram import chunked_digit_histogram
 from .kdf import gather
@@ -110,8 +111,9 @@ def sort_words_k0(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor
     """
     if index_dtype not in (None, torch.int32, torch.int64):
         raise ValueError("sort_words_k0: the index is int32 or int64")
-    return _sort(words, payloads, cuda_kernels.K0_SWEEP_BITS, cuda_kernels.K0_SWEEP_TILE,
-                 True, guard, index_dtype, sweep=True)
+    with span(K0):
+        return _sort(words, payloads, cuda_kernels.K0_SWEEP_BITS,
+                     cuda_kernels.K0_SWEEP_TILE, True, guard, index_dtype, sweep=True)
 
 
 def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard: bool,
@@ -132,12 +134,15 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
     if skip_trivial or guard:
         flags = [probes.is_sorted_words(words).view(1)] if guard else []
         if skip_trivial:
-            hists = _digit_hists(words, radix_bits)
-            flags.append(hists.max(dim=1).values != n)
-            if sweep:       # every digit's global starts, queued before the read
-                starts = exclusive_scan(hists, axis=1)
-                status = cuda_kernels.k0_sweep_status(n, device)
-        read = torch.cat(flags).tolist()          # the call's one host read
+            with span(LIVE_DIGITS):
+                hists = _digit_hists(words, radix_bits)
+                flags.append(hists.max(dim=1).values != n)
+                if sweep:       # every digit's global starts, queued before the read
+                    starts = exclusive_scan(hists, axis=1)
+                    status = cuda_kernels.k0_sweep_status(n, device)
+        flags = torch.cat(flags)
+        with span(READ):
+            read = flags.tolist()                 # the call's one host read
         if guard and read.pop(0):
             return words, payloads, identity()
         if skip_trivial:

@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..utils.timing import GUARD, READ, span
 from .kdf import INT32_MIN, i32
 
 __all__ = [
@@ -61,9 +62,10 @@ def is_sorted_words(words: Sequence[torch.Tensor]) -> torch.Tensor:
     n = words[0].shape[0]
     if n < 2:
         return torch.ones((), dtype=torch.bool, device=words[0].device)
-    flipped = [w ^ INT32_MIN for w in words]      # one flip per plane
-    return ~torch.any(_signed_lex_lt([f[1:] for f in flipped],
-                                     [f[:-1] for f in flipped]))
+    with span(GUARD):
+        flipped = [w ^ INT32_MIN for w in words]      # one flip per plane
+        return ~torch.any(_signed_lex_lt([f[1:] for f in flipped],
+                                         [f[:-1] for f in flipped]))
 
 
 def shift_right(w: torch.Tensor, s: int) -> torch.Tensor:
@@ -107,7 +109,9 @@ def live_digit_mask(mask_words: Sequence, radix_bits: int) -> Tuple[bool, ...]:
     a word's top digit has 10 bits. The masks come to the host in one read.
     """
     if torch.is_tensor(mask_words[0]):
-        mask_words = torch.stack(tuple(mask_words)).tolist()
+        stacked = torch.stack(tuple(mask_words))
+        with span(READ):
+            mask_words = stacked.tolist()
     words = [int(m) & 0xFFFFFFFF for m in mask_words]
     digits_per_word = -(-32 // radix_bits)
     digit_mask = (1 << radix_bits) - 1

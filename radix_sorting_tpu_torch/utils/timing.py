@@ -15,7 +15,9 @@ Here:
 * :func:`stream_gbps` is the same-process elementwise stream rate;
 * :func:`counters` derives the reference's rate counters;
 * :func:`trace` and :func:`device_op_table` capture a ``torch.profiler``
-  trace and reduce it to device-side time by kernel.
+  trace and reduce it to device-side time by kernel;
+* :func:`span` marks a step of the port's sort path in any
+  ``torch.profiler`` capture, under one of the names of :data:`SPANS`.
 
 A time taken on the CPU is the CPU's: nothing here writes it under a device's
 name.
@@ -33,10 +35,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["loop_ms", "steady_state_ms", "steady_chain_ms", "stream_gbps",
            "stream_step", "STREAM_PASSES", "stream_bytes_per_iter", "counters",
-           "trace", "device_op_table"]
+           "trace", "device_op_table", "span", "SPANS"]
 
 _MULTIPLIER = 2654435761          # odd: a bijection mod 2^bits at every width
 # same-width integer views (torch computes on few unsigned dtypes)
@@ -209,3 +212,31 @@ def device_op_table(logdir: str | os.PathLike) -> list:
             calls[e["name"]] += 1
     return [{"op": name, "total_us": round(us, 1), "calls": calls[name]}
             for name, us in total.most_common()]
+
+
+# The spans of the sort path. Each is a ``user_annotation`` event of the
+# profiler's Chrome trace, on the host's timeline beside the device's kernels,
+# copies and memsets; the spans a thread opens inside another are its
+# children. The names start with "rst.".
+SORT, ARGSORT, SORT_PAIRS = "rst.sort", "rst.argsort", "rst.sort_pairs"  # a public call
+ENCODE, DECODE = "rst.encode", "rst.decode"     # the key transform, each way
+K0, TORCH_SORT = "rst.k0", "rst.torch_sort"     # the sorter a call took
+GUARD = "rst.guard"                # the presorted guard's enqueue
+LIVE_DIGITS = "rst.live_digits"    # K0's and the LSD engine's live digits, enqueued
+READ = "rst.read"                  # a read of device data on the host: it waits for the device
+LAUNCH = "rst.launch"              # a hand-written kernel's enqueue
+SPANS = (SORT, ARGSORT, SORT_PAIRS, ENCODE, DECODE, K0, TORCH_SORT, GUARD, LIVE_DIGITS,
+         READ, LAUNCH)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` while a profiler records
+    (:func:`trace`, or any ``torch.profiler.profile``), else one shared null
+    context: with no profiler, a span costs one flag read. (A span carries
+    no arguments: torch's Chrome trace drops a ``record_function``'s string
+    argument, with ``record_shapes`` or without.)"""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)

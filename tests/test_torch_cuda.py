@@ -968,6 +968,45 @@ def test_presorted_one_plane_launches_no_pass(cuda):
     assert counts["lsd_hist"] == counts["lsd_scatter"] == counts["k0_sweep"] == 0
 
 
+@pytest.mark.parametrize("entry", ["sort", "sort presorted", "argsort", "argsort int64"])
+def test_every_sync_of_a_k0_call_is_a_read_span(cuda, entry, tmp_path):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` each synchronizing
+    operation warns: a 2^24-key K0 call warns as often as it records
+    ``rst.read`` spans (one), so every host sync of the path is a read span,
+    and each kernel's enqueue is one ``rst.launch``."""
+    import json
+    import warnings
+
+    from radix_sorting_tpu_torch.utils import timing
+    x = rand_plane(1 << 24, 9, cuda)
+    if entry == "sort presorted":
+        x = torch.sort(x ^ i32(1 << 31)).values ^ i32(1 << 31)
+    x = x.view(torch.uint32)
+    call = {"sort": lambda: rt.sort(x), "sort presorted": lambda: rt.sort(x),
+            "argsort": lambda: rt.argsort(x),
+            "argsort int64": lambda: rt.argsort(x, index_dtype=torch.int64)}[entry]
+    call()                                         # the kernels built and loaded
+    torch.cuda.synchronize()
+    with timing.trace(tmp_path):
+        rt.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counts = rt.launch_counts()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [e["name"] for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    assert counts["lsd_sort"] == 1
+    assert len(syncs) == spans.count(timing.READ) == 1, [str(w.message) for w in syncs]
+    assert spans.count(timing.LAUNCH) == counts["hist_multi"] + counts["k0_sweep"]
+    assert spans.count(timing.K0) == spans.count(timing.GUARD) == 1
+
+
 def test_k0_raises_and_never_falls_back(cuda, sort_spy, monkeypatch):
     def refused(*a, **k):
         raise RuntimeError("launch refused")
