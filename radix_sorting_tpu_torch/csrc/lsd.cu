@@ -60,7 +60,9 @@
 //     rank among them the popcount of the lower lanes, and the group's
 //     highest lane moves the warp's counter of the digit on; one scan over
 //     (digit, warp), digit-major, then gives each key its slot in the
-//     stage's stable digit order;
+//     stage's stable digit order. Every step is whole: a short stage is
+//     filled with kSentinel, so no step votes or branches on its valid
+//     lanes and the unrolled steps are straight-line code;
 //   * the keys land in shared memory at their slots and the block writes
 //     them out in slot order, so that neighbouring threads write runs of one
 //     digit: slot j of digit d goes to run[d] + j - first[d], where run[d]
@@ -74,16 +76,17 @@
 //     once, for the digits, and does not write them;
 //   * the slots' indices are kept two to a register, 16 bits each, so a
 //     stage holds at most 65,536 keys.
-// What bounds it now: the SM's issue and shared-memory pipes, not device
-// memory. Trial builds (scratch copies, not kept) with the pass's reads or
-// its writes taken out ran no faster; with the rank taken out, several times
-// faster. The ballots are the rank's largest part, then the staging into
-// slots, the writes and the scan. Tried and dropped: a block-local LSD sort
-// of the stage in 4- to 6-bit passes with per-thread counters (no votes, but
-// about four times the shared-memory traffic: slower); a returning shared
-// atomic in place of the leader's update; folding the digits' first slots
-// into the per-warp counters; issuing the payload loads after the rank;
-// staging the first payload plane in a second row of slots beside the keys.
+// What bounds it: the SM's issue and shared-memory pipes, not device memory
+// (trial builds of L2's first staged form: with the pass's reads or writes
+// taken out no faster). L2 and K0's sweep share the rank, ballots; at 11
+// and 12 bits a shared-memory match table would be 8 warps x 2^12 words,
+// 128 KB a block, and the sweep's own did not pay (below). Tried and
+// dropped: a block-local LSD sort of the stage in 4- to 6-bit passes with
+// per-thread counters (no votes, but about four times the shared-memory
+// traffic: slower); a returning shared atomic in place of the leader's
+// update; folding the digits' first slots into the per-warp counters;
+// issuing the payload loads after the rank; staging the first payload plane
+// in a second row of slots beside the keys.
 // L2, direct form (digits of 13 to 16 bits): one warp per tile walks the
 // tile in input order, 32 keys a step, peers_of on the digit, and
 // stores each key and payload word straight to its destination; the
@@ -114,6 +117,8 @@
 //     tile, a digit a thread. The block takes its tile from a ticket
 //     (atomicAdd on a device counter), not blockIdx, so every tile it waits
 //     on belongs to a block already running.
+//   * The rank is L2's: eight ballots a step, every step whole (kSentinel
+//     past the end of the pass's last tile).
 //   * Once the tile's counts are known, each thread publishes its digit's
 //     count in the tile's status word (tile 0: as inclusive). After the
 //     keys are staged in their slots, it looks back over the earlier
@@ -130,7 +135,25 @@
 //     never a hung card); so does a ticket outside the pass.
 // Bound on the H100: bytes, each plane read once and written once a pass
 // (the index written alone by the first pass, 8 bytes a key by a wide last
-// pass), 2 KB of status words a tile; the rank's arithmetic is L2's.
+// pass), 2 KB of status words a tile. What bounds it now is none of its
+// parts alone: at 40M keys, trial builds (scratch copies, not kept) with the
+// look-back's waits, the leader's counter or the key writes taken out each
+// ran 7 to 11% faster; two blocks an SM (128 registers a thread, spills
+// included) leave each block's barrier-separated phases little to overlap.
+// Tried and dropped for the rank, each checked bit for bit and timed in
+// turns at 40M keys (a keys-only pass, against the whole-step ballots or
+// the ballots of the same build): a shared-memory OR of the lane's bit
+// into a per-warp digit word, read back as the peers (CUB's
+// WARP_MATCH_ATOMIC_OR), with one table and
+// three __syncwarp a step (+6 to +10%) or three tables and one (+8%; with
+// whole steps +1% on uniform keys and +29% where a third of the keys share
+// a digit: the lanes of one word serialize their atomics);
+// __match_any_sync (+59%); each lane's id stored at its digit and the five
+// ballots of the id read back (-1.5%; with whole steps, no faster than the
+// whole-step ballots); every lane reading the counter in place of the
+// leader's shuffle (spills: +13%, the argsort's passes +24 to +28%);
+// staging the sentinels too, without the bound test (spills: the argsort's
+// passes +14%).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -341,22 +364,21 @@ struct Halves {
 // own_first + 32k) its rank among the earlier keys of its digit in its warp
 // (input order: step k, then the lanes), the warp's counters `own` moved on
 // by each step's group. The group is one ballot a digit bit (peers_of<B>; B
-// = 0: the width at run time); its highest lane moves the counter on.
+// = 0: the width at run time); its highest lane moves the counter on. Every
+// step is whole: a short stage's keys past the end are kSentinel.
 template <int B, int K>
 __device__ __forceinline__ void warp_rank(const uint32_t (&key)[K], Halves<K>& rank, int* own,
-                                          int shift, int bits, int own_first, int valid,
-                                          bool full) {
+                                          int shift, int bits) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const uint32_t digit_mask = (1u << bits) - 1u;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const bool ok = full || own_first + k * 32 < valid;
     const uint32_t d = (key[k] >> shift) & digit_mask;
-    const unsigned peers = peers_of<B>(d, bits, ok, full);
+    const unsigned peers = peers_of<B>(d, bits, true, true);
     const int leader = 31 - __clz(peers);
     int start = 0;
-    if (lane == leader && ok) {
+    if (lane == leader) {
       start = own[d];
       own[d] = start + __popc(peers);
     }
@@ -372,9 +394,18 @@ __device__ __forceinline__ int next_payload(const Planes& planes, int p) {
   return p == planes.digit ? p + 1 : p;
 }
 
+// The key past the end of a short stage (a tile's last), so that the rank
+// takes whole steps. Its digit, (~0u >> shift) & (2^bits - 1), is the
+// largest any key has at that shift, and the sentinels stand after every key
+// of the stage: they rank after every key of their digit and take the slots
+// [valid, stage), which are never written. The counts they add are read by
+// no later stage or tile: the tile's `run`, and the sweep's published count
+// of the last tile.
+constexpr uint32_t kSentinel = 0xFFFFFFFFu;
+
 // A thread's K words of the plane `in` at the stage positions own_first +
-// 32k of the stage that starts at key s0 (0 past `valid`); with kPosition,
-// a null plane gives each key's position.
+// 32k of the stage that starts at key s0 (kSentinel past `valid`); with
+// kPosition, a null plane gives each key's position.
 template <bool kPosition, int K>
 __device__ __forceinline__ void load_stage(const uint32_t* in, long long s0, int own_first,
                                            int valid, uint32_t (&v)[K]) {
@@ -386,7 +417,7 @@ __device__ __forceinline__ void load_stage(const uint32_t* in, long long s0, int
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int p = own_first + k * 32;
-    v[k] = p < valid ? __ldg(in + s0 + p) : 0u;
+    v[k] = p < valid ? __ldg(in + s0 + p) : kSentinel;
   }
 }
 
@@ -524,11 +555,10 @@ __device__ __forceinline__ void staged_scatter(const uint32_t* __restrict__ w, P
     Halves<K> slot;
 #pragma unroll
     for (int k = 0; k < K; ++k) slot.word[k >> 1] = 0u;
-    const bool full = valid == kStage;
     switch (bits) {
-      case 8: warp_rank<8>(key, slot, own, shift, bits, own_first, valid, full); break;
-      case 11: warp_rank<11>(key, slot, own, shift, bits, own_first, valid, full); break;
-      default: warp_rank<0>(key, slot, own, shift, bits, own_first, valid, full); break;
+      case 8: warp_rank<8>(key, slot, own, shift, bits); break;
+      case 11: warp_rank<11>(key, slot, own, shift, bits); break;
+      default: warp_rank<0>(key, slot, own, shift, bits); break;
     }
     __syncthreads();
 

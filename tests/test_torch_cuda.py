@@ -37,6 +37,51 @@ def rand_plane(n, seed, device, mask=0xFFFFFFFF, dead=0):
     return torch.from_numpy(x.view(np.int32)).to(device)
 
 
+# Patterns of the 8-bit digits a warp step of K0's sweep ranks together
+# (csrc/lsd.cu: a step is 32 keys that start at a multiple of 32).
+RANK_PATTERNS = ("uniform", "entropy", "one digit a step", "two digits alternating",
+                 "32 distinct a step")
+
+
+def rank_keys(pattern: str, n: int, seed: int) -> np.ndarray:
+    """``n`` u32 keys from ``seed`` whose bytes (the digits at shifts 0, 8,
+    16 and 24) follow ``pattern`` in every step of 32 keys from a multiple
+    of 32 (the last step may be short):
+
+    - ``uniform``: uniform words;
+    - ``entropy``: the AND of 3 uniform words (a bit is 1 with p = 1/8;
+      about a third of the keys share digit 0 at each shift);
+    - ``one digit a step``: every key of a step alike;
+    - ``two digits alternating``: two digits a step, lane by lane, different
+      in every byte;
+    - ``32 distinct a step``: 32 different digits a step in every byte.
+    """
+    rng = np.random.Generator(np.random.PCG64(seed))
+    words = lambda m: rng.integers(0, 1 << 32, size=m, dtype=np.uint32)  # noqa: E731
+    if pattern == "uniform":
+        return words(n)
+    if pattern == "entropy":
+        return words(n) & words(n) & words(n)
+    step = np.arange(n) // 32
+    lane = (np.arange(n) % 32).astype(np.uint32)
+    steps = int(step[-1]) + 1 if n else 0
+    if pattern == "one digit a step":
+        return words(steps)[step]
+    if pattern == "two digits alternating":
+        a = words(steps)
+        flip = rng.integers(1, 256, size=(steps, 4), dtype=np.uint32)   # no byte stays
+        b = a ^ (flip << np.arange(0, 32, 8, dtype=np.uint32)).sum(1, dtype=np.uint32)
+        return np.where(lane % 2 == 0, a[step], b[step])
+    if pattern == "32 distinct a step":
+        out = np.zeros(n, np.uint32)
+        for shift in range(0, 32, 8):     # an odd multiplier: lanes 0..31 land apart mod 256
+            base = rng.integers(0, 256, size=steps, dtype=np.uint32)
+            odd = rng.integers(0, 128, size=steps, dtype=np.uint32) * 2 + 1
+            out |= ((base[step] + lane * odd[step]) & 0xFF) << np.uint32(shift)
+        return out
+    raise ValueError(f"unknown rank pattern {pattern!r}")
+
+
 @pytest.mark.parametrize("mask", [0x3, 0xFF, 0xF0F00000, 0x7FFF, 0xFFFF,
                                   0x1FFFF, 0xAAAA8000])
 @pytest.mark.parametrize("n", [1, 7, 65_537, 1_000_003])
@@ -866,6 +911,21 @@ def test_lsd_pass_on_views_matches_plain(cuda, bits, offset):
     _lsd_pass_matches_plain(w, [w] + views, 5, bits, _tile(bits))
 
 
+@pytest.mark.parametrize("tile", [None, 7000, 16384], ids=["tile", "tiles of 7,000",
+                                                         "stages"])
+@pytest.mark.parametrize("bits,shift", [(4, 30), (8, 24), (11, 24), (12, 21)])
+def test_lsd_pass_sentinel_digit_at_the_top(cuda, bits, shift, tile):
+    """Short stages (a tile's last, n no multiple of a stage; every stage at
+    tiles of 7,000) rank whole steps on csrc/lsd.cu's kSentinel past their
+    end, also where the digit runs past bit 31; a third of the keys equal
+    the sentinel."""
+    tile = tile or _tile(bits)
+    n = 100_003
+    w = rand_plane(n, bits + shift, cuda)
+    w[::3] = -1
+    _lsd_pass_matches_plain(w, [w, rand_plane(n, 6, cuda)], shift, bits, tile)
+
+
 def test_lsd_scatter_refuses_other_shapes(cuda):
     w = rand_plane(10_000, 1, cuda)
     bases = _bases(w, 0, 8, 8192)
@@ -1041,14 +1101,26 @@ def _sweep_matches_plain(w, planes, shift, position=False, index_dtype=torch.int
 
 
 SWEEP_N = [1, 8191, 8193, 3 * 8192 + 5, 20_000_003]   # past 20M: ~2,400 tiles, 264 resident
+# the rank's key patterns: uniform keys with ties inside every tile, and
+# RANK_PATTERNS' others (a third of the keys on one digit; a step's
+# lanes on one digit, on two, on 32)
+SWEEP_KEYS = ["ties", *RANK_PATTERNS[1:]]
+
+
+def _rank_plane(keys, n, seed, device):
+    if keys == "ties":
+        w = rand_plane(n, seed, device)
+        w[::7] = int(w[3 % n])
+        return w
+    return torch.from_numpy(rank_keys(keys, n, seed).view(np.int32)).to(device)
 
 
 @pytest.mark.parametrize("index", ["none", "position int32", "position int64",
                                    "plane int64"])
 @pytest.mark.parametrize("n", SWEEP_N)
-def test_k0_sweep_matches_plain(cuda, n, index):
-    w = rand_plane(n, n, cuda)
-    w[::7] = int(w[3 % n])                         # ties inside every tile
+@pytest.mark.parametrize("keys", SWEEP_KEYS)
+def test_k0_sweep_matches_plain(cuda, keys, n, index):
+    w = _rank_plane(keys, n, n, cuda)
     pay = rand_plane(n, n + 1, cuda)
     idx = torch.randperm(n, device=cuda).to(torch.int32)
     planes, kw = {"none": ((w, pay), {}),
@@ -1058,22 +1130,38 @@ def test_k0_sweep_matches_plain(cuda, n, index):
     _sweep_matches_plain(w, planes, 8, **kw)
 
 
-@pytest.mark.parametrize("share", [1.0, 0.9])
-def test_k0_sweep_one_digit_spins_on_one_column(cuda, share):
+@pytest.mark.parametrize("shift", [0, 24])
+def test_k0_sweep_keys_equal_to_the_sentinel(cuda, shift):
+    """A third of the keys equal csrc/lsd.cu's kSentinel, which fills the
+    last tile past its end: they keep their slots before it."""
+    n = 3 * 8192 + 5
+    w = rand_plane(n, 29 + shift, cuda)
+    w[::3] = -1
+    _sweep_matches_plain(w, (w,), shift, position=True)
+
+
+@pytest.mark.parametrize("share,keys", [(1.0, "uniform"),
+                                        *((0.9, k) for k in RANK_PATTERNS)])
+def test_k0_sweep_one_digit_spins_on_one_column(cuda, share, keys):
     """Every tile's keys in one digit: each look-back waits on one status
-    column, and the other digits' counts are zero all the way back."""
+    column, and the other digits' counts are zero all the way back; the
+    tiles past ``share`` in one of the rank's patterns."""
     n = 20_000_003
-    w = rand_plane(n, 17, cuda)
+    w = _rank_plane(keys, n, 17, cuda)
     w[: int(n * share)] = 0x5A5A5A5A
     _sweep_matches_plain(w, (w,), 16, position=True, index_dtype=torch.int64)
 
 
-def test_k0_sweep_passes_share_one_status_by_epoch(cuda):
+@pytest.mark.parametrize("keys", ["ties", "entropy"])
+def test_k0_sweep_passes_share_one_status_by_epoch(cuda, keys):
     """Four passes on one status buffer (epochs 1 to 4) sort the plane and
     bear its stable permutation, as torch.sort(stable=True)."""
     n = 5_000_011
-    w = rand_plane(n, 23, cuda)
-    w[::5] = w[2]
+    if keys == "ties":
+        w = rand_plane(n, 23, cuda)
+        w[::5] = w[2]
+    else:
+        w = _rank_plane(keys, n, 23, cuda)
     ref = torch.sort(w ^ i32(1 << 31), stable=True)
     status = ck.k0_sweep_status(n, cuda)
     planes = (w,)

@@ -27,6 +27,7 @@ from radix_sorting_tpu_torch.ops import cuda_kernels as ck
 from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine, probes, scan
 
 from test_torch_api import assert_trees_equal, dup_keys, keys
+from test_torch_cuda import RANK_PATTERNS, rank_keys
 from test_torch_kdf import raw
 from test_torch_sort import jax_in
 
@@ -247,6 +248,8 @@ def test_live_digits_from_hist_multi_match_the_folds(radix_bits, case):
 
 
 def _sweep_keys(case, seed):
+    if case in RANK_PATTERNS:
+        return torch.from_numpy(rank_keys(case, N, seed).view(np.int32))
     x = np.random.Generator(np.random.PCG64(seed)).integers(0, 1 << 32, size=N,
                                                            dtype=np.uint32)
     if case == "90% one digit":
@@ -270,7 +273,7 @@ def _starts(w, shift, radix_bits):
 @pytest.mark.parametrize("tile", [8192, 7000, 1 << 15], ids=["short last tile",
                                                              "tiles of 7,000", "one tile"])
 @pytest.mark.parametrize("case", ["random", "90% one digit", "one differing key",
-                                  "all equal"])
+                                  "all equal", *RANK_PATTERNS[1:]])
 def test_sweep_plain_matches_l1_scan_l2(case, tile, shift):
     w = _sweep_keys(case, tile + shift)
     pay = torch.from_numpy(np.arange(N, dtype=np.int32) * 7)
