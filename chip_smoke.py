@@ -135,12 +135,14 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      the default mesh over the visible cards; each against numpy, with its
      size, time, peak device memory and launches;
      the headline case (full-entropy u32, AUTO) must run K0 alone (hist_multi
-     1, k0_sweep 4, lsd_sort 1; no lsd_hist, lsd_scatter or torch.sort), and
-     each LSD case one hist_multi a plane; each case prints its torch.sort
-     calls;
+     1, k0_sweep 4, lsd_sort 1; no lsd_hist, lsd_scatter or torch.sort), the
+     sorter cases of u64, i64 and f64 too from K0_TWO_PLANE_MIN_KEYS keys
+     (hist_multi 2, k0_sweep 8, lsd_sort 1), and each LSD case one
+     hist_multi a plane; each case prints its torch.sort calls;
   5. require every kernel's launch count from phase 4 to be non-zero (K0's
-     lsd_sort among them), and print the torch.sort calls of phase 4 (two or
-     more planes, fewer than LSD_MIN_KEYS keys, the batched sorts);
+     lsd_sort among them), and print the torch.sort calls of phase 4 (three
+     or more planes, fewer than LSD_MIN_KEYS keys of one plane or
+     K0_TWO_PLANE_MIN_KEYS of two, the batched sorts);
   6. time each case and each kernel beside its plain version and, where one
      torch call computes the same function, beside that call (CUDA events,
      steady-state loops); K1, K2 and K3 with the launch shape each ran, the
@@ -167,10 +169,12 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      its device time; the AUTO sort, argsort (uint32 and int64 indices) and
      sort_pairs (f32 payload) of the n u32 keys (K0) beside torch.sort of
      the same signed key (stable, and a gather, where they carry an index or
-     payload), and the LSD sort of the u64 keys beside the AUTO sort and
-     torch.sort int64, in turns; the sweep of scripts/k0_gate.py (K0 against
-     torch.sort, keys-only and argsort with int64 and uint32 indices, at
-     n = 2^12 to 2^26 and 40M) and the gates it gives;
+     payload), and the LSD sort of the u64 keys beside the AUTO sort (K0 over
+     two planes) and torch.sort int64, in turns; the sweeps of
+     scripts/k0_gate.py (K0 against torch.sort, keys-only and argsort with
+     int64 and uint32 indices, at n = 2^12 to 2^26 and 40M, of u32 and of
+     u64 keys, beside torch.sort of the signed key and hw_engine's torch.sort
+     route) and the gates they give;
      the LSD sort of u32 at r = 8 (also without the live-digit read) and 11
      beside torch.sort of the same int32 keys and the AUTO sort, in turns,
      with its byte bound (12 bytes a key for each live pass: L1 reads the
@@ -1727,11 +1731,15 @@ def main() -> None:
             fail(f"{name}: launches {counts}, one hist_multi a plane expected")
     # the headline runs K0: the live digits and starts from one K1 read, one
     # sweep a live digit (no L1, no L2), no torch.sort
-    k0_want = {"hist_multi": 1, "k0_sweep": 4, "lsd_sort": 1}
+    k0_want = {"u32 full entropy (sorter)": {"hist_multi": 1, "k0_sweep": 4, "lsd_sort": 1}}
+    if n >= hw_engine.K0_TWO_PLANE_MIN_KEYS:     # two planes: K0 from its own gate
+        k0_want.update({name: {"hist_multi": 2, "k0_sweep": 8, "lsd_sort": 1}
+                        for name in ("u64 full entropy (sorter)", "i64 (sorter)",
+                                     "f64 +-0 +-inf NaN payloads (sorter)")})
     for (name, *_), counts, sorts in zip(inputs, case_launches, case_sorts):
-        if name == "u32 full entropy (sorter)" and (sorts or counts != k0_want):
+        if name in k0_want and (sorts or counts != k0_want[name]):
             fail(f"{name}: launches {counts} and {sorts} torch.sort calls; K0 alone, "
-                 f"{k0_want}, expected")
+                 f"{k0_want[name]}, expected")
     for (name, x, run, host, oracle), out, counts, sorts in zip(inputs, outputs, case_launches,
                                                                  case_sorts):
         size = case_size(x)
@@ -1761,9 +1769,9 @@ def main() -> None:
               f"torch.sort calls {sorts}", flush=True)
 
     # -- phase 5: the main path went through every kernel -------------------
-    print(f"[5 launches] {json.dumps(launches)}; torch.sort calls {sort_calls[0]} (two "
-          f"or more planes, fewer than {hw_engine.LSD_MIN_KEYS} keys, the batched sorts)",
-          flush=True)
+    print(f"[5 launches] {json.dumps(launches)}; torch.sort calls {sort_calls[0]} (three "
+          f"or more planes, fewer than {hw_engine.LSD_MIN_KEYS} keys of one plane or "
+          f"{hw_engine.K0_TWO_PLANE_MIN_KEYS} of two, the batched sorts)", flush=True)
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was not launched by the main path")
@@ -2183,8 +2191,8 @@ def main() -> None:
         f"r=11 {bound_ms(3 * 12 * n):.3f} ms (3 passes)", flush=True)
     # K0 through the public entry points beside torch.sort of the same signed
     # key, in turns: the AUTO sort, argsort, sort_pairs with a 4-byte payload
-    # (beside torch.sort(stable=True) and a gather); the LSD sort of u64 (two
-    # planes: the AUTO sort takes torch.sort int64)
+    # (beside torch.sort(stable=True) and a gather); the LSD sort of u64 beside
+    # the AUTO sort (two planes: K0 from K0_TWO_PLANE_MIN_KEYS keys)
     x64 = u64_tensor(keys64)
     k0_rows = {
         "sort": {"AUTO (K0)": lambda: rt.sort(xf),
@@ -2197,20 +2205,23 @@ def main() -> None:
             "torch.sort(stable=True) int32 + gather": lambda: pay_f32_t[
                 torch.sort(key32, stable=True).indices]},
         "u64": {"LSD r=8": lambda: rt.sort(x64, config=lsd8),
-                "AUTO (torch.sort int64)": lambda: rt.sort(x64),
+                "AUTO (K0)": lambda: rt.sort(x64),
                 "torch.sort int64": lambda: torch.sort(keys64_t)}}
     for label, fns in k0_rows.items():
         ms = in_turns(fns)
         print(f"[6 k0] {label} of {n} keys, in turns: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
     del x64
-    # the sweep behind the gates: K0 against torch.sort by n
-    gate = k0_gate.sweep(dev, seed=args.seed, reps=reps,
-                         log=lambda line: print(f"[6 gate] {line}", flush=True))
-    print(f"[6 gate] K0 no slower than torch.sort from n={gate['gate_sort']} on "
-          f"keys-only, from n={gate['gate_argsort']} on in the int64 argsort, from "
-          f"n={gate['gate_argsort32']} on in the uint32 argsort, from n={gate['gate']} on "
-          f"in all three; LSD_MIN_KEYS {hw_engine.LSD_MIN_KEYS}", flush=True)
+    # the sweeps behind the gates: K0 against torch.sort by n, one plane and two
+    for planes in (1, 2):
+        gate = k0_gate.sweep(dev, seed=args.seed, reps=reps, planes=planes,
+                             log=lambda line: print(f"[6 gate] {line}", flush=True))
+        print(f"[6 gate] {planes} plane(s): K0 no slower than torch.sort from "
+              f"n={gate['gate_sort']} on keys-only, from n={gate['gate_argsort']} on in the "
+              f"int64 argsort, from n={gate['gate_argsort32']} on in the uint32 argsort, "
+              f"from n={gate['gate']} on in all three, from n={gate['gate_route']} on in all "
+              f"three against hw_engine's torch.sort route; the gate {gate['current']}",
+              flush=True)
     # R4: what the stream's traffic model counts, beside E1 and copy_ on the
     # same n keys, E1 and copy_ in turns
     out_buf = torch.empty_like(w)

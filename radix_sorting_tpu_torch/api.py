@@ -20,9 +20,11 @@ read of what it measured (the JAX package's ``device_probe`` decides on the
 device with ``lax.cond``; eager PyTorch has no device-side branch).
 ``argsort``, ``rank_sort`` and ``sort_pairs`` accept both flags and ignore
 them. ``Strategy.LSD`` runs the hand-written LSD radix engine
-(:mod:`.ops.lsd_engine`); AUTO and HW_SORT sort one word plane on the card
-with K0, the same engine at its defaults, from ``hw_engine.LSD_MIN_KEYS``
-keys, and the rest with ``torch.sort`` (:mod:`.ops.hw_engine`).
+(:mod:`.ops.lsd_engine`); AUTO and HW_SORT sort one or two word planes on
+the card with K0, the same engine at its defaults, from
+``hw_engine.LSD_MIN_KEYS`` keys of one plane and
+``hw_engine.K0_TWO_PLANE_MIN_KEYS`` of two, and the rest with ``torch.sort``
+(:mod:`.ops.hw_engine`).
 
 The batched sorts (``sort_batched``, ``argsort_batched``,
 ``sort_pairs_batched``) sort every 1-D slice along an axis with one

@@ -48,8 +48,8 @@ kernel sums integer values (K10) or f32 weights (K11) per key. K12 sorts a
 few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
 sort (per-tile digit histograms, stable scatter); the JAX package's LSD
 engine is XLA with no Pallas kernel, so they replace none. ``lsd_sort``
-counts the calls of K0, the port's sorter of one plane on the card
-(:mod:`.hw_engine`), which launches ``hist_multi`` once and ``k0_sweep``
+counts the calls of K0, the port's sorter of one or two planes on the card
+(:mod:`.hw_engine`), which launches ``hist_multi`` once a plane and ``k0_sweep``
 (L2's staged form with a decoupled look-back in place of L1 and the scan)
 once a live digit; it replaces ``lax.sort``, which is no Pallas kernel
 either. E1 and E2 are

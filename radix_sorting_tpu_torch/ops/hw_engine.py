@@ -2,20 +2,23 @@
 
 The counterpart of ``radix_sorting_tpu.ops.hw_engine``, whose sorter is XLA's
 ``lax.sort``, a library routine outside every Pallas kernel. Here the sorter
-of one word plane on the card is **K0**, the port's own LSD radix sort
-(:func:`.lsd_engine.sort_words_k0` at 8-bit digits and tiles of 8,192 keys,
-the ``SortConfig`` defaults): the live digits and every digit's global
-starts from one K1 ``hist_multi`` read, then one ``k0_sweep`` launch per live
-digit, its tiles' prefixes from a decoupled look-back (``csrc/hist.cu``,
-``csrc/lsd.cu``), on the unsigned words themselves, with no sign flip.
-:func:`sorter_route` picks it on the host before any launch; a kernel that
-fails to build or launch raises, and the call never falls back. Every 1-D
-sorter call of the port comes through this module, so each one-plane sort
-and argsort from ``LSD_MIN_KEYS`` keys takes K0.
+of one or two word planes on the card is **K0**, the port's own LSD radix
+sort (:func:`.lsd_engine.sort_words_k0` at 8-bit digits and tiles of 8,192
+keys, the ``SortConfig`` defaults): the live digits and every digit's global
+starts from one K1 ``hist_multi`` a plane and one read, then one
+``k0_sweep`` launch per live digit, its tiles' prefixes from a decoupled
+look-back (``csrc/hist.cu``, ``csrc/lsd.cu``), on the unsigned words
+themselves, with no sign flip. Two planes (64-bit keys, and every composite
+packed into two words) take up to eight passes, each moving both planes.
+:func:`sorter_route` picks it on the host before any launch, from
+``LSD_MIN_KEYS`` keys for one plane and ``K0_TWO_PLANE_MIN_KEYS`` for two; a
+kernel that fails to build or launch raises, and the call never falls back.
+Every 1-D sorter call of the port comes through this module, so each sort
+and argsort of one or two planes past its gate takes K0.
 
-``torch.sort`` sorts the rest (ROADMAP.md, port queue item 2): keys of two or
-more planes, shorter planes, and CPU tensors, where it is
-K0's plain version (the same function). ``torch.sort`` takes one key tensor
+``torch.sort`` sorts the rest (ROADMAP.md, port queue item 2): keys of
+three or more planes, shorter planes, and CPU tensors, where it is K0's
+plain version (the same function). ``torch.sort`` takes one key tensor
 (``lax.sort`` takes ``num_keys``), so multi-plane keys are sorted in one of
 two ways:
 
@@ -47,7 +50,7 @@ from . import cuda_kernels, lsd_engine, probes
 from .kdf import INT32_MIN, SIGNED_VIEW, gather, join64, split64
 
 __all__ = ["sort_words", "argsort_words", "sort_words_presort_guard", "gather",
-           "SIGNED_VIEW", "sorter_route", "LSD_MIN_KEYS"]
+           "SIGNED_VIEW", "sorter_route", "LSD_MIN_KEYS", "K0_TWO_PLANE_MIN_KEYS"]
 
 # The fewest keys K0 sorts and argsorts: from 2^24 on, K0's keys-only sort
 # and its argsort (int64 and uint32 indices) were faster than torch.sort of
@@ -57,15 +60,23 @@ __all__ = ["sort_words", "argsort_words", "sort_words_presort_guard", "gather",
 # sync and 0.23 to 0.86 ms of host dispatch at any n, so shorter planes go
 # to torch.sort.
 LSD_MIN_KEYS = 1 << 24
+# The same for two planes (64-bit keys, two-word packed keys): from 2^23 on,
+# K0's sort and its argsort in both index dtypes were no slower than this
+# module's torch.sort route (the key packed into one int64, sorted, unpacked)
+# at every n of three sweeps of scripts/k0_gate.py --planes 2 on an H100, and
+# the keys-only sort no slower than torch.sort of the packed key alone in all
+# six sweeps; there the argsort takes 0.88 to 1.12 times that bare sort (PERF.md).
+K0_TWO_PLANE_MIN_KEYS = 1 << 23
 _INDEX_LIMIT = 1 << 31     # K0's index is born as an int32 position
 
 
 def sorter_route(device_type: str, planes: int, n: int) -> str:
     """The sorter of ``n`` keys of ``planes`` word planes on a device of
-    ``device_type``, decided on the host before any launch: ``"k0"`` for
-    one plane on CUDA with ``LSD_MIN_KEYS <= n < 2^31``, else
-    ``"torch.sort"``."""
-    if device_type == "cuda" and planes == 1 and LSD_MIN_KEYS <= n < _INDEX_LIMIT:
+    ``device_type``, decided on the host before any launch: ``"k0"`` on
+    CUDA for one plane with ``LSD_MIN_KEYS <= n < 2^31`` and two planes
+    with ``K0_TWO_PLANE_MIN_KEYS <= n < 2^31``, else ``"torch.sort"``."""
+    gate = {1: LSD_MIN_KEYS, 2: K0_TWO_PLANE_MIN_KEYS}.get(planes)
+    if device_type == "cuda" and gate is not None and gate <= n < _INDEX_LIMIT:
         return "k0"
     return "torch.sort"
 
@@ -77,9 +88,10 @@ def _takes_k0(words: Sequence[torch.Tensor]) -> bool:
 
 def _k0(words: tuple, payloads: tuple = (), guard: bool = False,
         index_dtype=None) -> Tuple[tuple, tuple, torch.Tensor]:
-    """K0: the stable LSD radix sort of one plane, carrying payloads, and
-    the permutation as ``index_dtype`` (int32 / int64, or None: none);
-    ``guard``: the presorted exit, read with the live digits in one sync."""
+    """K0: the stable LSD radix sort of one or two planes, carrying
+    payloads, and the permutation as ``index_dtype`` (int32 / int64, or
+    None: none); ``guard``: the presorted exit, read with the live digits
+    in one sync."""
     out = lsd_engine.sort_words_k0(words, payloads, guard=guard, index_dtype=index_dtype)
     if words[0].is_cuda:
         cuda_kernels.LAUNCHES["lsd_sort"] += 1

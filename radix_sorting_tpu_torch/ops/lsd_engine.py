@@ -12,8 +12,8 @@ with its pass structure, for each live digit from the least significant
      (:func:`.cuda_kernels.lsd_scatter`, `radix_sort_u32.c:59-90`): within a
      tile the j-th key of a digit lands at its base + j.
 
-It serves ``Strategy.LSD``. K0, the AUTO / HW_SORT sorter of one plane on
-the card (:mod:`.hw_engine`), runs the same loop with one launch a live
+It serves ``Strategy.LSD``. K0, the AUTO / HW_SORT sorter of one or two
+planes on the card (:mod:`.hw_engine`), runs the same loop with one launch a live
 digit, :func:`.cuda_kernels.k0_sweep`: the digits' global starts from the
 histograms the live-digit read already made (one cumsum), and each tile's
 prefix from a decoupled look-back in the launch, in place of L1 and the
@@ -38,7 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.timing import K0, LIVE_DIGITS, READ, span
+from ..utils.timing import K0, K0_PASS, LIVE_DIGITS, READ, span
 from . import cuda_kernels, probes
 from .histogram import chunked_digit_histogram
 from .kdf import gather
@@ -161,10 +161,11 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
         w = planes[len(words) - 1 - p // digits_per_word]
         shift = (p % digits_per_word) * radix_bits
         if sweep:
-            planes = list(cuda_kernels.k0_sweep(
-                w, planes, shift, radix_bits, tile, starts[p], status, e,
-                position=indexed and e == 1,
-                index_dtype=wide if indexed and e == len(passes) else torch.int32))
+            with span(K0_PASS):
+                planes = list(cuda_kernels.k0_sweep(
+                    w, planes, shift, radix_bits, tile, starts[p], status, e,
+                    position=indexed and e == 1,
+                    index_dtype=wide if indexed and e == len(passes) else torch.int32))
         else:
             bases = scatter_bases(chunked_digit_histogram(w, shift, radix_bits, tile))
             planes = list(cuda_kernels.lsd_scatter(w, planes, shift, radix_bits, tile, bases))

@@ -1,18 +1,24 @@
-"""The sweep behind ``hw_engine.LSD_MIN_KEYS``: K0 against torch.sort by size.
+"""The sweeps behind ``hw_engine.LSD_MIN_KEYS`` and
+``hw_engine.K0_TWO_PLANE_MIN_KEYS``: K0 against torch.sort by size.
 
 At each n (every power of two from 2^12 to 2^26, and 40,000,000 by
-default) full-entropy u32 keys from the seed are sorted keys-only and
-argsorted by K0 (``hw_engine.sort_words`` / ``argsort_words`` with the gate
-set to 0, so one plane on the card always takes K0), the argsort with int64
+default) full-entropy keys from the seed, u32 (one plane) or with
+``--planes 2`` u64 (two), are sorted keys-only and argsorted by K0
+(``hw_engine.sort_words`` / ``argsort_words`` with the gates set to 0, so
+one or two planes on the card always take K0), the argsort with int64
 indices (``sets.py``'s) and with uint32 ones (the default), and by
-``torch.sort`` of the same signed int32 key (``stable=True`` for the
-argsort, whose indices are int64), in turns (K0, torch.sort, torch.sort,
-K0; for the argsort K0 int64, K0 uint32, torch.sort and back; CUDA events
-over ``--reps`` calls each, the mean of the two turns). Each K0 output is
-checked bit for bit against torch.sort's first. A gate is the smallest n of
-the sweep from which K0 was no slower, at that n and every larger one (None
-if it never was): one for the keys-only sort, one for the argsort in each
-index dtype, and one for all three.
+``torch.sort`` of the same signed key, the int32 plane or the packed int64
+key (``stable=True`` for the argsort, whose indices are int64), and by
+``hw_engine``'s own torch.sort route (the gates set past every n: the key
+packed, sorted and unpacked, the index cast), in turns (K0, torch.sort, the
+route, then back; for the argsort K0 int64, K0 uint32, torch.sort, the route
+in both index dtypes and back; CUDA events over ``--reps`` calls each, the
+mean of the two turns). Each K0 output is checked bit for bit against
+torch.sort's first. A gate is the smallest n of the sweep from which K0 was
+no slower, at that n and every larger one (None if it never was): against
+torch.sort, one for the keys-only sort, one for the argsort in each index
+dtype, and one for all three; and one for all three against the route
+(``gate_route``), the choice ``hw_engine.sorter_route`` makes.
 
 Prints the card's name and power limit, one line an n, and one final JSON
 line (``"exp": "k0_gate"``). ``chip_smoke.py`` phase 6 runs :func:`sweep`.
@@ -20,7 +26,7 @@ line (``"exp": "k0_gate"``). ``chip_smoke.py`` phase 6 runs :func:`sweep`.
 Needs a CUDA device.
 
 Usage: python -m radix_sorting_tpu_torch.scripts.k0_gate
-           [--seed S] [--reps R] [--profile] [n ...]
+           [--seed S] [--reps R] [--planes 1|2] [--profile] [n ...]
 """
 
 from __future__ import annotations
@@ -36,20 +42,20 @@ import numpy as np
 import torch
 
 from ..ops import _build, hw_engine
-from ..ops.kdf import INT32_MIN
 
 SIZES = tuple(1 << b for b in range(12, 27)) + (40_000_000,)
 
 
 @contextlib.contextmanager
 def k0_gate(n_min: int):
-    """``hw_engine.LSD_MIN_KEYS`` set to ``n_min`` inside the block."""
-    old = hw_engine.LSD_MIN_KEYS
-    hw_engine.LSD_MIN_KEYS = n_min
+    """``hw_engine.LSD_MIN_KEYS`` and ``K0_TWO_PLANE_MIN_KEYS`` set to
+    ``n_min`` inside the block."""
+    old = hw_engine.LSD_MIN_KEYS, hw_engine.K0_TWO_PLANE_MIN_KEYS
+    hw_engine.LSD_MIN_KEYS = hw_engine.K0_TWO_PLANE_MIN_KEYS = n_min
     try:
         yield
     finally:
-        hw_engine.LSD_MIN_KEYS = old
+        hw_engine.LSD_MIN_KEYS, hw_engine.K0_TWO_PLANE_MIN_KEYS = old
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -71,47 +77,72 @@ def _turns(fns: dict, reps: int) -> dict:
     return {k: sum(v) / len(v) for k, v in got.items()}
 
 
-def _k0(fn):
+def _k0(fn, n_min: int = 0):
+    """``fn`` run with the gates at ``n_min``: 0 takes K0."""
     def run():
-        with k0_gate(0):
+        with k0_gate(n_min):
             return fn()
     return run
 
 
-def sweep(device, sizes=SIZES, seed: int = 20240601, reps: int = 10, log=print) -> dict:
-    """One row an n: K0 and torch.sort keys-only and argsort ms, each K0
-    output checked against torch.sort's; and the gate the rows give."""
+def _route(fn):
+    """``fn`` on ``hw_engine``'s torch.sort route: the gates at K0's index
+    limit, past every n of a sweep."""
+    return _k0(fn, 1 << 31)
+
+
+def _keys(rng, n: int, planes: int, device) -> tuple:
+    """(word planes, the signed key torch.sort orders them by: the int32
+    plane or the packed int64 key) of ``n`` full-entropy keys of ``planes``
+    32-bit words, most significant first."""
+    words = tuple(torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+                                   .view(np.int32)).to(device) for _ in range(planes))
+    return words, hw_engine._key(words)
+
+
+def sweep(device, sizes=SIZES, seed: int = 20240601, reps: int = 10, log=print,
+          planes: int = 1) -> dict:
+    """One row an n: K0 and torch.sort keys-only and argsort ms on keys of
+    ``planes`` words, each K0 output checked against torch.sort's; and the
+    gate the rows give."""
     rng = np.random.Generator(np.random.PCG64(seed))
     rows = []
     for n in sizes:
-        w = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
-                             .view(np.int32)).to(device)
-        key = w ^ INT32_MIN
+        w, key = _keys(rng, n, planes, device)
         ref = torch.sort(key, stable=True)
-        (got,), _ = _k0(lambda: hw_engine.sort_words((w,), stable=False))()
-        _, perm = _k0(lambda: hw_engine.argsort_words((w,), torch.int64))()
-        _, perm32 = _k0(lambda: hw_engine.argsort_words((w,), torch.uint32))()
-        if not (torch.equal(got ^ INT32_MIN, ref.values) and torch.equal(perm, ref.indices)
+        got, _ = _k0(lambda: hw_engine.sort_words(w, stable=False))()
+        _, perm = _k0(lambda: hw_engine.argsort_words(w, torch.int64))()
+        _, perm32 = _k0(lambda: hw_engine.argsort_words(w, torch.uint32))()
+        if not (torch.equal(hw_engine._key(got), ref.values) and torch.equal(perm, ref.indices)
                 and torch.equal(perm32.view(torch.int32).long(), ref.indices)):
-            raise RuntimeError(f"k0_gate: K0 differs from torch.sort at n={n}")
+            raise RuntimeError(f"k0_gate: K0 differs from torch.sort at n={n}, "
+                               f"{planes} plane(s)")
         del got, perm, perm32, ref
-        sort_ms = _turns({"k0": _k0(lambda: hw_engine.sort_words((w,), stable=False)),
-                          "torch.sort": lambda: torch.sort(key)}, reps)
-        arg_ms = _turns({"k0": _k0(lambda: hw_engine.argsort_words((w,), torch.int64)),
-                         "k0 u32": _k0(lambda: hw_engine.argsort_words((w,), torch.uint32)),
-                         "torch.sort": lambda: torch.sort(key, stable=True)}, reps)
+        sort = lambda: hw_engine.sort_words(w, stable=False)             # noqa: E731
+        arg = lambda: hw_engine.argsort_words(w, torch.int64)            # noqa: E731
+        arg32 = lambda: hw_engine.argsort_words(w, torch.uint32)         # noqa: E731
+        sort_ms = _turns({"k0": _k0(sort), "torch.sort": lambda: torch.sort(key),
+                          "route": _route(sort)}, reps)
+        arg_ms = _turns({"k0": _k0(arg), "k0 u32": _k0(arg32),
+                         "torch.sort": lambda: torch.sort(key, stable=True),
+                         "route": _route(arg), "route u32": _route(arg32)}, reps)
         row = {"n": n, "sort_k0_ms": sort_ms["k0"], "sort_torch_ms": sort_ms["torch.sort"],
                "argsort_k0_ms": arg_ms["k0"], "argsort32_k0_ms": arg_ms["k0 u32"],
-               "argsort_torch_ms": arg_ms["torch.sort"]}
+               "argsort_torch_ms": arg_ms["torch.sort"], "sort_route_ms": sort_ms["route"],
+               "argsort_route_ms": arg_ms["route"], "argsort32_route_ms": arg_ms["route u32"]}
         rows.append(row)
-        log(f"n={n}: sort K0 {row['sort_k0_ms']:.4f} ms, torch.sort "
-            f"{row['sort_torch_ms']:.4f} ms; argsort K0 int64 {row['argsort_k0_ms']:.4f} ms, "
-            f"uint32 {row['argsort32_k0_ms']:.4f} ms, torch.sort(stable=True) "
-            f"{row['argsort_torch_ms']:.4f} ms")
+        log(f"planes={planes} n={n}: sort K0 {row['sort_k0_ms']:.4f} ms, torch.sort "
+            f"{row['sort_torch_ms']:.4f} ms, route {row['sort_route_ms']:.4f} ms; argsort K0 "
+            f"int64 {row['argsort_k0_ms']:.4f} ms, uint32 {row['argsort32_k0_ms']:.4f} ms, "
+            f"torch.sort(stable=True) {row['argsort_torch_ms']:.4f} ms, route int64 "
+            f"{row['argsort_route_ms']:.4f} ms, uint32 {row['argsort32_route_ms']:.4f} ms")
         del w, key
     forms = {"sort": ("sort_k0_ms", "sort_torch_ms"),
              "argsort": ("argsort_k0_ms", "argsort_torch_ms"),
-             "argsort32": ("argsort32_k0_ms", "argsort_torch_ms")}
+             "argsort32": ("argsort32_k0_ms", "argsort_torch_ms"),
+             "sort route": ("sort_k0_ms", "sort_route_ms"),
+             "argsort route": ("argsort_k0_ms", "argsort_route_ms"),
+             "argsort32 route": ("argsort32_k0_ms", "argsort32_route_ms")}
 
     def gate(*names):
         n_min = None
@@ -120,30 +151,32 @@ def sweep(device, sizes=SIZES, seed: int = 20240601, reps: int = 10, log=print) 
                 break
             n_min = row["n"]
         return n_min
-    return {"rows": rows, "gate_sort": gate("sort"), "gate_argsort": gate("argsort"),
-            "gate_argsort32": gate("argsort32"), "gate": gate(*forms),
-            "current": hw_engine.LSD_MIN_KEYS}
+    current = hw_engine.LSD_MIN_KEYS if planes == 1 else hw_engine.K0_TWO_PLANE_MIN_KEYS
+    return {"planes": planes, "rows": rows, "gate_sort": gate("sort"),
+            "gate_argsort": gate("argsort"), "gate_argsort32": gate("argsort32"),
+            "gate": gate("sort", "argsort", "argsort32"),
+            "gate_route": gate("sort route", "argsort route", "argsort32 route"),
+            "current": current}
 
 
 def profile(device, n: int, seed: int = 20240601, reps: int = 10, calls: int = 5,
-            log=print) -> dict:
-    """Where the time of a call goes at ``n`` keys, for K0 keys-only, K0's
-    argsort (int64 and uint32 indices) and torch.sort of the signed key
-    (unstable and stable): the wall ms a call (CUDA events over ``reps`` calls), the device
-    busy ms a call and the kernels by device time (torch.profiler over
-    ``calls`` calls), and for K0 keys-only the host's own time by Python
-    function (cProfile over 20 calls, each ending in its one sync)."""
+            log=print, planes: int = 1) -> dict:
+    """Where the time of a call goes at ``n`` keys of ``planes`` words, for
+    K0 keys-only, K0's argsort (int64 and uint32 indices) and torch.sort of
+    the signed key (unstable and stable): the wall ms a call (CUDA events
+    over ``reps`` calls), the device busy ms a call and the kernels by
+    device time (torch.profiler over ``calls`` calls), and for K0 keys-only
+    the host's own time by Python function (cProfile over 20 calls, each
+    ending in its one sync)."""
     from torch.profiler import ProfilerActivity, profile as trace
     rng = np.random.Generator(np.random.PCG64(seed))
-    w = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
-                         .view(np.int32)).to(device)
-    key = w ^ INT32_MIN
-    cases = {"K0 keys-only": _k0(lambda: hw_engine.sort_words((w,), stable=False)),
-             "K0 argsort int64": _k0(lambda: hw_engine.argsort_words((w,), torch.int64)),
-             "K0 argsort uint32": _k0(lambda: hw_engine.argsort_words((w,), torch.uint32)),
+    w, key = _keys(rng, n, planes, device)
+    cases = {"K0 keys-only": _k0(lambda: hw_engine.sort_words(w, stable=False)),
+             "K0 argsort int64": _k0(lambda: hw_engine.argsort_words(w, torch.int64)),
+             "K0 argsort uint32": _k0(lambda: hw_engine.argsort_words(w, torch.uint32)),
              "torch.sort": lambda: torch.sort(key),
              "torch.sort(stable=True)": lambda: torch.sort(key, stable=True)}
-    out = {"n": n}
+    out = {"n": n, "planes": planes}
     for label, fn in cases.items():
         wall = _event_ms(fn, reps)
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -157,7 +190,8 @@ def profile(device, n: int, seed: int = 20240601, reps: int = 10, calls: int = 5
         kernels = [(e.key[:60], e.self_device_time_total / calls / 1e3, e.count / calls)
                    for e in rows[:10]]
         out[label] = {"wall_ms": wall, "device_ms": busy, "kernels": kernels}
-        log(f"profile n={n} {label}: wall {wall:.4f} ms, device busy {busy:.4f} ms; " +
+        log(f"profile planes={planes} n={n} {label}: wall {wall:.4f} ms, device busy "
+            f"{busy:.4f} ms; " +
             "; ".join(f"{k} {ms:.4f} ms x{c:g}" for k, ms, c in kernels))
     fn = cases["K0 keys-only"]
     fn()
@@ -172,8 +206,8 @@ def profile(device, n: int, seed: int = 20240601, reps: int = 10, calls: int = 5
     out["host"] = [(f"{k[2]} ({k[0].rsplit('/', 1)[-1]}:{k[1]})", v[2] / 20 * 1e3, v[1] / 20)
                    for k, v in top]
     total = sum(v[2] for v in st.values()) / 20 * 1e3
-    log(f"profile n={n} K0 keys-only host: {total:.4f} ms of Python and native calls a "
-        "call; own time by function: " +
+    log(f"profile planes={planes} n={n} K0 keys-only host: {total:.4f} ms of Python and "
+        "native calls a call; own time by function: " +
         "; ".join(f"{name} {ms:.4f} ms x{c:g}" for name, ms, c in out["host"]))
     return out
 
@@ -182,6 +216,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20240601)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--planes", type=int, choices=(1, 2), default=1,
+                    help="u32 keys (one word plane) or u64 keys (two)")
     ap.add_argument("--profile", action="store_true",
                     help="where a call's time goes at each n, in place of the sweep")
     ap.add_argument("n", type=int, nargs="*", default=list(SIZES))
@@ -196,9 +232,10 @@ def main(argv=None) -> dict:
     log = lambda line: print(f"[k0_gate] {line}", flush=True)
     dev = torch.device("cuda", 0)
     if args.profile:
-        rec = {"profiles": [profile(dev, n, args.seed, args.reps, log=log) for n in args.n]}
+        rec = {"profiles": [profile(dev, n, args.seed, args.reps, log=log, planes=args.planes)
+                            for n in args.n]}
     else:
-        rec = sweep(dev, args.n, args.seed, args.reps, log=log)
+        rec = sweep(dev, args.n, args.seed, args.reps, log=log, planes=args.planes)
     rec = {"exp": "k0_gate", "device": smi, **rec}
     print(json.dumps(rec), flush=True)
     return rec

@@ -223,10 +223,11 @@ ENCODE, DECODE = "rst.encode", "rst.decode"     # the key transform, each way
 K0, TORCH_SORT = "rst.k0", "rst.torch_sort"     # the sorter a call took
 GUARD = "rst.guard"                # the presorted guard's enqueue
 LIVE_DIGITS = "rst.live_digits"    # K0's and the LSD engine's live digits, enqueued
+K0_PASS = "rst.k0_pass"            # one K0 sweep's enqueue: a call shows its live passes
 READ = "rst.read"                  # a read of device data on the host: it waits for the device
 LAUNCH = "rst.launch"              # a hand-written kernel's enqueue
 SPANS = (SORT, ARGSORT, SORT_PAIRS, ENCODE, DECODE, K0, TORCH_SORT, GUARD, LIVE_DIGITS,
-         READ, LAUNCH)
+         K0_PASS, READ, LAUNCH)
 
 _OFF = contextlib.nullcontext()
 

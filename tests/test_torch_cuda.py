@@ -1079,6 +1079,75 @@ def test_k0_raises_and_never_falls_back(cuda, sort_spy, monkeypatch):
     assert sort_spy[0] == 0
 
 
+# ---------------------------------------------------------------------------
+# K0 over two planes: 64-bit keys from the two-plane gate
+
+
+def _two_plane_gate_sizes():
+    from radix_sorting_tpu_torch.ops.hw_engine import K0_TWO_PLANE_MIN_KEYS as gate
+    return {"below the gate": gate - 1, "at the gate": gate,
+            "above the gate": max(3_000_017, gate + 12_345)}
+
+
+def _u64_keys(n, seed, dtype, device, ties=0):
+    """``n`` uniform 64-bit keys of ``dtype`` from ``seed`` on ``device``
+    (``ties``: every ``ties``-th key equal to key 5, so stability shows),
+    and the plain reference's stable order of them (the KDF's order:
+    floats by sign and magnitude, NaNs above +inf)."""
+    from sortbench import reference
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = torch.randint(-(1 << 31), 1 << 31, (2 * n,), dtype=torch.int32, device=device,
+                      generator=gen).view(torch.int64)
+    if ties:
+        b[::ties] = b[5]
+    if dtype == torch.float64:
+        order = torch.where(b < 0, ~b, b ^ (-(1 << 63)))       # unsigned order as bits
+    elif dtype == torch.int64:
+        order = b ^ (-(1 << 63))
+    else:
+        order = b
+    return b.view(dtype), reference.stable_order(order.view(torch.uint64))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint64, torch.int64, torch.float64], ids=str)
+def test_40m_64_bit_sort_runs_k0_alone(cuda, sort_spy, dtype):
+    """A default sort of 40M 64-bit keys: K0 over two planes, eight passes,
+    no torch.sort; bit for bit the plain reference's."""
+    x, order = _u64_keys(40_000_000, 41, dtype, cuda)
+    want = x.view(torch.int64)[order]
+    before = sort_spy[0]
+    rt.reset_launch_counts()
+    got = rt.sort(x)
+    counts = rt.launch_counts()
+    assert sort_spy[0] == before
+    assert counts["lsd_sort"] == 1 and counts["k0_sweep"] == 8 and counts["hist_multi"] == 2
+    assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
+    assert got.dtype == dtype and torch.equal(got.view(torch.int64), want)
+
+
+@pytest.mark.parametrize("where", ["below the gate", "at the gate", "above the gate"])
+def test_u64_argsort_and_sort_pairs_around_the_two_plane_gate(cuda, sort_spy, where):
+    """From the two-plane gate the u64 argsort (uint32 and int64 indices)
+    and sort_pairs with an f32 payload take K0, eight passes each, and no
+    torch.sort; below it torch.sort. Bit for bit the plain reference's."""
+    n = _two_plane_gate_sizes()[where]
+    k0 = where != "below the gate"
+    x, order = _u64_keys(n, 43, torch.uint64, cuda, ties=7)
+    pay = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(44), device=cuda)
+    before = sort_spy[0]
+    rt.reset_launch_counts()
+    perm32 = rt.argsort(x)
+    perm64 = rt.argsort(x, index_dtype=torch.int64)
+    sk, sv = rt.sort_pairs(x, pay)
+    counts = rt.launch_counts()
+    assert counts["lsd_sort"] == (3 if k0 else 0) and counts["k0_sweep"] == (24 if k0 else 0)
+    assert (sort_spy[0] == before) == k0
+    assert perm32.dtype == torch.uint32 and perm64.dtype == torch.int64
+    assert torch.equal(perm32.view(torch.int32).long(), order) and torch.equal(perm64, order)
+    assert torch.equal(sk.view(torch.int64), x.view(torch.int64)[order])
+    assert torch.equal(sv.view(torch.int32), pay.view(torch.int32)[order])
+
+
 def _sweep_starts(w, shift):
     """The exclusive scan of the 8-bit digit's global histogram."""
     h = torch.bincount(((w >> shift) & 0xFF).long(), minlength=256)

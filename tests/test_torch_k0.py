@@ -47,12 +47,14 @@ def cfgs(**kw):
 @pytest.mark.parametrize("planes", [1, 2, 3])
 @pytest.mark.parametrize("device_type", ["cuda", "cpu"])
 def test_sorter_route(device_type, planes, n_at):
-    """One gate for the sort and the argsort, 2^24: from there both beat
-    torch.sort in every sweep of scripts/k0_gate.py (PERF.md)."""
+    """One gate for the sort and the argsort of one plane, 2^24, and one for
+    two planes: from there both beat torch.sort in every sweep of
+    scripts/k0_gate.py (PERF.md). Three planes keep torch.sort."""
     assert hw_engine.LSD_MIN_KEYS == 1 << 24
-    n = {"below": hw_engine.LSD_MIN_KEYS - 1, "gate": hw_engine.LSD_MIN_KEYS,
-         "index limit": 1 << 31}[n_at]
-    k0 = device_type == "cuda" and planes == 1 and n_at == "gate"
+    assert hw_engine.K0_TWO_PLANE_MIN_KEYS == 1 << 23
+    gate = hw_engine.K0_TWO_PLANE_MIN_KEYS if planes == 2 else hw_engine.LSD_MIN_KEYS
+    n = {"below": gate - 1, "gate": gate, "index limit": 1 << 31}[n_at]
+    k0 = device_type == "cuda" and planes <= 2 and n_at == "gate"
     assert hw_engine.sorter_route(device_type, planes, n) == ("k0" if k0 else "torch.sort")
 
 
