@@ -18,7 +18,9 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      with dead bits in both planes; hist (K1) at r = 8, 16, 17 and 18 and
      hist_multi at r = 8, 11, 16 and 18 (so every form the launch-shape
      rule picks runs once: 32-bit sub-histograms, 16-bit counters in one
-     block and in 2, 4 and 8 grid rows; its shape printed), and K1 r = 16
+     block and in 2, 4 and 8 grid rows; its shape printed), live_digits
+     (K1 over one plane and two, with the descent flag) at r = 8 and 16 on
+     uniform, sorted and once-swapped keys, and K1 r = 16
      and 18, K2 0xFFFF and K3 at 16 bits on keys of which 90% or all are
      one value (each block hands a 16-bit counter to the output several
      times); regen (K4, K7); whist (K10) at 1,024 bins with i32 values,
@@ -42,7 +44,7 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      its plain version at n keys: the keys alone, the index born as the
      position (int32, and int64 as a last pass), an index plane written as
      int64 behind a payload, keys of which 90% or all share the digit;
-     lsd_sort (K0: hist_multi, then one k0_sweep a live digit) against
+     lsd_sort (K0: live_digits, then one k0_sweep a live digit) against
      torch.sort(stable=True) of the signed key, at LSD_MIN_KEYS and n keys:
      keys-only, argsort (int64 and uint32 indices), sort_pairs with a 4- and
      an 8-byte payload;
@@ -134,11 +136,12 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      exact=True, a many-round exchange) and one sort on make_sort_mesh(),
      the default mesh over the visible cards; each against numpy, with its
      size, time, peak device memory and launches;
-     the headline case (full-entropy u32, AUTO) must run K0 alone (hist_multi
-     1, k0_sweep 4, lsd_sort 1; no lsd_hist, lsd_scatter or torch.sort), the
-     sorter cases of u64, i64 and f64 too from K0_TWO_PLANE_MIN_KEYS keys
-     (hist_multi 2, k0_sweep 8, lsd_sort 1), and each LSD case one
-     hist_multi a plane; each case prints its torch.sort calls;
+     the headline case (full-entropy u32, AUTO) must run K0 alone (live_digits
+     1, k0_sweep 4, lsd_sort 1; no hist_multi, lsd_hist, lsd_scatter or
+     torch.sort), the sorter cases of u64, i64 and f64 too from
+     K0_TWO_PLANE_MIN_KEYS keys (live_digits 1, k0_sweep 8, lsd_sort 1), and
+     each LSD case one live_digits launch; each case prints its torch.sort
+     calls;
   5. require every kernel's launch count from phase 4 to be non-zero (K0's
      lsd_sort among them), and print the torch.sort calls of phase 4 (three
      or more planes, fewer than LSD_MIN_KEYS keys of one plane or
@@ -148,7 +151,8 @@ Phases, one line each (numpy is the only oracle; nothing here imports JAX):
      steady-state loops); K1, K2 and K3 with the launch shape each ran, the
      device time of one call (torch.profiler) and torch.bincount of the
      precomputed digits or PEXT values; K1 on keys of which 90% are one
-     value; K5, K6, K8 and K9 beside torch.repeat_interleave of each bin's
+     value; live_digits over one plane and two beside the read it replaces
+     (one hist_multi a plane and probes.is_sorted_words); K5, K6, K8 and K9 beside torch.repeat_interleave of each bin's
      key by its count; K10 and K11 at each phase-3 input with their launch
      shape and the reads of the rows it takes, beside index_add_; the range
      probe's cost on full-entropy u32; torch.sort of int32 and int64 keys;
@@ -567,6 +571,28 @@ def main() -> None:
             fail(f"hist_multi r={bits}: max |err| {err}, shape {tuple(got.shape)}")
         print(f"[3 kernel] hist_multi r={bits} passes={got.shape[0]} shape "
               f"{hist_label(got.numel())} equal to plain (max |err| 0)", flush=True)
+    # K1's live-digit read: every plane's digits and the descent flag in one
+    # launch, one plane and two, uniform keys (a descent), the keys sorted
+    # (none) and sorted with one pair swapped at the middle (one)
+    for planes in ((w,), (hi64, lo64)):
+        order = torch.sort(planes[0] ^ i32(1 << 31)).values ^ i32(1 << 31)
+        swapped = order.clone()
+        swapped[n // 2 - 1], swapped[n // 2] = order[n // 2], order[n // 2 - 1]
+        rest = tuple(torch.arange(n, device=dev, dtype=torch.int32) for _ in planes[1:])
+        for label, ws, want in (("uniform", planes, n > 2), ("sorted", (order,) + rest, 0),
+                                ("one swap", (swapped,) + rest, None)):
+            for bits in (8, 16):
+                got, flag = ck.live_digits(ws, bits)
+                ref, ref_flag = ck.live_digits_plain(ws, bits)
+                torch.cuda.synchronize()
+                err = max(int((got.long() - ref.long()).abs().max()), abs(int(flag) - int(ref_flag)))
+                errs["live_digits"] = max(errs["live_digits"], err)
+                if err or (want is not None and int(flag) != int(want)):
+                    fail(f"live_digits {len(ws)} planes r={bits} {label}: max |err| {err}, "
+                         f"flag {int(flag)}")
+            print(f"[3 kernel] live_digits {len(ws)} plane(s) {label}: r = 8 and 16 equal "
+                  f"to plain, descent flag {int(flag)} (max |err| 0)", flush=True)
+        del order, swapped, rest, got, ref
     # 16-bit counters on skewed keys: every block's counter of the common
     # value crosses 2^15 several times, so each hand-off to the output runs
     # under contention
@@ -755,7 +781,7 @@ def main() -> None:
         del got, ref
         print(f"[3 kernel] k0_sweep {label} (shift {shift}, {len(planes) + position} planes, "
               f"index {index_dtype}): equal to plain (max |err| 0)", flush=True)
-    # K0, the sorter of one plane (hist_multi, then one k0_sweep a live
+    # K0, the sorter of one plane (live_digits, then one k0_sweep a live
     # digit), against torch.sort(stable=True), at the gate and at n keys:
     # keys-only, argsort with int64 and uint32 indices, and sort_pairs with a
     # 4-byte payload (it rides the sweep) and an 8-byte one (gathered through
@@ -1725,15 +1751,15 @@ def main() -> None:
             if name.startswith(prefix) and not (
                     counts.get("lsd_hist") == counts.get("lsd_scatter") == want):
                 fail(f"{name}: launches {counts}, {want} passes expected")
-        # the live digits: one hist_multi a plane on the LSD path
+        # the live digits: one live_digits launch over every plane on the LSD path
         if name.startswith("LSD u") and "value_mask" not in name and \
-                counts.get("hist_multi") != (2 if "u64" in name else 1):
-            fail(f"{name}: launches {counts}, one hist_multi a plane expected")
-    # the headline runs K0: the live digits and starts from one K1 read, one
-    # sweep a live digit (no L1, no L2), no torch.sort
-    k0_want = {"u32 full entropy (sorter)": {"hist_multi": 1, "k0_sweep": 4, "lsd_sort": 1}}
+                (counts.get("live_digits") != 1 or "hist_multi" in counts):
+            fail(f"{name}: launches {counts}, one live_digits launch expected")
+    # the headline runs K0: the live digits, the guard's flag and the starts
+    # from one K1 read, one sweep a live digit (no L1, no L2), no torch.sort
+    k0_want = {"u32 full entropy (sorter)": {"live_digits": 1, "k0_sweep": 4, "lsd_sort": 1}}
     if n >= hw_engine.K0_TWO_PLANE_MIN_KEYS:     # two planes: K0 from its own gate
-        k0_want.update({name: {"hist_multi": 2, "k0_sweep": 8, "lsd_sort": 1}
+        k0_want.update({name: {"live_digits": 1, "k0_sweep": 8, "lsd_sort": 1}
                         for name in ("u64 full entropy (sorter)", "i64 (sorter)",
                                      "f64 +-0 +-inf NaN payloads (sorter)")})
     for (name, *_), counts, sorts in zip(inputs, case_launches, case_sorts):
@@ -1989,6 +2015,15 @@ def main() -> None:
             lambda: torch.bincount(flat, minlength=passes * bins), passes=passes,
             shape=hist_label(passes * bins), device_ms=device_trace(kernel)[1])
         del flat
+    # K1's live-digit read with the guard's flag, one plane and two, beside
+    # what it replaces: one hist_multi a plane and the guard's torch passes
+    for planes in ((w,), (hi64, lo64)):
+        total = len(planes) * 4 * 256
+        kernel = lambda: ck.live_digits(planes, 8)
+        row("live_digits", 256, n * 4 * len(planes) + total * 4 + 4,
+            kernel, lambda: ck.live_digits_plain(planes, 8),
+            lambda: ([ck.hist_multi(p, 8) for p in planes], probes.is_sorted_words(planes)),
+            planes=len(planes), shape=hist_label(total), device_ms=device_trace(kernel)[1])
     del u, skewed
     # K4 / K7 beside torch.searchsorted(cum, arange(n), right=True)
     j = torch.arange(n, dtype=torch.int32, device=dev)
@@ -2316,6 +2351,8 @@ def main() -> None:
     replaces = {
         "hist": (f"{csrc}/hist.cu", f"{pk}:100"),
         "hist_multi": (f"{csrc}/hist.cu", f"{pk}:100"),
+        "live_digits": (f"{csrc}/hist.cu", f"{pk}:100 (every digit of one or two planes, "
+                        "with the presorted guard's flag)"),
         "regen": (f"{csrc}/regen.cu", f"{pk}:219"),
         "regen_windowed": (f"{csrc}/regen.cu", f"{pk}:602"),
         "hist_pext": (f"{csrc}/hist.cu", f"{pk}:299"),
@@ -2338,7 +2375,7 @@ def main() -> None:
         "k0_sweep": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/hw_engine.py:56 "
                      "(lax.sort, no Pallas kernel; :75 for the argsort): K0's pass"),
         "lsd_sort": (f"{csrc}/lsd.cu", "none: radix_sorting_tpu/ops/hw_engine.py:56 "
-                     "(lax.sort, no Pallas kernel; K0 runs K1 hist_multi, hist.cu, and "
+                     "(lax.sort, no Pallas kernel; K0 runs K1 live_digits, hist.cu, and "
                      "k0_sweep)"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

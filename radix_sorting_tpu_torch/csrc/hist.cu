@@ -11,13 +11,31 @@
 //     value(i) = (pext(hi[i], mask_hi) << popcount(mask_lo)) | pext(lo[i], mask_lo)
 //     (K2 is the case mask_hi = 0 with the keys as lo). Either mask may be 0;
 //     a plane whose mask is 0 is not read.
-//   K1: r-bit digits (r in 1..18), P passes from bit `shift` on (P * 2^r
-//     <= 2^19, shift + (P - 1) * r < 32); with u(i) = keys[i] - offset
-//     (mod 2^32), keys with u(i) >= drop_ge counted in no pass (drop_ge up
-//     to 2^32: none dropped); out (P, 2^r) with
-//     out[p][d] = #{i : u(i) < drop_ge and (u(i) >> (shift + p * r)) & (2^r - 1) == d}.
+//   K1, one digit (rst_hist; the wrapper hist): an r-bit digit (r in
+//     1..18) from bit `shift` on (shift < 32); with u(i) = keys[i] - offset
+//     (mod 2^32), keys with u(i) >= drop_ge counted nowhere (drop_ge up to
+//     2^32: none dropped); out (2^r,) with
+//     out[d] = #{i : u(i) < drop_ge and (u(i) >> shift) & (2^r - 1) == d}.
 //     offset is the dense range probe's minimum, subtracted on the read so
 //     that `keys - min` is never written out.
+//   K1, every digit (rst_live_digits; the wrappers hist_multi, one plane,
+//     and live_digits, K0's and the LSD engine's live digits): one plane or
+//     two (hi, lo) at r bits (r in 1..18), P = ceil(32 / r) digits a plane
+//     (planes * P * 2^r <= 2^19); out holds planes * P * 2^r + 1 words:
+//     every digit's histogram, lo's P first, then hi's, and one slot, 1
+//     where some i has key[i + 1] < key[i] in unsigned (hi, lo) order (the
+//     presorted guard's flag, `order` set), else 0. The flag costs no read
+//     of its own: the keys are compared as they are read (the order check
+//     in hist_kernel). It replaced the guard's torch passes (a flip a
+//     plane, compares, any: 0.276 ms a 40M u32 call, 0.635 ms a u64 call,
+//     traced) and the second launch of two planes. At 40M keys on the H100
+//     (device ms, in turns with the read it replaced, run DP): one plane
+//     with the flag 0.079 (without 0.076; the run-time width's one plane
+//     0.080, and with the torch guard 0.360), two planes with the flag
+//     0.161 (without 0.155; two launches and the torch guard 0.808). The
+//     flag's shuffles and compares cost 3 to 4%; r = 8 compiled in
+//     (constant digit shifts, no offset) took 7% off the run-time width's
+//     0.0847 wall ms (run DO).
 //
 // Bound on the H100: one 4-byte read per key and live plane and no write per
 // key, so the floor is n * 4 bytes per live plane (8 for two) over
@@ -58,9 +76,9 @@
 //     sum once a pass (__reduce_add_sync), so keys of which 90% are one
 //     value do not serialize on one counter (an atomic that returns its old
 //     value), and uniform keys pay one ballot a chunk;
-//   * K1's passes are unrolled at compile time for P = 1 to 4 (the
-//     wrappers' hist and hist_multi at r >= 8), and its drop test is one
-//     32-bit compare, compiled out when nothing is dropped;
+//   * K1's passes are unrolled at compile time for P = 1 to 4 (hist, and
+//     every digit at r >= 8), and its drop test is one 32-bit compare,
+//     compiled out when nothing is dropped;
 //   * each block adds its non-zero counters into the output, zeroed on the
 //     stream first, with global reductions.
 // Measured on the H100 (scripts/hist_shapes.py, 40M keys, wall ms; trial
@@ -111,6 +129,7 @@ constexpr uint32_t kNone = 0xFFFFFFFFu; // no counter (a dropped key)
 template <bool kTwo>
 struct PextCount {
   static constexpr bool two = kTwo;
+  static constexpr bool order = false;  // no descent check (hist_kernel)
   static constexpr int cands = 1;     // candidate counters a warp keeps (one a pass)
   static constexpr int unroll = kTwo ? 2 : 4;   // 16-byte loads a thread and plane a step
   rst::BitRuns hi;  // runs of mask_hi (kTwo only)
@@ -125,13 +144,20 @@ struct PextCount {
   }
 };
 
-// K1: P digit counters per key (one plane, read as lo), into P consecutive
-// 2^bits-counter histograms; kP = 0: P = `passes`, known at run time.
-template <int kP, bool kDrop>
+// K1: P digit counters per key and plane into consecutive 2^bits-counter
+// histograms, lo's P first (one plane: the keys, read as lo), then hi's
+// (kTwo); kP = 0: P = `passes`, known at run time. kDrop: hist's one digit
+// drops keys. kOrder: the launch also looks for a descent (hist_kernel's
+// order check). kR > 0: r = kR known at compile time, the digits from bit 0
+// of the keys as they are (no offset): every digit at r = 8, whose digit
+// extracts then compile to constant shifts and masks.
+template <int kP, bool kDrop, bool kTwo = false, bool kOrder = false, int kR = 0>
 struct DigitCount {
-  static constexpr bool two = false;
-  static constexpr int cands = kP > 0 ? kP : 1;  // candidate counters a warp keeps
-  static constexpr int unroll = 4;
+  static constexpr bool two = kTwo;
+  static constexpr bool order = kOrder;
+  static constexpr int cands = kP > 0 ? (kTwo ? 2 : 1) * kP : 1;  // candidate counters a warp keeps
+  static constexpr int unroll = kTwo ? 2 : 4;   // 16-byte loads a thread and plane a step
+  static_assert(!(kTwo && kDrop), "two planes drop no key");
   uint32_t offset;      // subtracted from every key
   uint32_t drop_ge;     // kDrop: keys - offset >= this count nowhere
   int shift;            // bit of the first pass's digit
@@ -140,23 +166,55 @@ struct DigitCount {
   uint32_t digit_mask;  // 2^r - 1
 
   template <class Add>
-  __device__ __forceinline__ void operator()(uint32_t, uint32_t w, Add& add) const {
-    const uint32_t u = w - offset;
+  __device__ __forceinline__ void operator()(uint32_t h, uint32_t w, Add& add) const {
+    const uint32_t u = kR > 0 ? w : w - offset;
     const bool ok = !kDrop || u < drop_ge;
     if (kP > 0) {
+      const int b = kR > 0 ? kR : bits, s = kR > 0 ? 0 : shift;
+      const uint32_t m = kR > 0 ? (1u << kR) - 1u : digit_mask;
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
-        add(ok ? (static_cast<uint32_t>(p) << bits) | ((u >> (shift + p * bits)) & digit_mask)
-               : kNone, p);
+        add(ok ? (static_cast<uint32_t>(p) << b) | ((u >> (s + p * b)) & m) : kNone, p);
+      }
+      if (kTwo) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          add((static_cast<uint32_t>(kP + p) << b) | ((h >> (s + p * b)) & m), kP + p);
+        }
       }
     } else {
       for (int p = 0; p < passes; ++p) {
         add(ok ? (static_cast<uint32_t>(p) << bits) | ((u >> (shift + p * bits)) & digit_mask)
                : kNone, 0);
       }
+      if (kTwo) {
+        for (int p = 0; p < passes; ++p) {
+          add((static_cast<uint32_t>(passes + p) << bits) | ((h >> (shift + p * bits)) & digit_mask),
+              0);
+        }
+      }
     }
   }
 };
+
+// The order check: key (h, l) below the key (ph, pl) before it, unsigned,
+// hi first (one plane: l alone).
+template <bool kTwo>
+__device__ __forceinline__ bool below(uint32_t h, uint32_t l, uint32_t ph, uint32_t pl) {
+  if (kTwo) {
+    return ((static_cast<uint64_t>(h) << 32) | l) < ((static_cast<uint64_t>(ph) << 32) | pl);
+  }
+  return l < pl;
+}
+
+// Some key of a 16-byte group below the one before it; (ph, pl): the key
+// before the group's first.
+template <bool kTwo>
+__device__ __forceinline__ bool group_descends(const uint4& h, const uint4& l, uint32_t ph,
+                                               uint32_t pl) {
+  return below<kTwo>(h.x, l.x, ph, pl) | below<kTwo>(h.y, l.y, h.x, l.x) |
+         below<kTwo>(h.z, l.z, h.y, l.y) | below<kTwo>(h.w, l.w, h.z, l.z);
+}
 
 __device__ __forceinline__ uint4 load4(const uint32_t* p) {
   return make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
@@ -174,7 +232,9 @@ struct Shape {
 // 32-bit counters (up to 2^15): each block counts every counter into its own
 // `copies` sub-histograms. 16-bit counters (kHalf, up to 2^16 a block): grid
 // row y counts range y, in rounds, and a warp whose chunk repeats a key adds
-// that key's counters once for the warp.
+// that key's counters once for the warp. Count::order: grid row 0 also
+// compares every key with the one before it and sets out[total] to 1 where
+// one is below it.
 template <class Count, bool kHalf>
 __global__ void __launch_bounds__(kMaxThreads)
 hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, long long n,
@@ -252,6 +312,18 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
       h[u] = !Count::two ? l[u] : hi_vec ? __ldg(hi4 + q) : load4(hi + lead + 4 * q);
     }
   };
+  // the order check (Count::order, row 0): a thread compares the keys of each
+  // of its groups with each other and the group's first key with the key
+  // before it: the previous lane's last key (the previous group), by a
+  // shuffle, or for lane 0, and off the chunk's whole steps, one load. Lane
+  // 0's loads go out before the shuffles, beside the chunk's own (each load
+  // issued where its key is compared cost 5% more at 40M keys, run DN)
+  const bool check = Count::order && blockIdx.y == 0;
+  bool descent = false;
+  auto key_before = [&](long long i, uint32_t& ph, uint32_t& pl) {   // key i - 1, or the least
+    pl = i > 0 ? __ldg(lo + i - 1) : 0u;
+    ph = Count::two && i > 0 ? __ldg(hi + i - 1) : pl;
+  };
   uint4 l[kUnroll], h[kUnroll];
   if (kHalf && blockIdx.x < whole) load(blockIdx.x, l, h);
   int chunks = 0;                      // of the round
@@ -263,6 +335,28 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
       load(j, l, h);
     } else if (j + gridDim.x < whole) {
       load(j + gridDim.x, ln, hn);
+    }
+    if (check) {
+      const long long q0 = j * chunk + threadIdx.x;
+      const bool lane0 = (threadIdx.x & 31) == 0;
+      uint32_t pl[kUnroll], ph[kUnroll];
+      const uint32_t* lp = lo + lead + 4 * q0 - 1;
+      const uint32_t* hp = hi + lead + 4 * q0 - 1;
+      const bool first = lead + 4 * q0 == 0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long off = 4LL * u * blockDim.x;
+        pl[u] = lane0 && !(first && u == 0) ? __ldg(lp + off) : 0u;
+        ph[u] = Count::two && lane0 && !(first && u == 0) ? __ldg(hp + off) : pl[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const uint32_t sl = __shfl_up_sync(0xFFFFFFFFu, l[u].w, 1);
+        const uint32_t sh = Count::two ? __shfl_up_sync(0xFFFFFFFFu, h[u].w, 1) : sl;
+        pl[u] = lane0 ? pl[u] : sl;
+        ph[u] = lane0 ? ph[u] : sh;
+        descent |= group_descends<Count::two>(h[u], l[u], ph[u], pl[u]);
+      }
     }
     // 16-bit counters: a warp in which at least 4 lanes find their first two
     // keys on one counter takes the first such lane's key as its candidate
@@ -325,20 +419,33 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
       count(h.y, l.y, add);
       count(h.z, l.z, add);
       count(h.w, l.w, add);
+      if (check) {
+        uint32_t ph, pl;
+        key_before(lead + 4 * q, ph, pl);
+        descent |= group_descends<Count::two>(h, l, ph, pl);
+      }
     }
   }
   if (blockIdx.x == 0) {                                           // head and tail
     const long long tail = lead + 4 * quads;
-    if (threadIdx.x < lead) {
-      count(Count::two ? __ldg(hi + threadIdx.x) : 0u, __ldg(lo + threadIdx.x), add);
-    }
-    if (threadIdx.x < n - tail) {
-      const long long i = tail + threadIdx.x;
-      count(Count::two ? __ldg(hi + i) : 0u, __ldg(lo + i), add);
-    }
+    auto one = [&](long long i) {
+      const uint32_t kh = Count::two ? __ldg(hi + i) : 0u, kl = __ldg(lo + i);
+      count(kh, kl, add);
+      if (check) {
+        uint32_t ph, pl;
+        key_before(i, ph, pl);
+        descent |= below<Count::two>(kh, kl, ph, pl);
+      }
+    };
+    if (threadIdx.x < lead) one(threadIdx.x);
+    if (threadIdx.x < n - tail) one(tail + threadIdx.x);
   }
 
-  __syncthreads();
+  if (Count::order) {                    // the block's barrier, with its descent flag
+    if (__syncthreads_or(descent) && threadIdx.x == 0) out[total] = 1;
+  } else {
+    __syncthreads();
+  }
   for (int b = threadIdx.x; b < owned; b += blockDim.x) {
     int sum = 0;
     if (kHalf) {
@@ -368,16 +475,18 @@ bool shape_ok(const Shape& sh, int total) {
   return smem_bytes(sh, total) <= kBlockSmemMax;
 }
 
+// The output's `words` (the histogram's `total` counters and any slot after
+// them) are zeroed by the launch's one memset.
 template <class Count, bool kHalf>
 cudaError_t launch_shape(const uint32_t* hi, const uint32_t* lo, long long n, const Count& count,
-                         int total, const Shape& sh, int* out, cudaStream_t s) {
+                         int total, int words, const Shape& sh, int* out, cudaStream_t s) {
   auto kernel = hist_kernel<Count, kHalf>;
   const int smem = smem_bytes(sh, total);
   dim3 grid;                 // one wave of blocks, shared among the ranges
   cudaError_t err = rst::wave_grid(kernel, sh.threads, smem, n, 4LL * Count::unroll * sh.threads,
                                    sh.ranges, &grid);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(out, 0, sizeof(int) * static_cast<size_t>(total), s);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * static_cast<size_t>(words), s);
   if (err != cudaSuccess) return err;
   kernel<<<grid, sh.threads, smem, s>>>(hi, lo, n, count, total, sh.local_bits, sh.copies, out);
   return cudaGetLastError();
@@ -385,22 +494,46 @@ cudaError_t launch_shape(const uint32_t* hi, const uint32_t* lo, long long n, co
 
 template <class Count>
 int launch_hist(const void* hi, const void* lo, long long n, const Count& count, int total,
-                const Shape& sh, void* hist, void* stream) {
+                const Shape& sh, void* hist, void* stream, int words = 0) {
   if (!shape_ok(sh, total)) return static_cast<int>(cudaErrorInvalidValue);
+  words = std::max(words, total);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* out = static_cast<int*>(hist);
-  if (n == 0) return static_cast<int>(cudaMemsetAsync(out, 0, sizeof(int) * static_cast<size_t>(total), s));
+  if (n == 0) return static_cast<int>(cudaMemsetAsync(out, 0, sizeof(int) * static_cast<size_t>(words), s));
   const auto* h = static_cast<const uint32_t*>(hi);
   const auto* l = static_cast<const uint32_t*>(lo);
-  return static_cast<int>(sh.half ? launch_shape<Count, true>(h, l, n, count, total, sh, out, s)
-                                  : launch_shape<Count, false>(h, l, n, count, total, sh, out, s));
+  return static_cast<int>(sh.half ? launch_shape<Count, true>(h, l, n, count, total, words, sh, out, s)
+                                  : launch_shape<Count, false>(h, l, n, count, total, words, sh, out, s));
 }
 
-template <int kP, bool kDrop>
-int launch_digits(const void* keys, long long n, uint32_t offset, int shift, int bits,
-                  int passes, uint32_t drop_ge, const Shape& sh, void* hist, void* stream) {
-  const DigitCount<kP, kDrop> count = {offset, drop_ge, shift, bits, passes, (1u << bits) - 1u};
-  return launch_hist(keys, keys, n, count, passes << bits, sh, hist, stream);
+// One digit (hist): kDrop, some keys are dropped.
+template <bool kDrop>
+int launch_digit(const void* keys, long long n, uint32_t offset, int shift, int bits,
+                 uint32_t drop_ge, const Shape& sh, void* hist, void* stream) {
+  const DigitCount<1, kDrop> count = {offset, drop_ge, shift, bits, 1, (1u << bits) - 1u};
+  return launch_hist(keys, keys, n, count, 1 << bits, sh, hist, stream);
+}
+
+// Every digit of one plane (kTwo false: lo) or two: every 2^bits-bit
+// digit's histogram, lo's first, and the slot after them (kOrder: 1 where a
+// key is below the one before it). The passes are compiled in for 2 to 4
+// digits a plane (r = 8 to 18), and at r = 8, K0's digits, r too; the
+// run-time digit loop takes the rest (r < 8).
+template <bool kTwo, bool kOrder>
+int launch_live(const void* hi, const void* lo, long long n, int bits, int passes,
+                const Shape& sh, void* out, void* stream) {
+  const int total = (kTwo ? 2 * passes : passes) << bits;
+  const uint32_t dm = (1u << bits) - 1u;
+  auto go = [&](const auto& count) {
+    return launch_hist(hi, lo, n, count, total, sh, out, stream, total + 1);
+  };
+  if (bits == 8) return go(DigitCount<4, false, kTwo, kOrder, 8>{0u, 0u, 0, 8, 4, dm});
+  switch (passes) {
+    case 2: return go(DigitCount<2, false, kTwo, kOrder>{0u, 0u, 0, bits, 2, dm});
+    case 3: return go(DigitCount<3, false, kTwo, kOrder>{0u, 0u, 0, bits, 3, dm});
+    case 4: return go(DigitCount<4, false, kTwo, kOrder>{0u, 0u, 0, bits, 4, dm});
+    default: return go(DigitCount<0, false, kTwo, kOrder>{0u, 0u, 0, bits, passes, dm});
+  }
 }
 
 }  // namespace
@@ -409,29 +542,44 @@ int launch_digits(const void* keys, long long n, uint32_t offset, int shift, int
 #define RST_HIST_SHAPE_PARAMS int threads, int local_bits, int ranges, int copies, int half
 #define RST_HIST_SHAPE Shape{threads, local_bits, ranges, copies, half}
 
-// K1: `passes` digit histograms of the keys, (passes, 2^bits) int32.
+// K1: the histogram of one digit of the keys, (2^bits,) int32.
 extern "C" int rst_hist(const void* keys, long long n, unsigned int offset, int shift,
-                        int bits, int passes, unsigned long long drop_ge, void* hist,
+                        int bits, unsigned long long drop_ge, void* hist,
                         RST_HIST_SHAPE_PARAMS, void* stream) {
-  if (bits < 1 || bits > 18 || passes < 1 || (static_cast<long long>(passes) << bits) > (1 << 19) ||
-      shift < 0 || shift + (passes - 1) * bits >= 32 || drop_ge > (1ULL << 32)) {
+  if (bits < 1 || bits > 18 || shift < 0 || shift >= 32 || drop_ge > (1ULL << 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shape sh = RST_HIST_SHAPE;
   const uint32_t d = static_cast<uint32_t>(drop_ge);
-  if (drop_ge < (1ULL << 32)) {   // the wrappers drop in one pass; more take the run-time loop
-    return passes == 1 ? launch_digits<1, true>(keys, n, offset, shift, bits, 1, d, sh, hist, stream)
-                       : launch_digits<0, true>(keys, n, offset, shift, bits, passes, d, sh, hist,
-                                                stream);
+  return drop_ge < (1ULL << 32)
+             ? launch_digit<true>(keys, n, offset, shift, bits, d, sh, hist, stream)
+             : launch_digit<false>(keys, n, offset, shift, bits, 0, sh, hist, stream);
+}
+
+// K1, every digit (hist_multi; live_digits, for K0 and the LSD engine):
+// one plane (lo; hi is not read) or two (hi, lo) at r = bits, (planes *
+// passes, 2^bits) int32 with passes = ceil(32 / bits), least significant
+// digit first across the planes, and one int32 slot after them: with
+// `order`, 1 where some key is below the one before it in unsigned (hi, lo)
+// order, else 0. `out` holds planes * passes * 2^bits + 1 words, zeroed by
+// the launch's memset.
+extern "C" int rst_live_digits(const void* hi, const void* lo, long long n, int planes,
+                               int bits, int order, void* out, RST_HIST_SHAPE_PARAMS,
+                               void* stream) {
+  if (planes < 1 || planes > 2 || bits < 1 || bits > 18) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (passes) {
-    case 1: return launch_digits<1, false>(keys, n, offset, shift, bits, 1, 0, sh, hist, stream);
-    case 2: return launch_digits<2, false>(keys, n, offset, shift, bits, 2, 0, sh, hist, stream);
-    case 3: return launch_digits<3, false>(keys, n, offset, shift, bits, 3, 0, sh, hist, stream);
-    case 4: return launch_digits<4, false>(keys, n, offset, shift, bits, 4, 0, sh, hist, stream);
-    default: return launch_digits<0, false>(keys, n, offset, shift, bits, passes, 0, sh, hist,
-                                            stream);
+  const int passes = (32 + bits - 1) / bits;
+  if ((static_cast<long long>(planes * passes) << bits) > (1 << 19)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Shape sh = RST_HIST_SHAPE;
+  if (planes == 1) {
+    return order ? launch_live<false, true>(lo, lo, n, bits, passes, sh, out, stream)
+                 : launch_live<false, false>(lo, lo, n, bits, passes, sh, out, stream);
+  }
+  return order ? launch_live<true, true>(hi, lo, n, bits, passes, sh, out, stream)
+               : launch_live<true, false>(hi, lo, n, bits, passes, sh, out, stream);
 }
 
 // K2: one plane (the keys), read as the lo plane.

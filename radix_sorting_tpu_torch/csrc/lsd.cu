@@ -105,7 +105,7 @@
 // argsort with the index as a last key). Contract: for 8-bit digits and
 // tiles of 8,192 keys, out_p[starts[d(i)] + #{j < i : d(j) == d(i)}] =
 // in_p[i], with starts the exclusive scan of the digit's global histogram
-// (K0 reads every digit's in one K1 hist_multi); a null in_p is the
+// (K0 reads every digit's in one K1 live_digits); a null in_p is the
 // position i, and a wide out_p takes i's word zero-extended to 8 bytes.
 // What it removes from K0's L1 + scan + L2 pass (Onesweep, Adinets &
 // Merrill 2022): L1's second read of the keys, the (tiles, 256) counts

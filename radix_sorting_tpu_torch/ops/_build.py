@@ -43,9 +43,12 @@ _HIST_SHAPE = (_I, _I, _I, _I, _I)
 # local_bits, ranges, half, unroll)
 _WHIST_SHAPE = (_I, _I, _I, _I, _I)
 _SIGNATURES = {
-    # keys, n, offset, shift, bits, passes, drop_ge, hist, shape, stream
+    # keys, n, offset, shift, bits, drop_ge, hist, shape, stream
     "rst_hist": (_P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_ulonglong, _P, *_HIST_SHAPE, _P),
+                 ctypes.c_ulonglong, _P, *_HIST_SHAPE, _P),
+    # hi, lo, n, planes, bits, order, out, shape, stream
+    "rst_live_digits": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        _P, *_HIST_SHAPE, _P),
     # cum, bins, n, offset, out, stream
     "rst_regen": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint, _P, _P),
     # keys, n, mask, hist, shape, stream

@@ -17,6 +17,8 @@ wrapper / counter       CUDA source     replaces (pallas_kernels.py)
 ======================  ==============  =====================================
 hist                    csrc/hist.cu    K1 ``_hist_kernel`` (one digit)
 hist_multi              csrc/hist.cu    K1 ``_hist_kernel`` (every digit)
+live_digits             csrc/hist.cu    K1 ``_hist_kernel`` (every digit of one
+                                        or two planes, with an order flag)
 hist_pext               csrc/hist.cu    K2 ``_hist_pext_kernel``
 hist_pext2              csrc/hist.cu    K3 ``_hist_pext2_kernel``
 regen                   csrc/regen.cu   K4 ``_regen_kernel``
@@ -49,10 +51,11 @@ few planes with a bitonic network. L1 and L2 are one pass of the LSD radix
 sort (per-tile digit histograms, stable scatter); the JAX package's LSD
 engine is XLA with no Pallas kernel, so they replace none. ``lsd_sort``
 counts the calls of K0, the port's sorter of one or two planes on the card
-(:mod:`.hw_engine`), which launches ``hist_multi`` once a plane and ``k0_sweep``
-(L2's staged form with a decoupled look-back in place of L1 and the scan)
-once a live digit; it replaces ``lax.sort``, which is no Pallas kernel
-either. E1 and E2 are
+(:mod:`.hw_engine`), which launches ``live_digits`` once (every plane's
+digit histograms and the presorted guard's flag in one read) and
+``k0_sweep`` (L2's staged form with a decoupled look-back in place of L1
+and the scan) once a live digit; it replaces ``lax.sort``, which is no
+Pallas kernel either. E1 and E2 are
 the kernels of the speed-of-light scripts (:mod:`..scripts`): a staged
 device-memory copy and the spread step of the two-level MSD sort. K13 is the
 all-to-all of the distributed tier (:mod:`..parallel.rdma`), one launch a
@@ -77,6 +80,7 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "HistShape", "hist_shape", "hist_shape_ok", "hist_shape_candidates",
            "HIST_BLOCK_BITS", "HIST_HALF_BITS", "HIST_THREADS",
            "hist", "hist_plain", "hist_multi", "hist_multi_plain",
+           "live_digits", "live_digits_plain", "live_digits_fit",
            "regen", "regen_plain",
            "hist_pext", "hist_pext_plain", "regen_pdep", "regen_pdep_plain",
            "hist_pext2", "hist_pext2_plain", "regen_pdep2", "regen_pdep2_plain",
@@ -96,7 +100,7 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "msd_spread", "msd_spread_plain", "rdma_exchange", "rdma_exchange_plain",
            "RDMA_MAX_RANKS"]
 
-LAUNCHES = {"hist": 0, "hist_multi": 0, "regen": 0, "regen_windowed": 0,
+LAUNCHES = {"hist": 0, "hist_multi": 0, "live_digits": 0, "regen": 0, "regen_windowed": 0,
             "hist_pext": 0, "regen_pdep": 0, "regen_pdep_windowed": 0,
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
             "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
@@ -220,7 +224,7 @@ class HistShape(NamedTuple):
 
 
 def hist_shape_ok(shape: HistShape, total: int) -> bool:
-    """The checks ``rst_hist`` makes before a launch (``shape_ok`` in
+    """The checks ``rst_hist`` and ``rst_live_digits`` make before a launch (``shape_ok`` in
     csrc/hist.cu): every counter of ``[0, total)`` has exactly one owner, no
     row owns none, the block fits 232,448 bytes; 32-bit counters in one
     row, 16-bit counters in one copy. (Every shape meets the 16-bit
@@ -341,7 +345,7 @@ def hist(w: torch.Tensor, pass_index: int, radix_bits: int, drop_ge=None,
         return hist_plain(w, pass_index, radix_bits, drop_ge, offset)
     out = _hist_launch("rst_hist", w.device, 1 << radix_bits, hist_shape(1 << radix_bits),
                        w.data_ptr(), w.shape[0], offset & 0xFFFFFFFF,
-                       pass_index * radix_bits, radix_bits, 1, bound)
+                       pass_index * radix_bits, radix_bits, bound)
     LAUNCHES["hist"] += 1
     return out
 
@@ -360,17 +364,81 @@ def hist_multi_plain(w: torch.Tensor, radix_bits: int) -> torch.Tensor:
 def hist_multi(w: torch.Tensor, radix_bits: int) -> torch.Tensor:
     """The histograms of every ``radix_bits``-bit digit of ``w`` in ONE read
     of the keys (the contract of ``multi_digit_histogram_tpu``; the fused
-    first pass of `radix_sort_u32.c:24-37`): (passes, 2^radix_bits) int32."""
+    first pass of `radix_sort_u32.c:24-37`): (passes, 2^radix_bits) int32.
+    The launch is :func:`live_digits`' of one plane with no order flag."""
     _check_plane("hist_multi", w)
     passes = _num_passes(radix_bits)
     _check_digits("hist_multi", 0, radix_bits, passes)
     if not use_gpu_routes(w):
         return hist_multi_plain(w, radix_bits)
-    total = passes << radix_bits
-    out = _hist_launch("rst_hist", w.device, total, hist_shape(total), w.data_ptr(),
-                       w.shape[0], 0, 0, radix_bits, passes, _NO_DROP)
+    hists, _ = _live_launch((w,), radix_bits, False)
     LAUNCHES["hist_multi"] += 1
-    return out.view(passes, 1 << radix_bits)
+    return hists
+
+
+def live_digits_fit(planes: int, radix_bits: int) -> bool:
+    """Whether :func:`live_digits` takes ``planes`` planes at
+    ``radix_bits``: one or two planes whose every digit's counter fits one
+    K1 launch (2^19 counters; always at ``SortConfig``'s r <= 16)."""
+    return (planes in (1, 2) and 1 <= radix_bits <= HIST_MAX_BITS
+            and planes * _num_passes(radix_bits) << radix_bits <= _HIST_MAX_COUNTERS)
+
+
+def _check_live(words: Sequence[torch.Tensor], radix_bits: int) -> None:
+    if len(words) == 2:
+        _check_pair("live_digits", *words)
+    elif len(words) == 1:
+        _check_plane("live_digits", words[0])
+    if not live_digits_fit(len(words), radix_bits):
+        raise ValueError(f"live_digits: {len(words)} planes of {radix_bits}-bit digits; "
+                         f"one or two planes of at most {_HIST_MAX_COUNTERS} counters "
+                         "are taken")
+
+
+def live_digits_plain(words: Sequence[torch.Tensor], radix_bits: int,
+                      order: bool = True):
+    """:func:`hist_multi_plain` of each plane, least significant plane
+    first, and ``order``'s descent flag: 1 (int32, 0-d) where some key is
+    below the one before it in the planes' unsigned lexicographic order
+    (``not probes.is_sorted_words(words)``), else 0; None without ``order``."""
+    words = tuple(words)
+    _check_live(words, radix_bits)
+    hists = torch.cat([hist_multi_plain(w, radix_bits) for w in reversed(words)])
+    if not order:
+        return hists, None
+    descent = torch.any(probes.word_lt([w[1:] for w in words], [w[:-1] for w in words]))
+    return hists, descent.to(torch.int32)
+
+
+def live_digits(words: Sequence[torch.Tensor], radix_bits: int, order: bool = True):
+    """K0's and the LSD engine's live-digit read: every ``radix_bits``-bit
+    digit's histogram of one plane or two (most significant first), least
+    significant digit first across the planes, in ONE read of every key
+    (the order of one :func:`hist_multi` a plane, concatenated), and with
+    ``order`` the presorted guard's flag from the same read:
+    ((digits, 2^radix_bits) int32, 0-d int32 that is 1 where some key is
+    below the one before it, else 0; None without ``order``). On the card
+    both are views of one buffer that the launch zeroes with one memset."""
+    words = tuple(words)
+    _check_live(words, radix_bits)
+    if not use_gpu_routes(words[0]):
+        return live_digits_plain(words, radix_bits, order)
+    out = _live_launch(words, radix_bits, order)
+    LAUNCHES["live_digits"] += 1
+    return out
+
+
+def _live_launch(words: tuple, radix_bits: int, order: bool, shape=None):
+    """One ``rst_live_digits`` launch (``hist_multi``'s and
+    :func:`live_digits`'), in ``shape`` or the rule's: the (digits,
+    2^radix_bits) view and the 0-d flag (None without ``order``), views of
+    one buffer."""
+    total = len(words) * _num_passes(radix_bits) << radix_bits
+    out = torch.empty(total + 1, dtype=torch.int32, device=words[0].device)
+    _launch("rst_live_digits", words[0].device, words[0].data_ptr(), words[-1].data_ptr(),
+            words[0].shape[0], len(words), radix_bits, int(bool(order)), out.data_ptr(),
+            *(shape or hist_shape(total)))
+    return out[:total].view(-1, 1 << radix_bits), out[total] if order else None
 
 
 # ---------------------------------------------------------------------------

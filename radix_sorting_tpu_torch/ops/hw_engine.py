@@ -4,9 +4,10 @@ The counterpart of ``radix_sorting_tpu.ops.hw_engine``, whose sorter is XLA's
 ``lax.sort``, a library routine outside every Pallas kernel. Here the sorter
 of one or two word planes on the card is **K0**, the port's own LSD radix
 sort (:func:`.lsd_engine.sort_words_k0` at 8-bit digits and tiles of 8,192
-keys, the ``SortConfig`` defaults): the live digits and every digit's global
-starts from one K1 ``hist_multi`` a plane and one read, then one
-``k0_sweep`` launch per live digit, its tiles' prefixes from a decoupled
+keys, the ``SortConfig`` defaults): the live digits, every digit's global
+starts and the presorted guard's flag from one K1 ``live_digits`` launch
+over every plane and one host read, then one ``k0_sweep`` launch per live
+digit, its tiles' prefixes from a decoupled
 look-back (``csrc/hist.cu``, ``csrc/lsd.cu``), on the unsigned words
 themselves, with no sign flip. Two planes (64-bit keys, and every composite
 packed into two words) take up to eight passes, each moving both planes.
@@ -90,8 +91,8 @@ def _k0(words: tuple, payloads: tuple = (), guard: bool = False,
         index_dtype=None) -> Tuple[tuple, tuple, torch.Tensor]:
     """K0: the stable LSD radix sort of one or two planes, carrying
     payloads, and the permutation as ``index_dtype`` (int32 / int64, or
-    None: none); ``guard``: the presorted exit, read with the live digits
-    in one sync."""
+    None: none); ``guard``: the presorted exit, its flag found by the live
+    digits' launch and read with them in one sync."""
     out = lsd_engine.sort_words_k0(words, payloads, guard=guard, index_dtype=index_dtype)
     if words[0].is_cuda:
         cuda_kernels.LAUNCHES["lsd_sort"] += 1
@@ -123,7 +124,8 @@ def _index_as(perm: torch.Tensor, index_dtype) -> torch.Tensor:
 
 
 def _ordered(words: tuple) -> bool:
-    """The presorted guard off K0: its flag, read on the host."""
+    """The presorted guard off K0: its torch passes
+    (:func:`.probes.is_sorted_words`), the flag read on the host."""
     flag = probes.is_sorted_words(words)
     with span(READ):
         return bool(flag)
@@ -195,7 +197,8 @@ def argsort_words(words: Sequence[torch.Tensor], index_dtype=torch.uint32,
     The permutation is the unique stable rank order, the reference rank
     sort's output (`radix_sort_rank.hpp:22-92`). ``guard``: the presorted
     early exit (`radix_sort.hpp:60-62`), an ordered input's permutation the
-    identity; on K0 read with the live digits in one sync.
+    identity; on K0 found by the live digits' launch and read with them in
+    one sync.
     """
     return _stable_sort(words, index_dtype, guard)
 
@@ -208,8 +211,11 @@ def sort_words_presort_guard(words: Sequence[torch.Tensor],
     The JAX package branches on the device with ``lax.cond``. Eager torch
     has no device-side branch, so the probe's answer comes to the host and
     an ordered input skips the sort, as in the reference. On K0 the answer
-    comes in the same read as the live digits (one sync a call): an ordered
-    input then costs the probe and the K1 read, and launches no pass.
+    comes from the live digits' launch, which compares each key with the one
+    before it as it reads them, and in the same read (one sync a call): an
+    ordered input then costs that one K1 read of the keys and launches no
+    pass. Off K0 the probe is :func:`.probes.is_sorted_words`'s torch passes
+    and its own read.
     """
     words, payloads = tuple(words), tuple(payloads)
     if _takes_k0(words):

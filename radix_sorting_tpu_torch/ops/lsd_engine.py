@@ -22,10 +22,16 @@ scan (:func:`sort_words_k0`).
 A digit that is the same in every key is skipped when ``skip_trivial`` is set
 (column skipping, `radix_sort.hpp:64-70`). The JAX package skips it on the
 device with ``lax.cond``; here the live-digit flags come from one K1
-``hist_multi`` read of every digit's histogram a plane (a digit is dead where
-one bin holds all n keys, :func:`live_digit_flags`; every digit width of 1
-to 16 bits is one K1 launch) and reach the host in one read a call, with the
-presorted guard's flag when it is asked for.
+``live_digits`` read of every digit's histogram of one plane or two (a digit
+is dead where one bin holds all n keys, :func:`live_digit_flags`; every
+digit width of 1 to 16 bits is one K1 launch) and reach the host in one read
+a call. The presorted guard (`radix_sort.hpp:48-62`), where it is asked for,
+is the same launch: each key is compared with the one before it as it is
+read, and the flag leads the same host read, so an ordered input launches
+no pass and costs one read of the keys. Three or more planes take one
+``hist_multi`` a plane and the guard's torch passes
+(:func:`.probes.is_sorted_words`); the guard without column skipping, which
+reads no digits, takes those passes alone.
 
 The JAX engine pads n to a multiple of its chunk with all-ones sentinels;
 the kernels here take a short last tile instead. The output of a stable sort
@@ -55,20 +61,27 @@ def lsd_tile(chunk: int, radix_bits: int) -> int:
     return max(int(chunk), 1 << radix_bits)
 
 
-def _digit_hists(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Tensor:
-    """(digits, 2^radix_bits) int32: every digit's histogram, least
-    significant first across the words, one K1 ``hist_multi`` a plane."""
-    hists = [cuda_kernels.hist_multi(w, radix_bits) for w in reversed(tuple(words))]
-    return hists[0] if len(hists) == 1 else torch.cat(hists)
+def _digit_hists(words: Sequence[torch.Tensor], radix_bits: int, order: bool = False):
+    """((digits, 2^radix_bits) int32, descent): every digit's histogram,
+    least significant first across the words, and with ``order`` a 0-d
+    flag, non-zero where some key is below the one before it (else None).
+    One K1 ``live_digits`` launch where it takes the planes (one or two),
+    else one ``hist_multi`` a plane and the guard's torch passes; the
+    choice is the shape's, made on the host."""
+    words = tuple(words)
+    if cuda_kernels.live_digits_fit(len(words), radix_bits):
+        return cuda_kernels.live_digits(words, radix_bits, order)
+    hists = torch.cat([cuda_kernels.hist_multi(w, radix_bits) for w in reversed(words)])
+    return hists, ~probes.is_sorted_words(words) if order else None
 
 
 def live_digit_flags(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Tensor:
     """(digits,) bool on the planes' device, one flag per digit position,
     least significant first across the words (the order of
     :func:`.probes.live_digit_mask`): True where the digit varies. One K1
-    ``hist_multi`` a plane; a digit is dead where one of its bins holds all
+    read of every plane; a digit is dead where one of its bins holds all
     n keys. No host read."""
-    return _digit_hists(words, radix_bits).max(dim=1).values != int(words[0].shape[0])
+    return _digit_hists(words, radix_bits)[0].max(dim=1).values != int(words[0].shape[0])
 
 
 def sort_words_lsd(words: Sequence[torch.Tensor],
@@ -86,8 +99,8 @@ def sort_words_lsd(words: Sequence[torch.Tensor],
     them all, where a 64-bit leaf would move 8 and a row W.
 
     ``guard``: the presorted early exit (`radix_sort.hpp:60-62`), its flag
-    read with the live digits in one host read; an ordered input comes back
-    as given and launches no pass.
+    found by the live digits' launch and read with them in one host read;
+    an ordered input comes back as given and launches no pass.
     """
     sw, out, _ = _sort(words, payloads, radix_bits, lsd_tile(chunk, radix_bits),
                        skip_trivial, guard, None, sweep=False)
@@ -118,10 +131,11 @@ def sort_words_k0(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor
 
 def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard: bool,
           index_dtype, sweep: bool):
-    """The loop of both engines: the one host read (the guard's flag, the
-    live digits), the planes that ride, one pass a live digit (``sweep``:
-    K0's sweep, else L1 + scan + L2), the gathers. Returns (sorted words,
-    payloads, index or None)."""
+    """The loop of both engines: the one host read (the guard's descent
+    flag, then the live digits, both from one ``live_digits`` launch), the
+    planes that ride, one pass a live digit (``sweep``: K0's sweep, else L1
+    + scan + L2), the gathers. Returns (sorted words, payloads, index or
+    None)."""
     words, payloads = tuple(words), tuple(payloads)
     n, device = int(words[0].shape[0]), words[0].device
     identity = lambda: None if index_dtype is None else torch.arange(
@@ -131,19 +145,21 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
     words = tuple(w.contiguous() for w in words)      # the kernels read dense planes
     digits_per_word = -(-32 // radix_bits)
     live = [True] * (digits_per_word * len(words))
+    if skip_trivial:
+        with span(LIVE_DIGITS):
+            hists, descent = _digit_hists(words, radix_bits, guard)
+            flags = hists.max(dim=1).values != n
+            if guard:       # the descent flag first
+                flags = torch.cat([descent.view(1), flags])
+            if sweep:       # every digit's global starts, queued before the read
+                starts = exclusive_scan(hists, axis=1)
+                status = cuda_kernels.k0_sweep_status(n, device)
+    elif guard:
+        flags = (~probes.is_sorted_words(words)).view(1)
     if skip_trivial or guard:
-        flags = [probes.is_sorted_words(words).view(1)] if guard else []
-        if skip_trivial:
-            with span(LIVE_DIGITS):
-                hists = _digit_hists(words, radix_bits)
-                flags.append(hists.max(dim=1).values != n)
-                if sweep:       # every digit's global starts, queued before the read
-                    starts = exclusive_scan(hists, axis=1)
-                    status = cuda_kernels.k0_sweep_status(n, device)
-        flags = torch.cat(flags)
         with span(READ):
             read = flags.tolist()                 # the call's one host read
-        if guard and read.pop(0):
+        if guard and not read.pop(0):
             return words, payloads, identity()
         if skip_trivial:
             live = read

@@ -166,7 +166,7 @@ def _rows(w, skewed, hi, lo, dev):
                      lambda k=keys, b=bits, d=drop: ck.hist(k, 0, b, drop_ge=d),
                      lambda k=keys, b=bits, d=drop: ck.hist_plain(k, 0, b, d),
                      lambda s, k=keys, b=bits, bd=bound: ck._hist_launch(
-                         "rst_hist", dev, 1 << b, s, k.data_ptr(), n, 0, 0, b, 1, bd),
+                         "rst_hist", dev, 1 << b, s, k.data_ptr(), n, 0, 0, b, bd),
                      counters, bins + 1))
     for bits in (8, 11):
         passes = -(-32 // bits)
@@ -178,8 +178,7 @@ def _rows(w, skewed, hi, lo, dev):
                               for p in range(passes)])
         rows.append((f"hist_multi r={bits}", total, n * 4 + total * 4,
                      lambda b=bits: ck.hist_multi(w, b), lambda b=bits: ck.hist_multi_plain(w, b),
-                     lambda s, b=bits, p=passes, t=total: ck._hist_launch(
-                         "rst_hist", dev, t, s, w.data_ptr(), n, 0, 0, b, p, 1 << 32).view(p, -1),
+                     lambda s, b=bits: ck._live_launch((w,), b, False, s)[0],
                      counters, total))
     for mask in (0xF0F00000, 0xFFFF, 0x1FFFF):
         bins = 1 << bin(mask).count("1")

@@ -221,8 +221,8 @@ def device_op_table(logdir: str | os.PathLike) -> list:
 SORT, ARGSORT, SORT_PAIRS = "rst.sort", "rst.argsort", "rst.sort_pairs"  # a public call
 ENCODE, DECODE = "rst.encode", "rst.decode"     # the key transform, each way
 K0, TORCH_SORT = "rst.k0", "rst.torch_sort"     # the sorter a call took
-GUARD = "rst.guard"                # the presorted guard's enqueue
-LIVE_DIGITS = "rst.live_digits"    # K0's and the LSD engine's live digits, enqueued
+GUARD = "rst.guard"                # the presorted guard's torch passes, enqueued (off K0)
+LIVE_DIGITS = "rst.live_digits"    # the engines' live digits (and guard flag), enqueued
 K0_PASS = "rst.k0_pass"            # one K0 sweep's enqueue: a call shows its live passes
 READ = "rst.read"                  # a read of device data on the host: it waits for the device
 LAUNCH = "rst.launch"              # a hand-written kernel's enqueue

@@ -82,6 +82,59 @@ def rank_keys(pattern: str, n: int, seed: int) -> np.ndarray:
     raise ValueError(f"unknown rank pattern {pattern!r}")
 
 
+# Orders of (hi, lo) keys for the presorted guard of the live-digit read
+# (``ck.live_digits``): a descent is a key below the one before it in
+# unsigned (hi, lo) order.
+ORDER_CASES = ("random", "sorted", "all equal", "descent at 0", "descent at n - 1",
+               "descent at a tile edge", "equal hi, descent in lo",
+               "descent in hi, lo rising", "descent in lo, hi rising")
+
+
+def rising(n: int, seed: int, bits: int = 32) -> np.ndarray:
+    """``n`` strictly increasing keys of ``bits`` bits (uint32 up to 32
+    bits, else uint64)."""
+    dtype = np.uint32 if bits <= 32 else np.uint64
+    x = np.unique(np.random.Generator(np.random.PCG64(seed)).integers(
+        0, 1 << bits, size=n + 64, dtype=dtype))
+    assert x.size >= n
+    return x[:n]
+
+
+def swapped(x: np.ndarray, i: int) -> np.ndarray:
+    """``x`` with keys i - 1 and i swapped: one descent, at i, in a rising run."""
+    y = x.copy()
+    y[i - 1], y[i] = x[i], x[i - 1]
+    return y
+
+
+def order_keys(case: str, n: int, seed: int):
+    """(hi, lo) uint32 planes of ``n`` >= 2 keys in the order ``case`` of
+    :data:`ORDER_CASES` names (the tile: K0's, 8,192 keys). As one plane,
+    lo alone: in order where the case's keys are, but for the last two
+    cases (a descent in lo only where hi rises, none in lo)."""
+    split = lambda k: ((k >> np.uint64(32)).astype(np.uint32), k.astype(np.uint32))  # noqa: E731
+    rng = np.random.Generator(np.random.PCG64(seed))
+    if case == "random":
+        return split(rng.integers(0, 1 << 64, size=n, dtype=np.uint64))
+    if case == "sorted":                            # ties, and both words vary
+        return split(np.sort(rng.integers(0, n // 2 + 1, size=n)).astype(np.uint64)
+                     * np.uint64(0x100000001))
+    if case == "all equal":
+        return split(np.full(n, 0xDEADBEEF01234567, np.uint64))
+    at = {"descent at 0": 1, "descent at n - 1": n - 1,
+          "descent at a tile edge": min(ck.K0_SWEEP_TILE, n - 1)}.get(case, n // 2)
+    up = rising(n, seed)
+    if case.startswith("descent at"):              # both words rise but at `at`
+        return swapped(up, at), swapped(rising(n, seed + 1), at)
+    if case == "equal hi, descent in lo":
+        return np.full(n, 0x7FFFFFFF, np.uint32), swapped(up, at)
+    if case == "descent in hi, lo rising":
+        return swapped(up, at), rising(n, seed + 1)
+    if case == "descent in lo, hi rising":
+        return up, swapped(rising(n, seed + 1), at)
+    raise ValueError(f"unknown order case {case!r}")
+
+
 @pytest.mark.parametrize("mask", [0x3, 0xFF, 0xF0F00000, 0x7FFF, 0xFFFF,
                                   0x1FFFF, 0xAAAA8000])
 @pytest.mark.parametrize("n", [1, 7, 65_537, 1_000_003])
@@ -371,9 +424,14 @@ def _digits_plain(w, bits, passes, drop_ge=None, offset=0):
 
 
 def _digits_launch(w, bits, passes, shape, drop_ge=None, offset=0):
-    return ck._hist_launch("rst_hist", w.device, passes << bits, shape, w.data_ptr(),
-                           w.shape[0], offset & 0xFFFFFFFF, 0, bits, passes,
-                           ck._drop_bound(drop_ge)).view(passes, -1)
+    """One digit through ``rst_hist``; every digit of the word (no drop, no
+    offset) through ``rst_live_digits``, as ``hist_multi`` launches it."""
+    if passes > 1:
+        assert passes == -(-32 // bits) and drop_ge is None and offset == 0
+        return ck._live_launch((w,), bits, False, shape)[0]
+    return ck._hist_launch("rst_hist", w.device, 1 << bits, shape, w.data_ptr(),
+                           w.shape[0], offset & 0xFFFFFFFF, 0, bits,
+                           ck._drop_bound(drop_ge)).view(1, -1)
 
 
 @pytest.mark.parametrize("skew", ["uniform", "90% one value"])
@@ -403,7 +461,8 @@ def test_hist_short_inputs_in_every_row_count(cuda, n, bits):
         assert torch.equal(got, ck.hist_multi_plain(v, bits))
 
 
-@pytest.mark.parametrize("bits,passes", [(16, 1), (18, 1), (8, 2), (11, 3), (16, 2), (17, 2)])
+# one digit: rst_hist drops and offsets (every digit of the word does neither)
+@pytest.mark.parametrize("bits,passes", [(16, 1), (18, 1), (8, 1), (11, 1), (15, 1), (17, 1)])
 @pytest.mark.parametrize("drop_ge,offset", [(1 << 17, 0x7FFFFF00), (0, 5),
                                             ((1 << 32) - 1, 0x9E3779B9)])
 def test_hist_drop_and_offset_when_wide(cuda, bits, passes, drop_ge, offset):
@@ -452,6 +511,109 @@ def test_hist_multi_skewed_and_one_value(cuda, bits):
     assert ck.launch_counts()["hist_multi"] == before + 1
     same = torch.full((n,), -7, dtype=torch.int32, device=cuda)
     assert torch.equal(ck.hist_multi(same, bits), ck.hist_multi_plain(same, bits))
+
+
+# K1's live-digit read (live_digits): every plane's digit histograms and the
+# descent flag in one launch, against its plain version
+
+
+def _live_matches_plain(words, bits, order=True):
+    """One live_digits launch against live_digits_plain, bit for bit; its flag."""
+    before = ck.launch_counts()["live_digits"]
+    hists, descent = ck.live_digits(words, bits, order)
+    assert ck.launch_counts()["live_digits"] == before + 1
+    want, flag = ck.live_digits_plain(words, bits, order)
+    assert torch.equal(hists, want)
+    if not order:
+        assert descent is None and flag is None
+        return None
+    assert descent.dtype == torch.int32 and descent.shape == ()
+    assert int(descent) == int(flag)
+    return int(descent)
+
+
+# the whole-step read's chunk: 16-byte loads a thread (4 for one plane, 2 a
+# plane for two) times 1,024 threads, four keys each (csrc/hist.cu)
+LIVE_N = 3 * 16384 + 4003
+
+
+def _live_descent_at(where, planes, lead):
+    """Index i of the one descent (key i below key i - 1) of a LIVE_N-key
+    read whose head is ``lead`` words: at an edge of the kernel's read."""
+    chunk = 4 * (4 if planes == 1 else 2) * 1024
+    quads = (LIVE_N - lead) // 4
+    short = lead + 4 * (quads // (chunk // 4)) * (chunk // 4)
+    return {"in order": None, "key 1": 1, "head to the groups": max(lead, 1),
+            "warp edge": lead + 128, "a thread's next group": lead + 4 * 1024,
+            "chunk edge": lead + chunk, "short chunk": short,
+            "inside the short chunk": short + 4 * 37 + 2,
+            "tail": min(lead + 4 * quads, LIVE_N - 1), "last key": LIVE_N - 1}[where]
+
+
+def _live_planes(planes, at, offsets, device):
+    """``planes`` planes (most significant first) of LIVE_N rising keys, key
+    ``at`` below key ``at - 1`` (None: none), hi in runs of 37 equal words
+    (a descent in lo alone inside a run, in hi across one); each plane a
+    view ``offsets[p]`` words into a fresh buffer."""
+    hi = (np.arange(LIVE_N) // 37).astype(np.uint32)
+    lo = rising(LIVE_N, at or 0)
+    if at is not None:
+        hi, lo = swapped(hi, at), swapped(lo, at)
+    out = []
+    for a, off in zip((hi, lo)[2 - planes:], offsets[2 - planes:]):
+        buf = torch.zeros(LIVE_N + 4, dtype=torch.int32, device=device)
+        buf[off:off + LIVE_N] = torch.from_numpy(a.view(np.int32)).to(device)
+        out.append(buf[off:off + LIVE_N])
+    return tuple(out)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("where", ["in order", "key 1", "head to the groups", "warp edge",
+                                   "a thread's next group", "chunk edge", "short chunk",
+                                   "inside the short chunk", "tail", "last key"])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (2, 2), (3, 3), (1, 0)],
+                         ids=["aligned", "1 word in", "2 words in", "3 words in",
+                              "hi 1 word in"])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_live_digits_finds_a_descent_at_every_edge_of_the_read(cuda, planes, offsets, where,
+                                                              bits):
+    """One descent at an edge of the read (the 16-byte head, a warp's lane
+    0, a thread's next group, a block's chunk, the short chunk, the tail),
+    the planes 0 to 3 words off the 16-byte grid; r = 8 (32-bit counters)
+    and 16 (16-bit counters in grid rows, the flag from row 0)."""
+    lead = (4 - offsets[1]) % 4
+    at = _live_descent_at(where, planes, lead)
+    words = _live_planes(planes, at, offsets, cuda)
+    assert words[-1].data_ptr() % 16 == 4 * offsets[1]
+    assert _live_matches_plain(words, bits) == (at is not None)
+    _live_matches_plain(words, bits, order=False)
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+@pytest.mark.parametrize("n", [2, 3, 5, 4097, 8193])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_live_digits_order_cases_match_plain(cuda, planes, n, case):
+    hi, lo = order_keys(case, n, n + planes)
+    words = tuple(torch.from_numpy(a.view(np.int32)).to(cuda)
+                  for a in ((hi, lo) if planes == 2 else (lo,)))
+    _live_matches_plain(words, 8)
+
+
+@pytest.mark.parametrize("ordered", [False, True], ids=["uniform", "ordered"])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_live_digits_at_40m(cuda, planes, ordered):
+    """The benchmark's size: 40M keys, uniform (a descent) and ordered; one
+    plane without the flag is hist_multi's launch, bit for bit."""
+    words = tuple(rand_plane(40_000_000, 90 + p, cuda) for p in range(planes))
+    if ordered:       # rising keys: 53 i (one plane), i * 2^20 + i % 7 (two)
+        bits = lambda v: ((v + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)  # noqa: E731
+        i = torch.arange(40_000_000, device=cuda, dtype=torch.int64)
+        key = (i << 20) | (i % 7)
+        words = (bits(i * 53),) if planes == 1 else (bits(key >> 32), bits(key))
+    assert _live_matches_plain(words, 8) == (not ordered)
+    if planes == 1:
+        hists, none = ck.live_digits(words, 8, order=False)
+        assert none is None and torch.equal(hists, ck.hist_multi(words[0], 8))
 
 
 @pytest.mark.parametrize("mask", [0xFF, 0x7FFF, 0xFFFF, 0x1FFFF, 0xF0F00000])
@@ -986,7 +1148,8 @@ def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where):
     (gs,), (p8, p4) = hw_engine.sort_words_presort_guard((w,), pay)
     counts = rt.launch_counts()
     assert counts["lsd_sort"] == calls
-    assert counts["hist_multi"] == calls and counts["k0_sweep"] == 4 * calls
+    assert counts["live_digits"] == calls and counts["k0_sweep"] == 4 * calls
+    assert counts["hist_multi"] == 0
     assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
     for got in (s, sw[0], gs):
         assert torch.equal(got ^ i32(1 << 31), ref.values)
@@ -1024,7 +1187,7 @@ def test_presorted_one_plane_launches_no_pass(cuda):
     rt.reset_launch_counts()
     assert torch.equal(rt.sort(x), x)
     counts = rt.launch_counts()
-    assert counts["lsd_sort"] == 1 and counts["hist_multi"] == 1
+    assert counts["lsd_sort"] == 1 and counts["live_digits"] == 1 and counts["hist_multi"] == 0
     assert counts["lsd_hist"] == counts["lsd_scatter"] == counts["k0_sweep"] == 0
 
 
@@ -1063,8 +1226,9 @@ def test_every_sync_of_a_k0_call_is_a_read_span(cuda, entry, tmp_path):
     syncs = [w for w in caught if "synchronizing" in str(w.message)]
     assert counts["lsd_sort"] == 1
     assert len(syncs) == spans.count(timing.READ) == 1, [str(w.message) for w in syncs]
-    assert spans.count(timing.LAUNCH) == counts["hist_multi"] + counts["k0_sweep"]
-    assert spans.count(timing.K0) == spans.count(timing.GUARD) == 1
+    assert spans.count(timing.LAUNCH) == counts["live_digits"] + counts["k0_sweep"]
+    assert spans.count(timing.K0) == counts["live_digits"] == 1
+    assert spans.count(timing.GUARD) == 0       # the guard is the live-digit launch
 
 
 def test_k0_raises_and_never_falls_back(cuda, sort_spy, monkeypatch):
@@ -1120,7 +1284,8 @@ def test_40m_64_bit_sort_runs_k0_alone(cuda, sort_spy, dtype):
     got = rt.sort(x)
     counts = rt.launch_counts()
     assert sort_spy[0] == before
-    assert counts["lsd_sort"] == 1 and counts["k0_sweep"] == 8 and counts["hist_multi"] == 2
+    assert counts["lsd_sort"] == 1 and counts["k0_sweep"] == 8 and counts["live_digits"] == 1
+    assert counts["hist_multi"] == 0
     assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
     assert got.dtype == dtype and torch.equal(got.view(torch.int64), want)
 
@@ -1259,9 +1424,10 @@ def test_k0_sweep_refuses_other_shapes(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
-def test_lsd_live_digits_come_from_hist_multi(cuda, monkeypatch, dtype):
-    """Strategy.LSD and K0 read their live digits from one hist_multi a
-    plane: the live-bit folds are never called on that path."""
+def test_lsd_live_digits_come_from_one_k1_launch(cuda, monkeypatch, dtype):
+    """Strategy.LSD and K0 read their live digits from one K1 launch over
+    every plane (``live_digits``; ``hist_multi`` is that launch for one plane):
+    the live-bit folds are never called on that path."""
     from radix_sorting_tpu_torch.ops import probes
 
     def folds(*a, **k):
@@ -1279,8 +1445,7 @@ def test_lsd_live_digits_come_from_hist_multi(cuda, monkeypatch, dtype):
     counts = rt.launch_counts()
     assert np.array_equal(got.view(torch.int32 if width == 32 else torch.int64)
                           .cpu().numpy().view(ut), np.sort(bits))
-    planes = width // 32
-    assert counts["hist_multi"] == planes
+    assert counts["live_digits"] == 1 and counts["hist_multi"] == 0
     live = {32: 4, 64: 6}[width]       # lo 0xF0F0FFFF: four live digits; hi 0xF0F00000: two
     assert counts["lsd_hist"] == counts["lsd_scatter"] == live
 

@@ -11,8 +11,11 @@ Every case shares one length, N = 20,000 (three tiles, the last short), so
 the JAX package compiles once a dtype and configuration; a spy shows each
 call went through K0. Also: the route itself (a pure function of device
 type, planes and n), the live digits from one ``hist_multi`` read against
-the live-bit folds, and the sweep's plain version against L1 + scan + L2's
-(``scan.scatter_bases(lsd_hist_plain)`` and ``lsd_scatter_plain``).
+the live-bit folds, the sweep's plain version against L1 + scan + L2's
+(``scan.scatter_bases(lsd_hist_plain)`` and ``lsd_scatter_plain``), and
+the live-digit read with the presorted guard's flag (``live_digits_plain``
+against ``hist_multi_plain`` of each plane and ``probes.is_sorted_words``;
+no guarded K0 call runs the guard's torch passes).
 """
 
 import dataclasses
@@ -27,7 +30,7 @@ from radix_sorting_tpu_torch.ops import cuda_kernels as ck
 from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine, probes, scan
 
 from test_torch_api import assert_trees_equal, dup_keys, keys
-from test_torch_cuda import RANK_PATTERNS, rank_keys
+from test_torch_cuda import ORDER_CASES, RANK_PATTERNS, order_keys, rank_keys
 from test_torch_kdf import raw
 from test_torch_sort import jax_in
 
@@ -367,3 +370,88 @@ def test_sweep_wrapper_refuses_what_the_entry_was_not_built_for(bad):
         kw["position"] = True
     with pytest.raises(ValueError):
         ck.k0_sweep(*args.values(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# (e) the live-digit read with the guard's flag
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+@pytest.mark.parametrize("n", [2, 3, 5, 4097, 8193])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_live_digits_plain_is_hist_multi_and_the_guard(planes, n, case):
+    """Every plane's digit histograms, least significant plane first, and
+    the descent flag: 1 exactly where ``probes.is_sorted_words`` is False."""
+    hi, lo = order_keys(case, n, n + planes)
+    words = tuple(torch.from_numpy(a.view(np.int32)) for a in ((hi, lo) if planes == 2 else (lo,)))
+    hists, descent = ck.live_digits_plain(words, 8)
+    want = torch.cat([ck.hist_multi_plain(w, 8) for w in reversed(words)])
+    assert hists.dtype == torch.int32 and torch.equal(hists, want)
+    assert descent.dtype == torch.int32 and descent.shape == ()
+    assert int(descent) == int(not bool(probes.is_sorted_words(words)))
+    ordered = ["sorted", "all equal", ("descent in lo, hi rising" if planes == 2
+                                        else "descent in hi, lo rising")]
+    if case in ordered:
+        assert int(descent) == 0
+    elif case != "random":
+        assert int(descent) == 1
+    got, none = ck.live_digits(words, 8, order=False)          # the wrapper, on the CPU
+    assert none is None and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ordered", [False, True], ids=["random", "ordered"])
+@pytest.mark.parametrize("name", ["uint32", "uint64"])
+def test_guarded_k0_calls_never_run_the_torch_guard(monkeypatch, name, ordered):
+    """Through K0's plain route, a guarded call (``sort``, ``argsort``,
+    ``sort_pairs``) finds its order in the live-digit read:
+    ``probes.is_sorted_words`` never runs, and an ordered input of one plane
+    or two launches no pass."""
+    def refused(*a, **k):
+        raise AssertionError("probes.is_sorted_words ran on a guarded K0 call")
+    real = hw_engine.sorter_route
+    monkeypatch.setattr(hw_engine, "sorter_route",
+                        lambda device_type, planes, n: "k0" if planes <= 2
+                        else real(device_type, planes, n))
+    monkeypatch.setattr(probes, "is_sorted_words", refused)
+    passes = []
+    sweep = ck.k0_sweep
+    monkeypatch.setattr(ck, "k0_sweep", lambda *a, **k: passes.append(a[2]) or sweep(*a, **k))
+    x = keys(name, N, 61)
+    if ordered:
+        x = np.sort(x)
+    order = np.argsort(x, kind="stable")
+    assert np.array_equal(rt.sort(x, device="cpu"), x[order])
+    assert np.array_equal(rt.argsort(x, device="cpu"), order)
+    sk, sv = rt.sort_pairs(x, np.arange(N, dtype=np.float32), device="cpu")
+    assert np.array_equal(sk, x[order]) and np.array_equal(sv, order.astype(np.float32))
+    assert (passes == []) == ordered
+
+
+@pytest.mark.parametrize("planes,radix_bits", [(3, 8), (2, 18)])
+def test_live_digits_past_one_launch_take_hist_multi_and_the_torch_guard(planes, radix_bits):
+    """Three planes, or two past 2^19 counters, which one K1 launch does not
+    take: one ``hist_multi`` a plane and the guard's torch passes, with the
+    same histograms and flag."""
+    assert not ck.live_digits_fit(planes, radix_bits)
+    words = tuple(torch.from_numpy(keys("uint32", 1000, 70 + p).view(np.int32))
+                  for p in range(planes))
+    with pytest.raises(ValueError):
+        ck.live_digits(words, radix_bits)
+    for ordered in (False, True):
+        ws = tuple(torch.sort(w).values for w in words) if ordered else words
+        hists, descent = lsd_engine._digit_hists(ws, radix_bits, order=True)
+        want = torch.cat([ck.hist_multi_plain(w, radix_bits) for w in reversed(ws)])
+        assert torch.equal(hists, want)
+        assert bool(descent) == (not bool(probes.is_sorted_words(ws)))
+
+
+def test_live_digits_fit_one_launch_at_every_config_width():
+    """``SortConfig`` takes r = 1 to 16: one and two planes always fit one
+    K1 launch; the wrapper refuses what its C entry refuses."""
+    assert all(ck.live_digits_fit(p, r) for p in (1, 2) for r in range(1, 17))
+    assert ck.live_digits_fit(1, 18) and ck.live_digits_fit(2, 17)
+    assert not ck.live_digits_fit(2, 18) and not ck.live_digits_fit(3, 8)
+    w = torch.zeros(16, dtype=torch.int32)
+    for bad in ((w[::2],), (w, w[:8]), (w.long(),)):
+        with pytest.raises((TypeError, ValueError)):
+            ck.live_digits(bad, 8)

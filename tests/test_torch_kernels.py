@@ -265,10 +265,11 @@ def _source_ints(name, pattern):
 
 (HALF_HAND_OFF,) = _source_ints("half_counter.cuh", r"kHalfHandOff = (0x[0-9A-Fa-f]+)u;")
 # hist.cu: 16-byte loads a plane a chunk, and chunks a round, for two planes
-# (K3) and one (K2; K1's DigitCount loads as many)
+# (K3) and one (K2; K1's DigitCount loads as many, for one plane and two)
 _TWO_UNROLL, _ONE_UNROLL = _source_ints(
     "hist.cu", r"struct PextCount \{.*?unroll = kTwo \? (\d+) : (\d+);")
-(_DIGIT_UNROLL,) = _source_ints("hist.cu", r"struct DigitCount \{.*?unroll = (\d+);")
+_DIGIT_UNROLLS = _source_ints(
+    "hist.cu", r"struct DigitCount \{.*?unroll = kTwo \? (\d+) : (\d+);")
 _TWO_ROUND, _ONE_ROUND = _source_ints("hist.cu", r"kRound = Count::two \? (\d+) : (\d+);")
 HIST_ROUNDS = ((_ONE_UNROLL, _ONE_ROUND), (_TWO_UNROLL, _TWO_ROUND))
 # whist.cu: rounds of one chunk; a thread reads at most 4 * unroll + 2 rows a round
@@ -291,7 +292,7 @@ def half_round_ok(threads, keys_a_round):
 
 def test_hand_off_mirrors_read_the_kernel_sources():
     assert HALF_HAND_OFF == 1 << 15
-    assert _DIGIT_UNROLL == _ONE_UNROLL
+    assert _DIGIT_UNROLLS == (_TWO_UNROLL, _ONE_UNROLL)
     # the rounds the proof in half_counter.cuh names: two chunks of one
     # plane, one of two planes; whist.cu's rounds of one chunk
     assert HIST_ROUNDS == ((4, 2), (2, 1))

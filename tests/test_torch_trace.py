@@ -102,17 +102,16 @@ def test_entry_points_through_k0_read_once_inside_it(tmp_path, k0, entry):
     assert names(tree) == [top]
     assert names(tree[0][1]) == [timing.ENCODE, timing.K0] + tail
     (k0_span,) = [kids for name, kids in tree[0][1] if name == timing.K0]
-    assert names(k0_span) == [timing.GUARD, timing.LIVE_DIGITS, timing.READ] + \
-        [timing.K0_PASS] * 4
+    assert names(k0_span) == [timing.LIVE_DIGITS, timing.READ] + [timing.K0_PASS] * 4
     assert flat(tree).count(timing.READ) == 1 and timing.TORCH_SORT not in flat(tree)
 
 
 @pytest.mark.parametrize("ordered,passes", [(False, 4), (True, 0)])
 def test_k0_reads_once_after_the_guard_and_the_live_digits(tmp_path, monkeypatch,
                                                            ordered, passes):
-    """K0's one read comes after the guard's and the live digits' enqueue,
-    and a pass span a live digit after it; an ordered input under the guard
-    emits its read and no pass."""
+    """K0's one read comes after the live digits' enqueue, which holds the
+    guard (no span of its own), and a pass span a live digit after it; an
+    ordered input under the guard emits its read and no pass."""
     sweeps = []
     real = ck.k0_sweep
     monkeypatch.setattr(ck, "k0_sweep", lambda *a, **k: sweeps.append(1) or real(*a, **k))
@@ -120,8 +119,8 @@ def test_k0_reads_once_after_the_guard_and_the_live_digits(tmp_path, monkeypatch
     (out,), _, _ = lsd_engine.sort_words_k0((w,), guard=True)
     _, tree = traced(tmp_path, lambda: lsd_engine.sort_words_k0((w,), guard=True))
     assert np.array_equal(out.numpy().view(np.uint32), np.sort(w.numpy().view(np.uint32)))
-    assert tree == [(timing.K0, [(timing.GUARD, []), (timing.LIVE_DIGITS, []),
-                                 (timing.READ, [])] + [(timing.K0_PASS, [])] * passes)]
+    assert tree == [(timing.K0, [(timing.LIVE_DIGITS, []), (timing.READ, [])]
+                     + [(timing.K0_PASS, [])] * passes)]
     assert len(sweeps) == 2 * passes          # the untraced call and the traced one
 
 
