@@ -25,13 +25,11 @@ device with ``lax.cond``; here the live-digit flags come from one K1
 ``live_digits`` read of every digit's histogram of one plane or two (a digit
 is dead where one bin holds all n keys, :func:`live_digit_flags`; every
 digit width of 1 to 16 bits is one K1 launch) and reach the host in one read
-a call. The presorted guard (`radix_sort.hpp:48-62`), where it is asked for,
+a call. K0's presorted guard (`radix_sort.hpp:48-62`), where it is asked for,
 is the same launch: each key is compared with the one before it as it is
 read, and the flag leads the same host read, so an ordered input launches
 no pass and costs one read of the keys. Three or more planes take one
-``hist_multi`` a plane and the guard's torch passes
-(:func:`.probes.is_sorted_words`); the guard without column skipping, which
-reads no digits, takes those passes alone.
+``hist_multi`` a plane.
 
 The JAX engine pads n to a multiple of its chunk with all-ones sentinels;
 the kernels here take a short last tile instead. The output of a stable sort
@@ -45,7 +43,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..utils.timing import K0, K0_PASS, LIVE_DIGITS, READ, span
-from . import cuda_kernels, probes
+from . import cuda_kernels
 from .histogram import chunked_digit_histogram
 from .kdf import gather
 from .scan import exclusive_scan, scatter_bases
@@ -65,14 +63,14 @@ def _digit_hists(words: Sequence[torch.Tensor], radix_bits: int, order: bool = F
     """((digits, 2^radix_bits) int32, descent): every digit's histogram,
     least significant first across the words, and with ``order`` a 0-d
     flag, non-zero where some key is below the one before it (else None).
-    One K1 ``live_digits`` launch where it takes the planes (one or two),
-    else one ``hist_multi`` a plane and the guard's torch passes; the
-    choice is the shape's, made on the host."""
+    One K1 ``live_digits`` launch where it takes the planes (one or two)
+    and wherever the flag is asked for (``live_digits`` refuses more
+    planes), else one ``hist_multi`` a plane; the choice is the shape's,
+    made on the host."""
     words = tuple(words)
-    if cuda_kernels.live_digits_fit(len(words), radix_bits):
+    if order or cuda_kernels.live_digits_fit(len(words), radix_bits):
         return cuda_kernels.live_digits(words, radix_bits, order)
-    hists = torch.cat([cuda_kernels.hist_multi(w, radix_bits) for w in reversed(words)])
-    return hists, ~probes.is_sorted_words(words) if order else None
+    return torch.cat([cuda_kernels.hist_multi(w, radix_bits) for w in reversed(words)]), None
 
 
 def live_digit_flags(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Tensor:
@@ -87,7 +85,7 @@ def live_digit_flags(words: Sequence[torch.Tensor], radix_bits: int) -> torch.Te
 def sort_words_lsd(words: Sequence[torch.Tensor],
                    payloads: Sequence[torch.Tensor] = (),
                    radix_bits: int = 8, chunk: int = 8192,
-                   skip_trivial: bool = True, guard: bool = False) -> Tuple[tuple, tuple]:
+                   skip_trivial: bool = True) -> Tuple[tuple, tuple]:
     """Stable ascending LSD radix sort of int32 word planes (most
     significant first), carrying payloads: (sorted words, payloads).
     Each live digit takes L1 + the scan + L2.
@@ -97,13 +95,9 @@ def sort_words_lsd(words: Sequence[torch.Tensor],
     1-byte elements, ``(n, W)`` byte rows) rides as one shared int32 index
     plane and is gathered once at the end: a pass then moves 4 bytes for
     them all, where a 64-bit leaf would move 8 and a row W.
-
-    ``guard``: the presorted early exit (`radix_sort.hpp:60-62`), its flag
-    found by the live digits' launch and read with them in one host read;
-    an ordered input comes back as given and launches no pass.
     """
     sw, out, _ = _sort(words, payloads, radix_bits, lsd_tile(chunk, radix_bits),
-                       skip_trivial, guard, None, sweep=False)
+                       skip_trivial, False, None, sweep=False)
     return sw, out
 
 
@@ -119,6 +113,8 @@ def sort_words_k0(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor
     the first live pass (each key's position) and written in its dtype by
     the last; all planes of a pass go in one launch, so past
     ``K0_SWEEP_MAX_PLANES`` every payload is gathered through the index.
+    ``guard``: the presorted early exit (`radix_sort.hpp:60-62`), its flag
+    found by the live digits' launch and read with them in one host read.
     With no live digit, or an ordered input under ``guard``, no pass runs
     and the index is one ``torch.arange``.
     """
@@ -131,11 +127,11 @@ def sort_words_k0(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor
 
 def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard: bool,
           index_dtype, sweep: bool):
-    """The loop of both engines: the one host read (the guard's descent
-    flag, then the live digits, both from one ``live_digits`` launch), the
-    planes that ride, one pass a live digit (``sweep``: K0's sweep, else L1
-    + scan + L2), the gathers. Returns (sorted words, payloads, index or
-    None)."""
+    """The loop of both engines: the one host read (with ``guard``, K0's
+    alone, the descent flag, then the live digits, both from one
+    ``live_digits`` launch), the planes that ride, one pass a live digit
+    (``sweep``: K0's sweep, else L1 + scan + L2), the gathers. Returns
+    (sorted words, payloads, index or None)."""
     words, payloads = tuple(words), tuple(payloads)
     n, device = int(words[0].shape[0]), words[0].device
     identity = lambda: None if index_dtype is None else torch.arange(
@@ -154,15 +150,11 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
             if sweep:       # every digit's global starts, queued before the read
                 starts = exclusive_scan(hists, axis=1)
                 status = cuda_kernels.k0_sweep_status(n, device)
-    elif guard:
-        flags = (~probes.is_sorted_words(words)).view(1)
-    if skip_trivial or guard:
         with span(READ):
             read = flags.tolist()                 # the call's one host read
         if guard and not read.pop(0):
             return words, payloads, identity()
-        if skip_trivial:
-            live = read
+        live = read
     rides = [p.ndim == 1 and p.element_size() == 4 for p in payloads]
     indexed = index_dtype is not None or not all(rides)
     if sweep and len(words) + sum(rides) + indexed > cuda_kernels.K0_SWEEP_MAX_PLANES:

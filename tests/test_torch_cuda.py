@@ -12,6 +12,8 @@ Pallas kernels by tests/test_torch_kernels.py), and ``sort`` on CUDA
 tensors against a numpy oracle. Exact equality throughout.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -193,7 +195,9 @@ def test_cuda_inputs_never_fall_back(cuda):
 
 
 DTYPES = [torch.bool, torch.uint8, torch.int8, torch.uint16, torch.int16,
-          torch.float16, torch.bfloat16, torch.uint32, torch.int32, torch.float32]
+          torch.float16, torch.bfloat16, torch.uint32, torch.int32, torch.float32,
+          torch.float8_e4m3fn]
+FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float8_e4m3fn)
 
 
 def _oracle(bits: np.ndarray, dtype) -> np.ndarray:
@@ -202,7 +206,7 @@ def _oracle(bits: np.ndarray, dtype) -> np.ndarray:
     b = bits.astype(np.uint64)
     top = np.uint64(1 << (width - 1))
     live = np.uint64((1 << width) - 1)
-    if dtype in (torch.float16, torch.bfloat16, torch.float32):
+    if dtype in FLOATS:
         key = np.where(b & top, ~b & live, b | top)
     elif dtype in (torch.int8, torch.int16, torch.int32):
         key = b ^ top
@@ -332,20 +336,24 @@ def _u64(t):
     return t.cpu().numpy().view(np.uint64)
 
 
-@pytest.mark.parametrize("mask,descending,counter", [
-    (0xF000000000000F00, True, "regen_pdep2"),   # complemented: dead bits set
-    (0x00FF00000000FF00, False, "regen_pdep2_windowed"),
+@pytest.mark.parametrize("mask,descending,n,launched", [
+    (0xF000000000000F00, True, 9_000_001, ("hist_pext2", "regen_pdep2")),  # dead bits set
+    (0xF000000000000F00, False, 9_000_001, ("hist_pext2", "regen_pdep2")),
+    # 2^16 bins reach the windowed tier from ~8.4M
+    (0x00FF00000000FF00, False, 9_000_001, ("hist_pext2", "regen_pdep2_windowed")),
+    # 24 live bits: one compacted plane, past K0's gate
+    (0x0FFF00000000FFF0, False, 40_000_000, ("lsd_sort", "live_digits")),
 ])
-def test_masked_u64_sort_on_card(cuda, mask, descending, counter):
-    n = 9_000_001           # 2^16 bins reach the windowed tier from ~8.4M
+def test_masked_u64_sort_on_card(cuda, mask, descending, n, launched):
     hi, lo = rand_pair(n, 23, cuda, mask)
     x = torch.stack([lo, hi], 1).view(torch.int64).view(-1).view(torch.uint64)
     rt.reset_launch_counts()
     out = rt.sort(x, value_mask=mask, config=rt.SortConfig(descending=descending))
     want = np.sort(_u64(x))
+    assert out.device == x.device and out.dtype == x.dtype
     assert np.array_equal(_u64(out), want[::-1] if descending else want)
     counts = rt.launch_counts()
-    assert counts["hist_pext2"] == 1 and counts[counter] == 1
+    assert all(counts[k] == 1 for k in launched), counts
 
 
 @pytest.mark.parametrize("dtype", [torch.uint64, torch.int64, torch.float64],
@@ -474,18 +482,20 @@ def test_hist_drop_and_offset_when_wide(cuda, bits, passes, drop_ge, offset):
         assert torch.equal(got, want), shape.label()
 
 
+@pytest.mark.parametrize("n", [1 << 24, 40_000_000])
 @pytest.mark.parametrize("share", [9, 10])
-def test_hist_16_bit_hand_off_under_contention(cuda, share):
-    # 16M keys, 90% or all of them one value: in every block the common
-    # value's 16-bit counter crosses 2^15 several times, so its hand-offs to
-    # the output run while every thread keeps adding to it
-    n = 1 << 24
+def test_hist_16_bit_hand_off_under_contention(cuda, share, n):
+    # 16M and 40M keys, 90% or all of them one value: in every block the
+    # common value's 16-bit counter crosses 2^15 several times, so its
+    # hand-offs to the output run while every thread keeps adding to it
     w = rand_plane(n + 3, share, cuda)[3:]
     w[: n * share // 10] = 0x2A55
     hi = rand_plane(n + 3, share + 1, cuda)[:n]
     hi[: n * share // 10] = 0x1C0
     cases = [("hist", lambda: ck.hist(w, 0, 16), lambda: ck.hist_plain(w, 0, 16)),
              ("hist", lambda: ck.hist(w, 0, 18), lambda: ck.hist_plain(w, 0, 18)),
+             ("hist", lambda: ck.hist(w, 0, 17, drop_ge=0xC0000000),
+              lambda: ck.hist_plain(w, 0, 17, 0xC0000000)),
              ("hist_multi", lambda: ck.hist_multi(w, 16), lambda: ck.hist_multi_plain(w, 16)),
              ("hist_multi", lambda: ck.hist_multi(w, 18), lambda: ck.hist_multi_plain(w, 18)),
              ("hist_pext", lambda: ck.hist_pext(w, 0xFFFF),
@@ -493,7 +503,9 @@ def test_hist_16_bit_hand_off_under_contention(cuda, share):
              ("hist_pext", lambda: ck.hist_pext(w, 0x1FFFF),
               lambda: ck.hist_pext_plain(w, 0x1FFFF)),
              ("hist_pext2", lambda: ck.hist_pext2(hi, w, 0xC0, 0x3FFF),
-              lambda: ck.hist_pext2_plain(hi, w, 0xC0, 0x3FFF))]
+              lambda: ck.hist_pext2_plain(hi, w, 0xC0, 0x3FFF)),
+             ("hist_pext2", lambda: ck.hist_pext2(hi, w, 0x1FF, 0xFF00),
+              lambda: ck.hist_pext2_plain(hi, w, 0x1FF, 0xFF00))]
     for name, kernel, plain in cases:
         before = ck.launch_counts()[name]
         got = kernel()
@@ -599,21 +611,28 @@ def test_live_digits_order_cases_match_plain(cuda, planes, n, case):
     _live_matches_plain(words, 8)
 
 
-@pytest.mark.parametrize("ordered", [False, True], ids=["uniform", "ordered"])
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("keys", ["uniform", "ordered", "one swap"])
 @pytest.mark.parametrize("planes", [1, 2])
-def test_live_digits_at_40m(cuda, planes, ordered):
-    """The benchmark's size: 40M keys, uniform (a descent) and ordered; one
-    plane without the flag is hist_multi's launch, bit for bit."""
-    words = tuple(rand_plane(40_000_000, 90 + p, cuda) for p in range(planes))
-    if ordered:       # rising keys: 53 i (one plane), i * 2^20 + i % 7 (two)
-        bits = lambda v: ((v + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)  # noqa: E731
-        i = torch.arange(40_000_000, device=cuda, dtype=torch.int64)
+def test_live_digits_at_40m(cuda, planes, keys, bits):
+    """The benchmark's size: 40M keys, uniform (a descent), ordered, and
+    ordered but for one swapped pair at the middle (one descent); r = 8
+    and 16 (16-bit counters in grid rows); one plane without the flag is
+    hist_multi's launch, bit for bit."""
+    n = 40_000_000
+    words = tuple(rand_plane(n, 90 + p, cuda) for p in range(planes))
+    if keys != "uniform":   # rising keys: 53 i (one plane), i * 2^20 + i % 7 (two)
+        wrap = lambda v: ((v + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)  # noqa: E731
+        i = torch.arange(n, device=cuda, dtype=torch.int64)
         key = (i << 20) | (i % 7)
-        words = (bits(i * 53),) if planes == 1 else (bits(key >> 32), bits(key))
-    assert _live_matches_plain(words, 8) == (not ordered)
+        words = (wrap(i * 53),) if planes == 1 else (wrap(key >> 32), wrap(key))
+        if keys == "one swap":
+            for w in words:
+                w[[n // 2 - 1, n // 2]] = w[[n // 2, n // 2 - 1]]
+    assert _live_matches_plain(words, bits) == (keys != "ordered")
     if planes == 1:
-        hists, none = ck.live_digits(words, 8, order=False)
-        assert none is None and torch.equal(hists, ck.hist_multi(words[0], 8))
+        hists, none = ck.live_digits(words, bits, order=False)
+        assert none is None and torch.equal(hists, ck.hist_multi(words[0], bits))
 
 
 @pytest.mark.parametrize("mask", [0xFF, 0x7FFF, 0xFFFF, 0x1FFFF, 0xF0F00000])
@@ -721,22 +740,36 @@ def test_device_probe_runs_the_kernels(cuda, no_plain, base, span, n, counter):
     assert rt.launch_counts()[counter] == 1
 
 
-def test_device_probe_u64_and_wide_keys_on_card(cuda, no_plain):
+@pytest.mark.parametrize("keys", ["u64, constant hi, lo in a 60,000 range", "u64 full entropy",
+                                  "u32 full entropy at 40M", "u64, constant hi, full lo at 40M"])
+def test_device_probe_u64_and_wide_keys_on_card(cuda, no_plain, keys):
+    """A narrow range takes K1 + K7; a wide one the sorter: torch.sort
+    below K0's gates, K0 at 40M (the constant hi word of the last leaves
+    one int32 operand)."""
     rng = np.random.Generator(np.random.PCG64(5))
-    ts = np.uint64(0x0000018F00000000) + rng.integers(0, 60_000, size=9_000_001
-                                                      ).astype(np.uint64)
-    wide = rng.integers(0, 1 << 64, size=3_000_001, dtype=np.uint64)
-    cfg = rt.SortConfig(device_probe=True)
-    for x, counter in ((ts, "regen_windowed"), (wide, None)):
-        t = torch.from_numpy(x.view(np.int64)).to(cuda).view(torch.uint64)
-        rt.reset_launch_counts()
-        out = rt.sort(t, config=cfg)
-        assert np.array_equal(out.view(torch.int64).cpu().numpy().view(np.uint64),
-                              np.sort(x))
-        counts = rt.launch_counts()
-        assert counts["hist"] == (1 if counter else 0)
-        if counter:
-            assert counts[counter] == 1
+    hi = np.uint64(0x0000018F00000000)
+    x, launched = {
+        "u64, constant hi, lo in a 60,000 range": lambda: (
+            hi + rng.integers(0, 60_000, size=9_000_001).astype(np.uint64),
+            {"hist": 1, "regen_windowed": 1, "lsd_sort": 0}),
+        "u64 full entropy": lambda: (
+            rng.integers(0, 1 << 64, size=3_000_001, dtype=np.uint64), {"hist": 0, "lsd_sort": 0}),
+        "u32 full entropy at 40M": lambda: (
+            rng.integers(0, 1 << 32, size=40_000_000, dtype=np.uint32), {"hist": 0, "lsd_sort": 1}),
+        "u64, constant hi, full lo at 40M": lambda: (
+            hi | rng.integers(0, 1 << 32, size=40_000_000, dtype=np.uint32).astype(np.uint64),
+            {"hist": 0, "lsd_sort": 1}),
+    }[keys]()
+    signed = np.int64 if x.dtype == np.uint64 else np.int32
+    t = torch.from_numpy(x.view(signed)).to(cuda).view(torch.uint64 if signed == np.int64
+                                                        else torch.uint32)
+    rt.reset_launch_counts()
+    out = rt.sort(t, config=rt.SortConfig(device_probe=True))
+    assert out.dtype == t.dtype and out.device == t.device
+    assert np.array_equal(out.view(torch.int64 if signed == np.int64 else torch.int32)
+                          .cpu().numpy().view(x.dtype), np.sort(x))
+    counts = rt.launch_counts()
+    assert {k: counts[k] for k in launched} == launched
 
 
 def test_dense_entry_points_run_the_kernels(cuda, no_plain):
@@ -841,13 +874,13 @@ def test_whist_skewed_unaligned_and_non_finite(cuda):
     assert torch.equal(sums[finite], ps[finite])       # integer-valued sums: exact
 
 
+@pytest.mark.parametrize("n", [1 << 24, 40_000_000])
 @pytest.mark.parametrize("share", [9, 10])
 @pytest.mark.parametrize("bits", [15, 16, 17])
-def test_whist_16_bit_hand_off_under_contention(cuda, bits, share):
-    # 16M rows, 90% or all of them in one group: in every block the group's
-    # 16-bit count crosses 2^15 several times, so its hand-offs to the output
-    # run while every thread keeps adding to it
-    n = 1 << 24
+def test_whist_16_bit_hand_off_under_contention(cuda, bits, share, n):
+    # 16M and 40M rows, 90% or all of them in one group: in every block the
+    # group's 16-bit count crosses 2^15 several times, so its hand-offs to
+    # the output run while every thread keeps adding to it
     keys = rand_plane(n, bits + share, cuda, mask=(1 << bits) - 1)
     keys[: n * share // 10] = (1 << bits) - 3
     vals = rand_plane(n, bits, cuda)
@@ -960,18 +993,35 @@ def test_group_by_entry_points_run_the_kernels(cuda, no_plain, monkeypatch):
     assert int(ng) == G and np.array_equal(uk.cpu().numpy(), np.arange(G))
     assert np.array_equal(s.cpu().numpy(), np.bincount(k, weights=v).astype(np.int32))
     _, m, _ = rt.group_reduce(kt, ft, reduce="mean", groups=G)
-    want = np.bincount(k, weights=f) / np.bincount(k)
-    assert np.allclose(m.cpu().numpy(), want, rtol=1e-4, atol=1e-4)
+    cnt = np.bincount(k)
+    want = np.bincount(k, weights=f.astype(np.float64)) / cnt
+    absum = np.bincount(k, weights=np.abs(f.astype(np.float64)))
+    # K11's bound over the group's size, and 2^-22 of the mean for the division
+    assert np.all(np.abs(m.cpu().numpy().astype(np.float64) - want)
+                  <= (absum * 2**-14 + 1e-5) / cnt + np.abs(want) * 2**-22)
+    k16 = rng.integers(0, 1 << 16, size=n).astype(np.uint32)
+    v8 = rng.integers(0, 256, size=n).astype(np.uint8)
+    uk, s8, ng = rt.group_reduce(torch.from_numpy(k16.view(np.int32)).to(cuda).view(torch.uint32),
+                                 torch.from_numpy(v8).to(cuda), groups=1 << 16)
+    assert int(ng) == 1 << 16
+    assert np.array_equal(s8.view(torch.int32).cpu().numpy().view(np.uint32),
+                          np.bincount(k16, weights=v8, minlength=1 << 16).astype(np.uint32))
     uk, c, _ = rt.value_counts(kt, groups=G)
     assert np.array_equal(c.cpu().numpy(), np.bincount(k))
+    h, edges = rt.histogram(ft, bins=256)
+    lo, hi = np.float32(edges[0]), np.float32(edges[-1])
+    idx = np.floor((f - lo) * np.float32(256 / (edges[-1] - edges[0])))
+    idx = np.where((f >= lo) & (f <= hi), np.minimum(idx, 255), 256).astype(np.int64)
+    assert np.array_equal(edges, np.linspace(float(f.min()), float(f.max()), 257))
+    assert np.array_equal(h.cpu().numpy(), np.bincount(idx, minlength=257)[:256])
     x = ((rng.integers(0, 100, size=n) + 0.5) / 25 - 2).astype(np.float32)  # bin centres
     h, edges = rt.histogram(torch.from_numpy(x).to(cuda), bins=100, range=(-2, 2),
                             weights=ft)
     he, _ = np.histogram(x, bins=edges, weights=f.astype(np.float64))
     assert np.allclose(h.cpu().numpy(), he, rtol=1e-4, atol=1e-3)
     counts = rt.launch_counts()
-    assert counts["whist"] == 1 and counts["whist_f32_counts"] == 1
-    assert counts["whist_f32"] == 1 and counts["hist"] == 1
+    assert counts["whist"] == 2 and counts["whist_f32_counts"] == 1
+    assert counts["whist_f32"] == 1 and counts["hist"] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -1110,7 +1160,7 @@ def test_lsd_scatter_refuses_other_shapes(cuda):
 def _gate_sizes():
     from radix_sorting_tpu_torch.ops.hw_engine import LSD_MIN_KEYS
     return {"below the gate": LSD_MIN_KEYS - 1, "at the gate": LSD_MIN_KEYS,
-            "above the gate": max(3_000_017, LSD_MIN_KEYS + 12_345)}
+            "above the gate": max(3_000_017, LSD_MIN_KEYS + 12_345), "40M": 40_000_000}
 
 
 @pytest.fixture
@@ -1131,12 +1181,18 @@ def sort_spy(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("where", ["below the gate", "at the gate", "above the gate"])
-def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where):
+@pytest.mark.parametrize("keys", ["ties", "16-bit values"])
+@pytest.mark.parametrize("where", ["below the gate", "at the gate", "above the gate", "40M"])
+def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where, keys):
+    """Keys-only, argsort with int64 and uint32 indices, and the guarded
+    sort with an 8- and a 4-byte payload, against torch.sort(stable=True);
+    16-bit values leave two live digits, so two sweeps a call, the index
+    born in the first and written by the second."""
     from radix_sorting_tpu_torch.ops import hw_engine
     n = _gate_sizes()[where]
-    calls = 0 if where == "below the gate" else 3
-    w = rand_plane(n, n, cuda)
+    calls = 0 if where == "below the gate" else 4
+    live = 4 if keys == "ties" else 2
+    w = rand_plane(n, n, cuda, mask=0xFFFFFFFF if keys == "ties" else 0xFFFF)
     w[::7] = w[3]                                  # ties: stability shows
     key = w ^ i32(1 << 31)
     ref = torch.sort(key, stable=True)
@@ -1145,37 +1201,51 @@ def test_k0_matches_torch_sort_on_both_sides_of_the_gate(cuda, where):
     rt.reset_launch_counts()
     (s,), _ = hw_engine.sort_words((w,), stable=False)
     sw, perm = hw_engine.argsort_words((w,), torch.int64)
+    _, perm32 = hw_engine.argsort_words((w,), torch.uint32)
     (gs,), (p8, p4) = hw_engine.sort_words_presort_guard((w,), pay)
     counts = rt.launch_counts()
     assert counts["lsd_sort"] == calls
-    assert counts["live_digits"] == calls and counts["k0_sweep"] == 4 * calls
+    assert counts["live_digits"] == calls and counts["k0_sweep"] == live * calls
     assert counts["hist_multi"] == 0
     assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
     for got in (s, sw[0], gs):
         assert torch.equal(got ^ i32(1 << 31), ref.values)
+    assert perm.dtype == torch.int64 and perm32.dtype == torch.uint32
     assert torch.equal(perm, ref.indices)
+    assert torch.equal(perm32.view(torch.int32).long(), ref.indices)
     assert torch.equal(p8, pay[0][ref.indices])
     assert torch.equal(p4.view(torch.int32), pay[1].view(torch.int32)[ref.indices])
 
 
+@pytest.mark.parametrize("size", ["above the gate", "40M"])
 @pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32], ids=str)
-def test_one_plane_sorts_above_the_gate_call_no_torch_sort(cuda, sort_spy, dtype):
-    n = _gate_sizes()["above the gate"]
+def test_one_plane_sorts_above_the_gate_call_no_torch_sort(cuda, sort_spy, dtype, size):
+    """The headline's path: sort, argsort (int64 and uint32 indices) and
+    sort_pairs of one plane take K0 alone, one live-digit read and four
+    sweeps a call, no torch.sort; float specials (signed zeros, infinities,
+    NaNs with payloads) among the keys."""
+    n = _gate_sizes()[size]
     bits = np.random.Generator(np.random.PCG64(21)).integers(
         0, 1 << 32, size=n, dtype=np.uint32)
     bits[::11] = bits[5]
+    bits[1:7] = [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0xFFC00001, 0x7F800123]
     x = torch.from_numpy(bits.view(np.int32)).to(cuda).view(dtype)
     want = _oracle(bits, dtype)
     perm_want = np.argsort(bits, kind="stable") if dtype == torch.uint32 else None
     rt.reset_launch_counts()
     got = rt.sort(x)
     perm = rt.argsort(x, index_dtype=torch.int64)
+    perm32 = rt.argsort(x)
     sk, sv = rt.sort_pairs(x, {"i": torch.arange(n, device=cuda, dtype=torch.int32)})
+    counts = rt.launch_counts()
     assert sort_spy[0] == 0
-    assert rt.launch_counts()["lsd_sort"] == 3
+    assert counts["lsd_sort"] == counts["live_digits"] == 4 and counts["k0_sweep"] == 16
+    assert counts["hist_multi"] == counts["lsd_hist"] == counts["lsd_scatter"] == 0
+    assert got.dtype == dtype and got.device == x.device
     assert np.array_equal(got.view(torch.int32).cpu().numpy().view(np.uint32), want)
     assert np.array_equal(sk.view(torch.int32).cpu().numpy().view(np.uint32), want)
     assert torch.equal(sv["i"].long(), perm)
+    assert perm32.dtype == torch.uint32 and torch.equal(perm32.view(torch.int32).long(), perm)
     if perm_want is not None:
         assert np.array_equal(perm.cpu().numpy(), perm_want)
 
@@ -1264,7 +1334,11 @@ def _u64_keys(n, seed, dtype, device, ties=0):
                       generator=gen).view(torch.int64)
     if ties:
         b[::ties] = b[5]
-    if dtype == torch.float64:
+    if dtype == torch.float64:     # signed zeros, infinities, NaNs with payloads
+        b[:7] = torch.from_numpy(np.array(
+            [0x0, 0x8000000000000000, 0x7FF0000000000000, 0xFFF0000000000000,
+             0x7FF8000000000000, 0xFFF8000000000007, 0x7FF0000000000123],
+            np.uint64).view(np.int64)).to(device)
         order = torch.where(b < 0, ~b, b ^ (-(1 << 63)))       # unsigned order as bits
     elif dtype == torch.int64:
         order = b ^ (-(1 << 63))
@@ -1423,30 +1497,51 @@ def test_k0_sweep_refuses_other_shapes(cuda):
         ck.k0_sweep(w, (w,), 0, 11, ck.K0_SWEEP_TILE, starts11, status, 1)
 
 
-@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
-def test_lsd_live_digits_come_from_one_k1_launch(cuda, monkeypatch, dtype):
-    """Strategy.LSD and K0 read their live digits from one K1 launch over
-    every plane (``live_digits``; ``hist_multi`` is that launch for one plane):
-    the live-bit folds are never called on that path."""
+# Strategy.LSD cases: (dtype, mask of the random keys, radix bits,
+# descending, live digits, a configured sorter of models/ or None)
+LSD_CASES = {
+    "u32 masked": (torch.uint32, 0xF0F0FFFF, 8, False, 4, None),
+    "u64 masked": (torch.uint64, 0xF0F00000F0F0FFFF, 8, False, 6, None),  # hi: two live digits
+    "u64 full entropy": (torch.uint64, (1 << 64) - 1, 8, False, 8, None),
+    "u32 r=11": (torch.uint32, 0xFFFFFFFF, 11, False, 3, None),
+    "f32 specials": (torch.float32, 0xFFFFFFFF, 8, False, 4, None),
+    "u16 descending": (torch.uint16, 0xFFFF, 8, True, 2, None),
+    "models.RadixSorterU32": (torch.uint32, 0xFFFFFFFF, 8, False, 4, "RadixSorterU32"),
+    "models.GenericRadixSorter, f32 specials": (torch.float32, 0xFFFFFFFF, 8, False, 4,
+                                                "GenericRadixSorter"),
+}
+
+
+@pytest.mark.parametrize("case", LSD_CASES)
+def test_lsd_live_digits_come_from_one_k1_launch(cuda, monkeypatch, case):
+    """Strategy.LSD reads its live digits from one K1 launch over every
+    plane (``live_digits``; ``hist_multi`` is that launch for one plane),
+    then one L1 and one L2 a live digit: the live-bit folds are never
+    called on that path. Against numpy's sort in the KDF order."""
     from radix_sorting_tpu_torch.ops import probes
 
     def folds(*a, **k):
         raise AssertionError("probes.live_bit_mask ran on the LSD path")
     monkeypatch.setattr(probes, "live_bit_mask", folds)
+    dtype, mask, radix_bits, descending, live, model = LSD_CASES[case]
     n = 2_000_003
-    width = 8 * torch.empty((), dtype=dtype).element_size()
-    ut = np.uint32 if width == 32 else np.uint64
-    bits = np.random.Generator(np.random.PCG64(width)).integers(
-        0, 1 << width, size=n, dtype=ut) & ut(0xF0F00000F0F0FFFF & ((1 << width) - 1))
-    x = torch.from_numpy(bits.view(np.int32 if width == 32 else np.int64)).to(cuda).view(dtype)
-    lsd = rt.SortConfig(strategy="lsd")
+    size = torch.empty((), dtype=dtype).element_size()
+    ut = {2: np.uint16, 4: np.uint32, 8: np.uint64}[size]
+    st = {2: np.int16, 4: np.int32, 8: np.int64}[size]
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[size]
+    bits = np.random.Generator(np.random.PCG64(8 * size)).integers(
+        0, 1 << (8 * size), size=n, dtype=ut) & ut(mask)
+    if dtype == torch.float32:
+        bits[1:7] = [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0xFFC00001, 0x7F800123]
+    x = torch.from_numpy(bits.view(st)).to(cuda).view(dtype)
+    cfg = rt.SortConfig(strategy="lsd", radix_bits=radix_bits, descending=descending)
     rt.reset_launch_counts()
-    got = rt.sort(x, config=lsd)
+    got = getattr(rt.models, model)(cfg)(x) if model else rt.sort(x, config=cfg)
     counts = rt.launch_counts()
-    assert np.array_equal(got.view(torch.int32 if width == 32 else torch.int64)
-                          .cpu().numpy().view(ut), np.sort(bits))
+    want = _oracle(bits, dtype)
+    assert got.dtype == dtype and got.device == x.device
+    assert np.array_equal(got.view(it).cpu().numpy().view(ut), want[::-1] if descending else want)
     assert counts["live_digits"] == 1 and counts["hist_multi"] == 0
-    live = {32: 4, 64: 6}[width]       # lo 0xF0F0FFFF: four live digits; hi 0xF0F00000: two
     assert counts["lsd_hist"] == counts["lsd_scatter"] == live
 
 
@@ -1551,10 +1646,14 @@ def test_lsd_and_bitonic_entry_points_run_the_kernels(cuda, no_plain, monkeypatc
     perm = rt.argsort(td, config=lsd, index_dtype=torch.int64)
     assert np.array_equal(perm.cpu().numpy(), np.argsort(dups, kind="stable"))
     v = torch.arange(n, dtype=torch.int64, device=cuda)
-    sk, sv = rt.sort_pairs(td, {"v": v, "f": v.float()}, config=lsd.replace(radix_bits=11))
+    names = rng.integers(0, 256, size=(n, 6), dtype=np.uint8)
+    sk, sv = rt.sort_pairs(td, {"v": v, "f": v.float(), "name": torch.from_numpy(names).to(cuda)},
+                           config=lsd.replace(radix_bits=11))
     order = np.argsort(dups, kind="stable")
+    assert np.array_equal(_u32(sk), dups[order])
     assert np.array_equal(sv["v"].cpu().numpy(), order)
     assert np.array_equal(sv["f"].cpu().numpy(), order.astype(np.float32))
+    assert np.array_equal(sv["name"].cpu().numpy(), names[order])
     m = x & np.uint32(0xF0F00000)
     tm = torch.from_numpy(m.view(np.int32)).to(cuda).view(torch.uint32)
     rt.reset_launch_counts()
@@ -1646,7 +1745,7 @@ def test_msd_spread_any_window(cuda):
 def test_measurement_entry_points_run_the_kernels(cuda, monkeypatch, capsys):
     from radix_sorting_tpu_torch import cli
     from radix_sorting_tpu_torch.scripts import exp_sol_probe, exp_sol_round2
-    from radix_sorting_tpu_torch.utils import keyfile
+    from radix_sorting_tpu_torch.utils import keyfile, verify
 
     def boom(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
@@ -1664,6 +1763,25 @@ def test_measurement_entry_points_run_the_kernels(cuda, monkeypatch, capsys):
     keys = keyfile.generate_keys(1 << 20)
     assert exp_sol_round2.check_msd(keys, cuda, 64, 32, 8)["bit_exact"]
     assert rt.launch_counts()["msd_spread"] == 1
+    rt.reset_launch_counts()                       # past K0's gates: K0, twice a call
+    assert cli.main(["40000000", "u32"]) == 0
+    assert '"verified": true' in capsys.readouterr().out
+    assert rt.launch_counts()["lsd_sort"] == 2
+    assert cli.main(["20000000", "u64", "0x0000F0F000000000"]) == 0
+    assert '"verified": true' in capsys.readouterr().out
+    # utils.verify on the card's outputs above K0's gate, and on broken ones
+    w = rand_plane(_gate_sizes()["above the gate"], 31, cuda)
+    x, dups = w.view(torch.uint32), (w & 0xFFFF).view(torch.uint32)
+    out, perm = rt.sort(x), rt.argsort(dups)
+    lsd_perm = rt.argsort(dups, config=rt.SortConfig(strategy="lsd"))
+    swapped, doubled = perm.view(torch.int32).clone(), perm.view(torch.int32).clone()
+    swapped[[0, 1]] = swapped[[1, 0]]
+    doubled[1] = doubled[0]
+    assert verify.is_sorted(out) and verify.same_multiset(out, _u32(x))
+    assert not verify.is_sorted(x)
+    assert verify.is_permutation(perm) and not verify.is_permutation(doubled)
+    assert verify.rank_is_stable_sort(dups, perm) and verify.rank_is_stable_sort(dups, lsd_perm)
+    assert not verify.rank_is_stable_sort(dups, swapped)
 
 
 # ---------------------------------------------------------------------------
@@ -1729,10 +1847,14 @@ def test_distributed_sorts_take_k13(cuda, overlap, monkeypatch):
     assert all(s.device.type == "cuda" for s in out[0])
 
 
-def test_dryrun_multichip_on_the_card(cuda):
+@pytest.mark.parametrize("n", [2_000_000, 40_000_000])
+def test_dryrun_multichip_on_the_card(cuda, n):
+    """Every distributed entry point on four ranks of the card against
+    numpy (the dry run raises on the first that differs): the balanced
+    distributed_sort of n keys with each exchange, the rest at 2^16."""
     from radix_sorting_tpu_torch import parallel as tpar
     from radix_sorting_tpu_torch.parallel.dryrun import dryrun_multichip
-    records = dryrun_multichip(tpar.make_sort_mesh(devices=[cuda] * 4), n=2_000_000,
+    records = dryrun_multichip(tpar.make_sort_mesh(devices=[cuda] * 4), n=n,
                                n_rest=1 << 16, log=None)
     assert all(r["peak_mb"] is not None for r in records)
     assert records[1]["launches"].get("rdma_exchange", 0) > 0
@@ -1766,11 +1888,13 @@ def _mp_workers(nproc, local, backend, tmp_path, extra=()):
     return [json.loads(str(np.load(o)["stats"])) for o in outs], [t for _, t in res]
 
 
-def test_group_mesh_four_processes_on_one_card(cuda, tmp_path):
+@pytest.mark.parametrize("main_n", [4_000_000, 40_000_000])
+def test_group_mesh_four_processes_on_one_card(cuda, tmp_path, main_n):
     # K13 across processes through CUDA IPC handles, the control tensors over
     # gloo in host copies, the bulk exchange over gloo refused; a second mesh
-    # over the group opens its own handles
-    stats, texts = _mp_workers(4, 1, "gloo", tmp_path, ("--main-n", str(4_000_000)))
+    # over the group opens its own handles; each worker holds its shards of
+    # the checked balanced sort of main_n keys against np.sort
+    stats, texts = _mp_workers(4, 1, "gloo", tmp_path, ("--main-n", str(main_n)))
     for st, text in zip(stats, texts):
         launches = st["launches"]
         assert launches["rdma_exchange"] > 0 and launches["hist"] > 0 and launches["whist"] > 0
@@ -1854,6 +1978,11 @@ def test_edge_array_histogram_runs_k1_and_k11(cuda, no_plain, monkeypatch):
     assert counts["hist"] >= 1 and counts["whist_f32"] == 1
 
 
+def _no_cummax(*a, **k):
+    # one block for a 1-D tensor: 110.8 ms at 40M (PERF.md run BX)
+    raise AssertionError("torch.cummax ran in the sets slice")
+
+
 def test_unique_u16_counts_take_k2_and_k8_on_the_card(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
@@ -1874,9 +2003,13 @@ def test_unique_u16_counts_take_k2_and_k8_on_the_card(cuda, monkeypatch):
     assert np.array_equal(r.counts.cpu().numpy()[:k], cnt)
 
 
-def test_sets_on_the_card_match_numpy(cuda):
+@pytest.mark.parametrize("size", ["3M", "above the gate"])
+def test_sets_on_the_card_match_numpy(cuda, monkeypatch, size):
+    monkeypatch.setattr(torch, "cummax", _no_cummax)
+    monkeypatch.setattr(torch.Tensor, "cummax", _no_cummax)
     rng = np.random.Generator(np.random.PCG64(25))
-    x = rng.integers(0, 1 << 20, size=3_000_001, dtype=np.uint32)
+    n = 3_000_001 if size == "3M" else _gate_sizes()[size]
+    x = rng.integers(0, 1 << 20, size=n, dtype=np.uint32)
     xt = torch.from_numpy(x.view(np.int32)).to(cuda).view(torch.uint32)
     r = rt.unique_all(xt)
     uq, idx, inv, cnt = np.unique(x, return_index=True, return_inverse=True,
@@ -1906,3 +2039,655 @@ def test_sets_on_the_card_match_numpy(cuda):
     k = int(cnt)
     assert np.array_equal(vals[:k], wv) and np.array_equal(c1[:k], w1)
     assert np.array_equal(c2[:k], w2)
+
+
+# ---------------------------------------------------------------------------
+# the entry points above K0's gate: the sorter composites, the sets and the
+# rest of the slice that sorts through the sorter, against numpy
+
+
+def _float_order(bits: np.ndarray, width: int) -> np.ndarray:
+    """Raw float bit patterns sorted by the reference's float KDF, in numpy:
+    -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN."""
+    ut = {8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}[width]
+    b = bits.astype(ut)
+    top = ut(1) << ut(width - 1)
+    key = np.sort(np.where(b & top, ~b, b | top))
+    return np.where(key & top, key ^ top, ~key)
+
+
+def _order_key(bits: np.ndarray) -> np.ndarray:
+    """The KDF's unsigned key of float bit patterns (f32 as u32, f64 as u64)."""
+    top = bits.dtype.type(1) << bits.dtype.type(8 * bits.dtype.itemsize - 1)
+    return np.where(bits & top, ~bits, bits | top)
+
+
+def _stable_perm(a: np.ndarray) -> np.ndarray:
+    """np.argsort(a, kind="stable") along the last axis; unsigned keys of 32
+    or 64 bits by 16-bit digits from the least significant, each a stable
+    (radix) sort in numpy: the same permutation in less time."""
+    if a.dtype.kind != "u" or a.dtype.itemsize <= 2:
+        return np.argsort(a, axis=-1, kind="stable")
+    perm = None
+    for shift in range(0, 8 * a.dtype.itemsize, 16):
+        d = (a >> a.dtype.type(shift)).astype(np.uint16)
+        if perm is not None:
+            d = np.take_along_axis(d, perm, -1)
+        p = np.argsort(d, axis=-1, kind="stable")
+        perm = p if perm is None else np.take_along_axis(perm, p, -1)
+    return perm
+
+
+def _padded(a: np.ndarray, size: int, fill) -> np.ndarray:
+    out = np.full((size,) + a.shape[1:], fill, a.dtype)
+    out[: min(len(a), size)] = a[:size]
+    return out
+
+
+def _runs(s: np.ndarray):
+    """(firsts, starts, run lengths, run of each position) of a sorted
+    array (rows: equal along the last axis)."""
+    neq = s[1:] != s[:-1]
+    is_new = np.concatenate([[True], neq.any(axis=-1) if neq.ndim > 1 else neq])
+    starts = np.flatnonzero(is_new)
+    return s[starts], starts, np.diff(np.append(starts, len(s))), np.cumsum(is_new) - 1
+
+
+def _unique_all(a: np.ndarray, perm: np.ndarray, fill):
+    """np.unique(a) with every flag from a stable sorting permutation, padded
+    to len(a) as the port's unique returns it: (values, index, inverse,
+    counts, [count])."""
+    vals, starts, lens, run = _runs(a[perm])
+    inverse = np.empty(len(a), np.int32)
+    inverse[perm] = run
+    m = len(a)
+    return (_padded(vals, m, fill), _padded(perm[starts].astype(np.uint32), m, 0), inverse,
+            _padded(lens.astype(np.int32), m, 0), np.array([len(vals)]))
+
+
+def _top_k(order_key: np.ndarray, k: int) -> np.ndarray:
+    """Indices of the k largest order keys, ties to the lower index."""
+    key = ~order_key.astype(np.uint64)
+    kth = np.partition(key, k - 1)[k - 1]
+    cand = np.flatnonzero(key <= kth)
+    return cand[np.lexsort((cand, key[cand]))][:k]
+
+
+def _wrapped_sums(k, v, bins):
+    """Exact per-group sums mod 2^32 (float64 is exact below 2^53)."""
+    return np.bincount(k, weights=v.astype(np.float64), minlength=bins).astype(
+        np.int64).astype(np.uint32)
+
+
+QS5 = [0.01, 0.25, 0.5, 0.75, 0.99]
+F32_SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)
+
+
+class _Slice:
+    """The inputs of the entry-point cases (numpy, made once from one seed
+    at ``n`` keys), their numpy results that several cases share, and the
+    moves to and from ``device`` (every output read back must be there)."""
+
+    def __init__(self, n: int, device, seed: int = 20240601):
+        rng = np.random.Generator(np.random.PCG64(seed))
+        self.n, self.device, self.rng = n, torch.device(device), rng
+        self.keys = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+        self.keys64 = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+        self.dups = self.keys & np.uint32(0xFFFF)
+        self.u16 = self.dups.astype(np.uint16)
+        self.pay_i64 = rng.integers(-2**62, 2**62, size=n, dtype=np.int64)
+        self.pay_f32 = rng.standard_normal(n).astype(np.float32)
+        idx = rng.integers(0, n, size=4096)
+        f32 = rng.standard_normal(n).astype(np.float32)
+        f32[idx] = F32_SPECIALS[np.arange(idx.size) % F32_SPECIALS.size]
+        self.f32b = f32.view(np.uint32).copy()
+        self.f32b[idx[:64]] = 0xFFC00001               # negative NaN with a payload
+        self.f32b[idx[64:128]] = 0x7F800123            # signalling NaN with a payload
+        self.f64b = rng.standard_normal(n).view(np.uint64).copy()
+        self.f64b[idx] = np.array([0x0, 0x8000000000000000, 0x7FF0000000000000,
+                                   0xFFF0000000000000, 0x7FF8000000000000,
+                                   0xFFF8000000000007, 0x7FF0000000000123],
+                                  np.uint64)[np.arange(idx.size) % 7]
+        self.k1024 = self.keys & np.uint32(1023)
+        self.v_bench = (self.keys >> np.uint32(10)).astype(np.int32)
+        self.seg16 = (self.keys >> np.uint32(22)).astype(np.uint16)      # 1,024 segments
+        rows = n // 4096
+        self.rows_u32 = self.keys[: rows * 4096].reshape(rows, 4096)
+        self.rows_dups = self.dups[: rows * 4096].reshape(rows, 4096)
+        self.rows_f32 = self.pay_f32[: rows * 4096].reshape(rows, 4096)
+        self.edges32 = np.sort(rng.standard_normal(1001).astype(np.float32))
+        self.set_b = np.concatenate([self.keys[rng.integers(0, n, size=n // 2)],
+                                     self.rand32(n - n // 2)])
+        half = n // 2
+        self.set_a64 = self.keys64[:half]
+        self.set_b64 = np.concatenate([self.set_a64[rng.integers(0, half, size=half // 2)],
+                                       rng.integers(0, 1 << 64, size=half - half // 2,
+                                                    dtype=np.uint64)])
+        self.tests = np.concatenate([self.keys[rng.integers(0, n, size=n // 8)],
+                                     self.rand32(n // 4 - n // 8)])
+
+    def rand32(self, m):
+        return self.rng.integers(0, 1 << 32, size=m, dtype=np.uint32)
+
+    def hits(self, src, q, random):
+        """q queries, half of them keys of ``src``."""
+        return np.concatenate([src[: q // 2], random(q - q // 2)])
+
+    def cu(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device, bit for bit, in the torch dtype of its numpy
+        dtype (unsigned words through a signed view)."""
+        signed = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}[a.dtype.itemsize]
+        t = torch.from_numpy(np.ascontiguousarray(a) if a.dtype.kind == "b"
+                             else np.ascontiguousarray(a).view(signed)).to(self.device)
+        want = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16,
+                np.dtype(np.uint32): torch.uint32, np.dtype(np.uint64): torch.uint64,
+                np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+                np.dtype(bool): torch.bool}.get(a.dtype)
+        return t.view(want) if want is not None and want != torch.bool else t
+
+    def host(self, t, np_dtype=None) -> np.ndarray:
+        """A result on the host: a tensor (which must be on the device) by
+        its bits as ``np_dtype``, else as it is; a numpy result as it is."""
+        if not torch.is_tensor(t):
+            return np.asarray(t)
+        assert t.device == self.device, t.device
+        if np_dtype is None:
+            return t.cpu().numpy()
+        width = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}[np.dtype(np_dtype).itemsize]
+        return t.contiguous().view(width).cpu().numpy().view(np_dtype)
+
+    def fields(self, out, names, dtype=np.uint32):
+        """The named fields of a set routine's result on the host: values by
+        their bits as ``dtype``, uint32 indices by theirs, the count as a
+        1-element array."""
+        def one(f, v):
+            if f == "num_unique":
+                return np.array([int(v)])
+            if torch.is_tensor(v) and (f == "values" or v.dtype == torch.uint32):
+                return self.host(v, dtype if f == "values" else np.uint32)
+            return self.host(v)
+        return tuple(one(f, getattr(out, f)) for f in names)
+
+    @functools.cached_property
+    def sorted_keys(self):
+        return np.sort(self.keys)
+
+    @functools.cached_property
+    def sorted64(self):
+        return np.sort(self.keys64)
+
+    @functools.cached_property
+    def stable_keys(self):
+        return _stable_perm(self.keys)
+
+    @functools.cached_property
+    def keys_unique(self):
+        return _unique_all(self.keys, self.stable_keys, 0xFFFFFFFF)
+
+    @functools.cached_property
+    def unique_halves(self):
+        return np.unique(self.keys), np.unique(self.set_b)
+
+    @functools.cached_property
+    def isin(self):
+        return np.isin(self.keys, self.tests)
+
+    @functools.cached_property
+    def rows8(self):
+        return self.rng.integers(0, 8, size=(10_000_000, 4)).astype(np.int32)
+
+    def seg_perm(self, descending):
+        """The stable order of (segment, key), the key complemented when
+        descending."""
+        k = np.uint16(0xFFFF) - self.u16 if descending else self.u16
+        return _stable_perm((self.seg16.astype(np.uint32) << np.uint32(16)) | k)
+
+    def pairs(self, a):
+        p = _stable_perm(a)
+        return a[p], self.pay_i64[p], self.pay_f32[p]
+
+    def searched(self, a, q, side):
+        return np.searchsorted(a, q, side=side).astype(np.int32)
+
+    def extremes(self, k, v):
+        """min and max of v per 16-bit group, by a stable sort."""
+        perm = _stable_perm(k)
+        vs, starts = v[perm], np.searchsorted(k[perm], np.arange(1 << 16, dtype=np.uint32))
+        return np.minimum.reduceat(vs, starts), np.maximum.reduceat(vs, starts)
+
+    def quantile_check(self, a):
+        """The port's float32 interpolation of numpy's order statistics (in
+        numpy float32 arithmetic: the same operations), that oracle within
+        2^-20 of np.quantile."""
+        def check(got):
+            h = np.asarray(QS5) * (len(a) - 1)
+            lo, hi = np.floor(h).astype(np.int64), np.ceil(h).astype(np.int64)
+            part = np.partition(a, np.unique(np.concatenate([lo, hi])))
+            f = (h - lo).astype(np.float32)
+            want = part[lo].astype(np.float32) * (np.float32(1) - f) \
+                + part[hi].astype(np.float32) * f
+            assert np.allclose(want, np.quantile(a, QS5), rtol=2**-20, atol=1e-12)
+            got = self.host(got)
+            assert got.dtype == np.float32 and np.array_equal(got, want), (got, want)
+        return check
+
+    def rows_unique(self):
+        rows = self.rows8
+        code = (rows[:, 0] << 9) | (rows[:, 1] << 6) | (rows[:, 2] << 3) | rows[:, 3]
+        perm = np.argsort(code.astype(np.uint16), kind="stable")
+        _, index, inverse, counts, num = _unique_all(code, perm, 0)
+        return (_padded(rows[perm[_runs(code[perm])[1]]], len(rows), np.int32(0x7FFFFFFF)),
+                index, inverse, counts, num)
+
+    def f32_counts(self, equal_nan):
+        bits = self.f32b
+        if equal_nan:
+            bits = np.where(np.isnan(bits.view(np.float32)), np.uint32(0x7FC00000), bits)
+        vals, _, lens, _ = _runs(_float_order(bits, 32))
+        return (_padded(vals, self.n, np.uint32(0x7FFFFFFF)),     # all-ones planes: a NaN
+                _padded(lens.astype(np.int32), self.n, 0), np.array([vals.size]))
+
+    def set_op(self, op):
+        ua, ub = self.unique_halves
+        ref = getattr(np, op)
+        v = ref(ua, ub) if op == "union1d" else ref(ua, ub, assume_unique=True)
+        size = 2 * self.n if op in ("union1d", "setxor1d") else self.n
+        return _padded(v, size, 0xFFFFFFFF), np.array([v.size])
+
+    def intersect_indices(self, a, b, ones):
+        v, c1, c2 = np.intersect1d(a, b, return_indices=True)
+        m = len(a)
+        return (_padded(v, m, ones), _padded(c1.astype(np.int32), m, len(a)),
+                _padded(c2.astype(np.int32), m, len(b)), np.array([v.size]))
+
+    def set_values(self, out, dtype=np.uint32):
+        return (self.host(out[0], dtype), *(self.host(o) for o in out[1:-1]),
+                np.array([int(out[-1])]))
+
+
+# Each case, given a _Slice d, returns (args, call, oracle): the entry
+# point's inputs (on d's device, or numpy where the case says so), the call
+# (call(*args) is what chip_smoke.py times), and oracle(out): (the result on
+# the host, numpy's result or a check of the result).
+DESCENDING = rt.SortConfig(descending=True)
+
+
+def _q_scan(d):
+    return 100_000
+
+
+def _q_cross(d):
+    return -(-d.n // 32)             # 'auto' takes the tagged-union sort from 32 q >= n
+
+
+def _searchsorted_u32(d, q, side):
+    qs = d.hits(d.keys, q(d), d.rand32)
+    return ((d.cu(qs), d.cu(d.sorted_keys)), lambda x, a: rt.searchsorted(a, x, side=side),
+            lambda out: (d.host(out, np.int32), d.searched(d.sorted_keys, qs, side)))
+
+
+def _searchsorted_u64(d):
+    qs = d.hits(d.keys64, min(4_000_000, d.n),
+                lambda m: d.rng.integers(0, 1 << 64, size=m, dtype=np.uint64))
+    return ((d.cu(qs), d.cu(d.sorted64)), lambda x, a: rt.searchsorted(a, x),
+            lambda out: (d.host(out, np.int32), d.searched(d.sorted64, qs, "left")))
+
+
+def _searchsorted_f32(d):
+    a = _float_order(d.f32b, 32)
+    qs = d.hits(d.f32b, min(1_000_000, d.n), lambda m: np.concatenate(
+        [F32_SPECIALS.view(np.uint32),
+         d.rng.standard_normal(m - 5).astype(np.float32).view(np.uint32)]))
+    return ((d.cu(qs.view(np.float32)), d.cu(a.view(np.float32))),
+            lambda x, s: rt.searchsorted(s, x, side="right"),
+            lambda out: (d.host(out, np.int32), np.searchsorted(
+                _order_key(a), _order_key(qs), side="right").astype(np.int32)))
+
+
+def _searchsorted_descending(d):
+    qs = d.hits(d.keys, _q_cross(d), d.rand32)
+    return ((d.cu(qs), d.cu(d.sorted_keys[::-1].copy())),
+            lambda x, s: rt.searchsorted(s, x, config=DESCENDING),
+            lambda out: (d.host(out, np.int32), d.searched(~d.sorted_keys[::-1], ~qs, "left")))
+
+
+def _searchsorted_sorter(d):
+    qs, keys = d.hits(d.keys, _q_cross(d), d.rand32), d.cu(d.keys)
+    return ((d.cu(qs), keys, rt.argsort(keys)),
+            lambda x, a, perm: rt.searchsorted(a, x, sorter=perm),
+            lambda out: (d.host(out, np.int32), d.searched(d.sorted_keys, qs, "left")))
+
+
+def _lexsort_packed(d):
+    planes = (d.cu(d.keys.astype(np.uint8)), d.cu((d.keys >> np.uint32(8)).astype(np.uint8)),
+              d.cu((d.keys >> np.uint32(16)).astype(np.uint16)))
+    return (planes, lambda *p: rt.lexsort(list(p)),
+            lambda out: (d.host(out, np.uint32), d.stable_keys.astype(np.uint32)))
+
+
+def _lexsort_chained(d):
+    def oracle(out):
+        packed = ((d.k1024.astype(np.uint64) << np.uint64(48))
+                  | (d.dups.astype(np.uint64) << np.uint64(32)) | d.keys.astype(np.uint64))
+        return d.host(out, np.uint32), _stable_perm(packed).astype(np.uint32)
+    return ((d.cu(d.keys), d.cu(d.dups), d.cu(d.k1024)), lambda *p: rt.lexsort(list(p)),
+            oracle)
+
+
+def _segmented_sort(d, desc):
+    config = rt.SortConfig(descending=desc)
+
+    def oracle(out):
+        p = d.seg_perm(desc)
+        return (d.host(out[0], np.uint16), d.host(out[1], np.uint16)), (d.u16[p], d.seg16[p])
+    return ((d.cu(d.u16), d.cu(d.seg16)),
+            lambda k, s: rt.segmented_sort(k, s, config=config), oracle)
+
+
+def _segmented_argsort(d, desc):
+    config = rt.SortConfig(descending=desc)
+    return ((d.cu(d.u16), d.cu(d.seg16)),
+            lambda k, s: rt.segmented_argsort(k, s, config=config),
+            lambda out: (d.host(out, np.uint32), d.seg_perm(desc).astype(np.uint32)))
+
+
+def _merge_sorted(d):
+    halves = (rt.sort(d.cu(d.keys[: d.n // 2])), rt.sort(d.cu(d.keys[d.n // 2:])))
+    return halves, rt.merge_sorted, lambda out: (d.host(out, np.uint32), d.sorted_keys)
+
+
+def _nth_element(d):
+    ranks = [0, 1, d.n // 4, d.n // 2, d.n - 1]
+    return ((d.cu(d.keys),), lambda x: rt.nth_element(x, ranks),
+            lambda out: (d.host(out, np.uint32), d.sorted_keys[ranks]))
+
+
+def _top_k_case(d, bits, key):
+    """top_k of the keys whose bits are ``bits`` (u32, or f64's as u64),
+    ordered by ``key``."""
+    def oracle(out):
+        i = _top_k(key, 1000)
+        return ((d.host(out[0], bits.dtype), d.host(out[1], np.uint32)),
+                (bits[i], i.astype(np.uint32)))
+    keys = bits.view(np.float64) if bits.dtype == np.uint64 else bits
+    return (d.cu(keys),), lambda x: rt.top_k(x, 1000), oracle
+
+
+def _stable_partition(d):
+    pred = (d.keys & np.uint32(1)).astype(bool)
+
+    def oracle(out):
+        return ((d.host(out[0]), np.array([int(out[1])])),
+                (d.pay_f32[_stable_perm(pred)], np.array([int(np.count_nonzero(~pred))])))
+    return (d.cu(pred), d.cu(d.pay_f32)), rt.stable_partition, oracle
+
+
+def _rankdata(d, method):
+    def oracle(out):
+        import scipy.stats
+        want = scipy.stats.rankdata(d.u16, method=method)
+        return d.host(out), want.astype(np.float32 if method == "average" else np.int32)
+    return (d.cu(d.dups),), lambda x: rt.rankdata(x, method=method), oracle
+
+
+def _quantile(d, a):
+    return (d.cu(a),), lambda x: rt.quantile(x, QS5), lambda out: (out, d.quantile_check(a))
+
+
+def _partition(d):
+    return ((d.cu(d.keys),), lambda x: rt.partition(x, d.n // 2),
+            lambda out: (d.host(out, np.uint32), d.sorted_keys))
+
+
+def _argpartition(d):
+    return ((d.cu(d.keys),), lambda x: rt.argpartition(x, [7, d.n // 2]),
+            lambda out: (d.host(out, np.uint32), d.stable_keys.astype(np.uint32)))
+
+
+def _digitize(d, decreasing):
+    edges = d.cu(d.edges32).flip(0) if decreasing else d.cu(d.edges32)
+    return ((d.cu(d.pay_f32), edges), lambda x, e: rt.digitize(x, e, right=decreasing),
+            lambda out: (d.host(out).astype(np.int64), np.digitize(
+                d.pay_f32, d.edges32[::-1] if decreasing else d.edges32, right=decreasing)))
+
+
+def _sort_complex(d):
+    z = (d.rng.integers(-1000, 1000, size=4_000_000).astype(np.float64)   # real-part ties
+         + 1j * d.rng.standard_normal(4_000_000))
+    return ((z,), lambda x: rt.sort_complex(x, device=d.device),
+            lambda out: (out, np.sort_complex(z)))
+
+
+def _sort_s12(d):
+    s12 = np.ascontiguousarray(d.rng.integers(0, 4, size=(4_000_000, 12), dtype=np.uint8)
+                               * np.uint8(60)).view("S12").reshape(-1)
+    return (s12,), lambda x: rt.sort(x, device=d.device), lambda out: (out, np.sort(s12))
+
+
+def _argsort_dups(d):
+    return ((d.cu(d.dups),), rt.argsort,
+            lambda out: (d.host(out, np.uint32), _stable_perm(d.dups).astype(np.uint32)))
+
+
+def _with_payload(d, entry, keys):
+    """sort_pairs or counting_sort of ``keys`` with the {i64, f32} payload."""
+    def oracle(out):
+        return ((d.host(out[0], keys.dtype), d.host(out[1]["i64"]), d.host(out[1]["f32"])),
+                d.pairs(keys))
+    return (d.cu(keys), {"i64": d.cu(d.pay_i64), "f32": d.cu(d.pay_f32)}), entry, oracle
+
+
+def _sort_u64_multipass(d):
+    return ((d.cu(d.keys64),), rt.sort_u64_multipass,
+            lambda out: (d.host(out, np.uint64), d.sorted64))
+
+
+def _sort_batched(d):
+    return ((d.cu(d.rows_u32),), rt.sort_batched,
+            lambda out: (d.host(out, np.uint32), np.sort(d.rows_u32, axis=-1)))
+
+
+def _argsort_batched(d):
+    return ((d.cu(d.rows_dups),), rt.argsort_batched,
+            lambda out: (d.host(out, np.uint32),
+                         np.argsort(d.rows_dups, axis=-1, kind="stable").astype(np.uint32)))
+
+
+def _sort_pairs_batched(d):
+    def oracle(out):
+        perm = np.argsort(d.rows_dups, axis=-1, kind="stable")
+        return ((d.host(out[0], np.uint32), d.host(out[1])),
+                (np.sort(d.rows_dups, axis=-1), np.take_along_axis(d.rows_f32, perm, -1)))
+    return (d.cu(d.rows_dups), d.cu(d.rows_f32)), rt.sort_pairs_batched, oracle
+
+
+def _group_reduce(d, op):
+    def oracle(out):
+        want = (_wrapped_sums(d.dups, d.v_bench, 1 << 16) if op == "sum"
+                else d.extremes(d.dups, d.v_bench)[op == "max"])
+        return ((d.host(out[0], np.uint32), d.host(out[1], np.uint32 if op == "sum" else np.int32),
+                 np.array([int(out[2])])),
+                (np.arange(1 << 16, dtype=np.uint32), want, np.array([1 << 16])))
+    return ((d.cu(d.dups), d.cu(d.v_bench)),
+            lambda k, v: rt.group_reduce(k, v, reduce=op, size=1 << 16), oracle)
+
+
+def _value_counts(d):
+    def oracle(out):
+        return ((d.host(out[0], np.uint32), d.host(out[1], np.int32), np.array([int(out[2])])),
+                (np.arange(1024, dtype=np.uint32),
+                 np.bincount(d.k1024, minlength=1024).astype(np.int32), np.array([1024])))
+    return (d.cu(d.k1024),), lambda k: rt.value_counts(k, size=1024), oracle
+
+
+def _unique_u32(d, entry, fields, want):
+    """A unique of the u32 keys: its ``fields`` against ``want(d)``."""
+    return (d.cu(d.keys),), entry, lambda out: (d.fields(out, fields), want(d))
+
+
+def _unique_descending(d):
+    vals, num = d.keys_unique[0], d.keys_unique[4]
+    return _padded(vals[: int(num[0])][::-1], d.n, 0), num
+
+
+def _unique_f32(d, equal_nan):
+    return ((d.cu(d.f32b.view(np.float32)),),
+            lambda x: rt.unique(x, return_counts=True, equal_nan=equal_nan),
+            lambda out: (d.fields(out, ("values", "counts", "num_unique")),
+                         d.f32_counts(equal_nan)))
+
+
+def _unique_inverse_u64(d):
+    def oracle(out):
+        vals = _runs(d.sorted64)[0]
+        return (d.fields(out, ("values", "inverse_indices", "num_unique")),
+                (_padded(vals, d.n, np.uint64(2**64 - 1)),
+                 np.searchsorted(vals, d.keys64).astype(np.int32), np.array([vals.size])))
+    return (d.keys64,), lambda x: rt.unique_inverse(x, device=d.device), oracle
+
+
+def _unique_rows(d):
+    def oracle(out):
+        return ((d.host(out.values), d.host(out.index, np.uint32), d.host(out.inverse),
+                 d.host(out.counts), np.array([int(out.num_unique)])), d.rows_unique())
+    return ((d.cu(d.rows8),),
+            lambda x: rt.unique(x, axis=0, return_index=True, return_inverse=True,
+                                return_counts=True), oracle)
+
+
+def _set_op(d, op):
+    return ((d.cu(d.keys), d.cu(d.set_b)), getattr(rt, op),
+            lambda out: (d.set_values(out), d.set_op(op)))
+
+
+def _intersect_indices(d, wide):
+    """intersect1d(return_indices=True) of two u32 tensors, or (``wide``) of
+    two u64 numpy arrays."""
+    if wide:
+        a, b, ones, dtype, device = d.set_a64, d.set_b64, np.uint64(2**64 - 1), np.uint64, d.device
+        args = (a, b)
+    else:
+        a, b, ones, dtype, device = d.keys, d.set_b, 0xFFFFFFFF, np.uint32, None
+        args = (d.cu(a), d.cu(b))         # on the device already: no device=
+    return (args, lambda x, y: rt.intersect1d(x, y, return_indices=True, device=device),
+            lambda out: (d.set_values(out, dtype), d.intersect_indices(a, b, ones)))
+
+
+def _isin(d, entry, invert):
+    return ((d.cu(d.keys), d.cu(d.tests)), entry,
+            lambda out: (d.host(out), ~d.isin if invert else d.isin))
+
+
+ENTRY_CASES = {
+    **{f"searchsorted u32, q = {label} ('auto': {route}), {side}": functools.partial(
+        _searchsorted_u32, q=q, side=side)
+       for label, q, route in (("100,000", _q_scan, "scan"),
+                               ("n / 32", _q_cross, "sort"))
+       for side in ("left", "right")},
+    "searchsorted u64, q = 4,000,000 (tagged union)": _searchsorted_u64,
+    "searchsorted f32 with specials, q = 1,000,000, right": _searchsorted_f32,
+    "searchsorted u32 descending, q = n / 32": _searchsorted_descending,
+    "searchsorted u32 with sorter=, q = n / 32": _searchsorted_sorter,
+    "lexsort (u8, u8, u16): one packed plane": _lexsort_packed,
+    "lexsort (u32, u32, u32): chained sorts": _lexsort_chained,
+    **{f"segmented_{kind} u16 keys in 1,024 u16 segments{label}": functools.partial(
+        case, desc=desc)
+       for kind, case in (("sort", _segmented_sort), ("argsort", _segmented_argsort))
+       for label, desc in (("", False), (", descending", True))},
+    "merge_sorted of two sorted halves": _merge_sorted,
+    "nth_element u32 at 5 ranks": _nth_element,
+    "top_k u32, k = 1,000": lambda d: _top_k_case(d, d.keys, d.keys),
+    "top_k f64 with specials, k = 1,000": lambda d: _top_k_case(d, d.f64b, _order_key(d.f64b)),
+    "stable_partition by u32 & 1, f32 payload": _stable_partition,
+    **{f"rankdata u32 with duplicates, '{method}'": functools.partial(_rankdata, method=method)
+       for method in ("average", "dense")},
+    "quantile f32 at 5 probabilities": lambda d: _quantile(d, d.pay_f32),
+    "quantile u16 at 5 probabilities (K2 + K8)": lambda d: _quantile(d, d.u16),
+    "partition u32": _partition,
+    "argpartition u32": _argpartition,
+    "digitize f32, 1,001 increasing edges": functools.partial(_digitize, decreasing=False),
+    "digitize f32, 1,001 decreasing edges, right=True": functools.partial(
+        _digitize, decreasing=True),
+    "sort_complex of 4,000,000 complex128 (numpy)": _sort_complex,
+    "sort of 4,000,000 S12 byte strings (numpy)": _sort_s12,
+    "argsort u32 with duplicates": _argsort_dups,
+    "sort_pairs u32 with duplicates, {i64, f32}": lambda d: _with_payload(
+        d, rt.sort_pairs, d.dups),
+    "counting_sort u16 with a payload": lambda d: _with_payload(d, rt.counting_sort, d.u16),
+    "sort_u64_multipass": _sort_u64_multipass,
+    "sort_batched of 4,096-key rows": _sort_batched,
+    "argsort_batched of 4,096-key rows with duplicates": _argsort_batched,
+    "sort_pairs_batched of 4,096-key rows with duplicates, f32 payload": _sort_pairs_batched,
+    **{f"group_reduce {op}, no groups (sort-native)": functools.partial(_group_reduce, op=op)
+       for op in ("sum", "min", "max")},
+    "value_counts, no groups (sorter)": _value_counts,
+    # the sets (each with torch.cummax refused)
+    "sets: unique u32": lambda d: _unique_u32(
+        d, rt.unique, ("values", "num_unique"), lambda d: d.keys_unique[::4]),
+    "sets: unique u32, return_counts=True": lambda d: _unique_u32(
+        d, functools.partial(rt.unique, return_counts=True), ("values", "counts", "num_unique"),
+        lambda d: tuple(d.keys_unique[i] for i in (0, 3, 4))),
+    "sets: unique_all u32": lambda d: _unique_u32(
+        d, rt.unique_all, ("values", "indices", "inverse_indices", "counts", "num_unique"),
+        lambda d: d.keys_unique),
+    "sets: unique u32, descending": lambda d: _unique_u32(
+        d, functools.partial(rt.unique, config=DESCENDING), ("values", "num_unique"),
+        _unique_descending),
+    **{f"sets: unique f32 with specials, return_counts=True, equal_nan={eq}": functools.partial(
+        _unique_f32, equal_nan=eq) for eq in (False, True)},
+    "sets: unique_inverse u64 (numpy)": _unique_inverse_u64,
+    "sets: unique(axis=0, every flag) of 10,000,000 rows of 4 int32 in [0, 8)": _unique_rows,
+    **{f"sets: {op} of two u32 arrays sharing about half their values": functools.partial(
+        _set_op, op=op) for op in ("union1d", "intersect1d", "setdiff1d", "setxor1d")},
+    "sets: intersect1d(return_indices=True) of the two u32 arrays": functools.partial(
+        _intersect_indices, wide=False),
+    "sets: intersect1d(return_indices=True) of two u64 arrays (numpy)": functools.partial(
+        _intersect_indices, wide=True),
+    **{f"sets: {label} of the keys against n / 4 tests, half of them keys": functools.partial(
+        _isin, entry=entry, invert=invert)
+       for label, entry, invert in (("isin", rt.isin, False),
+                                    ("isin(invert=True)",
+                                     functools.partial(rt.isin, invert=True), True),
+                                    ("in1d", rt.in1d, False))},
+}
+
+
+@pytest.fixture(scope="module")
+def entry_slice():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _Slice(_gate_sizes()["above the gate"], torch.device("cuda", torch.cuda.current_device()))
+
+
+def _matches(got, want):
+    """Every array of ``got`` equal to ``want``'s (a tuple or one array),
+    a dtype of the same width read as ``got``'s."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype and g.dtype.itemsize == w.dtype.itemsize:
+            w = w.view(g.dtype)
+        assert g.shape == w.shape, (i, g.shape, w.shape)
+        bad = np.flatnonzero((g != w).reshape(-1))
+        assert bad.size == 0, f"output {i} differs from numpy first at {bad[0]}"
+
+
+@pytest.mark.parametrize("case", ENTRY_CASES)
+def test_entry_points_above_the_k0_gate_match_numpy(cuda, entry_slice, monkeypatch, case):
+    """The sorter composites of extras and stats, the sets and the slice's
+    other sorter calls at n = LSD_MIN_KEYS + 12,345 keys, so their 1-D
+    sorts take K0 (one plane, and two planes past K0_TWO_PLANE_MIN_KEYS),
+    against numpy bit for bit; every output on the card; the sets never
+    call torch.cummax."""
+    if case.startswith("sets: "):
+        monkeypatch.setattr(torch, "cummax", _no_cummax)
+        monkeypatch.setattr(torch.Tensor, "cummax", _no_cummax)
+    args, call, oracle = ENTRY_CASES[case](entry_slice)
+    got, want = oracle(call(*args))
+    if callable(want):
+        want(got)
+    else:
+        _matches(got, want)

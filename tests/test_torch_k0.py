@@ -430,8 +430,10 @@ def test_guarded_k0_calls_never_run_the_torch_guard(monkeypatch, name, ordered):
 @pytest.mark.parametrize("planes,radix_bits", [(3, 8), (2, 18)])
 def test_live_digits_past_one_launch_take_hist_multi_and_the_torch_guard(planes, radix_bits):
     """Three planes, or two past 2^19 counters, which one K1 launch does not
-    take: one ``hist_multi`` a plane and the guard's torch passes, with the
-    same histograms and flag."""
+    take: one ``hist_multi`` a plane, with the same histograms and no flag.
+    The descent flag comes only from one launch (K0's guard reads one or
+    two planes at r = 8), so asking for it there raises as ``live_digits``
+    does."""
     assert not ck.live_digits_fit(planes, radix_bits)
     words = tuple(torch.from_numpy(keys("uint32", 1000, 70 + p).view(np.int32))
                   for p in range(planes))
@@ -439,10 +441,11 @@ def test_live_digits_past_one_launch_take_hist_multi_and_the_torch_guard(planes,
         ck.live_digits(words, radix_bits)
     for ordered in (False, True):
         ws = tuple(torch.sort(w).values for w in words) if ordered else words
-        hists, descent = lsd_engine._digit_hists(ws, radix_bits, order=True)
+        hists, descent = lsd_engine._digit_hists(ws, radix_bits)
         want = torch.cat([ck.hist_multi_plain(w, radix_bits) for w in reversed(ws)])
-        assert torch.equal(hists, want)
-        assert bool(descent) == (not bool(probes.is_sorted_words(ws)))
+        assert torch.equal(hists, want) and descent is None
+        with pytest.raises(ValueError):
+            lsd_engine._digit_hists(ws, radix_bits, order=True)
 
 
 def test_live_digits_fit_one_launch_at_every_config_width():

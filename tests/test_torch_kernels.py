@@ -13,8 +13,7 @@ Pallas kernels run in interpret mode and called directly, as
   regen_pdep2  vs  pk.regenerate_pdep2_windowed_tpu  (K9, 2^11 bins)
 
 Tolerance: exact equality (integer outputs). The CUDA kernels themselves are
-held against these plain versions on the card (tests/test_torch_cuda.py and
-chip_smoke.py).
+held against these plain versions on the card (tests/test_torch_cuda.py).
 """
 
 import re
