@@ -26,8 +26,8 @@ ENTRY_CASES of tests/test_torch_cuda.py; nothing here imports JAX):
      version on the same inputs (equal; K11's f32 sums within its bound
      of the float64 sums); K1, K2 and K3 with the launch shape each ran beside
      torch.bincount, K1 also on keys of which 90% are one value;
-     live_digits over one plane and two beside the read it replaces (one
-     hist_multi a plane and probes.is_sorted_words); K4 and K7 beside
+     live_digits over one plane, two dense and two as a pair beside the
+     read it replaces (one hist_multi a plane and probes.is_sorted_words); K4 and K7 beside
      torch.searchsorted, K5, K6, K8 and K9 beside torch.repeat_interleave;
      K10 and K11 at nine inputs (up to 2^17 bins, 90% and all rows in one
      group) with their launch shapes beside index_add_; the range probe's
@@ -35,8 +35,10 @@ ENTRY_CASES of tests/test_torch_cuda.py; nothing here imports JAX):
      the sets beside torch's searchsorted (at five q around the TPU gate
      32 q >= n), topk, sort, cummax, bucketize, unique and isin
      ([6 slice]); K0 and each form of its k0_sweep pass beside their plain
-     versions and torch.sort, the AUTO sort, argsort and sort_pairs beside
-     torch.sort in turns ([6 k0]), scripts/k0_gate.py's sweeps and gates,
+     versions and torch.sort, the two-plane pass dense beside the pair read
+     in and the pair written out, the AUTO sort, argsort and sort_pairs
+     beside torch.sort in turns, the AUTO u64 sort's launches and device
+     time, its keys held against torch.sort's ([6 k0]), scripts/k0_gate.py's sweeps and gates,
      one plane and two ([6 gate]); the LSD sort beside torch.sort and
      AUTO with its byte bound, L1 and L2 per pass; K12 at 2^10 to 2^17
      keys and at the gate's top plane count beside torch.sort of the
@@ -238,8 +240,8 @@ def main() -> None:
           f"cuda {torch.version.cuda} | {kind}", flush=True)
 
     import radix_sorting_tpu_torch as rt
-    from radix_sorting_tpu_torch.ops import (_build, counting_engine, hw_engine, lsd_engine,
-                                             probes, scan)
+    from radix_sorting_tpu_torch.ops import (_build, counting_engine, hw_engine, kdf,
+                                             lsd_engine, probes, scan)
     from radix_sorting_tpu_torch.ops import cuda_kernels as ck
     from radix_sorting_tpu_torch.ops.vmem_sort import sort_planes_vmem
     from radix_sorting_tpu_torch.ops.histogram import multi_digit_histogram
@@ -753,15 +755,20 @@ def main() -> None:
             lambda: torch.bincount(flat, minlength=passes * bins), passes=passes,
             shape=hist_label(passes * bins), device_ms=device_trace(kernel)[1])
         del flat
-    # K1's live-digit read with the guard's flag, one plane and two, beside
-    # what it replaces: one hist_multi a plane and the guard's torch passes
-    for planes in ((w,), (hi64, lo64)):
+    # K1's live-digit read with the guard's flag, one plane, two dense and
+    # two as a pair (the halves of the u64 keys, as the AUTO u64 sort reads
+    # them), beside what it replaces: one hist_multi a dense plane and the
+    # guard's torch passes
+    for form, planes, dense in (("one plane", (w,), (w,)),
+                                ("dense", (hi64, lo64), (hi64, lo64)),
+                                ("pair", kdf.halves(keys64_t), (hi64, lo64))):
         total = len(planes) * 4 * 256
         kernel = lambda: ck.live_digits(planes, 8)
         row("live_digits", 256, n * 4 * len(planes) + total * 4 + 4,
             kernel, lambda: ck.live_digits_plain(planes, 8),
-            lambda: ([ck.hist_multi(p, 8) for p in planes], probes.is_sorted_words(planes)),
-            planes=len(planes), shape=hist_label(total), device_ms=device_trace(kernel)[1])
+            lambda: ([ck.hist_multi(p, 8) for p in dense], probes.is_sorted_words(dense)),
+            planes=len(planes), form=form, shape=hist_label(total),
+            device_ms=device_trace(kernel)[1])
     del u, skewed
     # K4 / K7 beside torch.searchsorted(cum, arange(n), right=True)
     j = torch.arange(n, dtype=torch.int32, device=dev)
@@ -878,7 +885,34 @@ def main() -> None:
             lambda: ck.k0_sweep_plain(w, planes, 0, 8, ck.K0_SWEEP_TILE, starts0,
                                       position, index_dtype),
             tile=ck.K0_SWEEP_TILE, form=form, device_ms=device_trace(kernel, "k0_sweep")[1])
-    del sweep_status
+    # the two-plane pass of the n u64 keys, in turns: a dense pass beside the
+    # pair-in first pass (the digit in lo at shift 0, read where the keys
+    # lie) and the pair-out last pass (the digit in hi at shift 24, both
+    # halves written into one buffer), each held against its plain version
+    # first; bound: 16 bytes a key
+    hi_pair, lo_pair = kdf.halves(keys64_t)
+    lo0, hi24 = sweep_starts(lo64, 0), sweep_starts(hi64, 24)
+    pair_passes = {"dense first pass": (lo64, (hi64, lo64), 0, lo0, False),
+                   "pair in (first pass)": (lo_pair, (hi_pair, lo_pair), 0, lo0, False),
+                   "dense last pass": (hi64, (hi64, lo64), 24, hi24, False),
+                   "pair out (last pass)": (hi64, (hi64, lo64), 24, hi24, True)}
+    pair_fns, pair_device = {}, {}
+    for label, (kw_, planes, shift, st, out_) in pair_passes.items():
+        def run(kw_=kw_, planes=planes, shift=shift, st=st, out_=out_):
+            sweep_epoch[0] += 1
+            return ck.k0_sweep(kw_, planes, shift, 8, ck.K0_SWEEP_TILE, st, sweep_status,
+                               sweep_epoch[0], pair_out=out_)
+        err = max_err(run(), ck.k0_sweep_plain(kw_, planes, shift, 8, ck.K0_SWEEP_TILE, st,
+                                               pair_out=out_))
+        if err:
+            fail(f"k0_sweep {label}: max |kernel - plain| {err}")
+        pair_fns[label] = run
+        pair_device[label] = device_trace(run, "k0_sweep")[1]
+    ms = in_turns(pair_fns)
+    print(f"[6 k0] two-plane pass of {n} u64 keys, in turns: " + ", ".join(
+        f"{k} {v:.4f} ms (device {pair_device[k]:.4f})" for k, v in ms.items())
+        + f"; bound {bound_ms(16 * n):.4f} ms", flush=True)
+    del sweep_status, hi_pair, lo_pair
     def k12_trace(kernel, library):
         """K12's launches and device ms per sort, and torch.sort's device ms:
         the comparison free of host time and of the timer's noise."""
@@ -939,7 +973,7 @@ def main() -> None:
     for name, rows in shapes.items():
         for r in rows:
             extra = "".join(f" {k}={r[k]}" for k in ("keys", "drop_ge", "passes", "shape", "reads",
-                                                     "tile", "planes", "capr", "ranks",
+                                                     "tile", "planes", "form", "capr", "ranks",
                                                      "route", "launches_per_sort",
                                                      "device_ms", "torch_sort_device_ms")
                             if k in r)
@@ -994,6 +1028,21 @@ def main() -> None:
         ms = in_turns(fns)
         print(f"[6 k0] {label} of {n} keys, in turns: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+    # the AUTO u64 sort: its launches (the pair read in, the pair written
+    # out) and its device time by kernel; its keys equal torch.sort's of the
+    # keys as signed words with the top bit flipped, the input unchanged
+    rt.reset_launch_counts()
+    got64 = rt.sort(x64)
+    counts = {k: c for k, c in rt.launch_counts().items() if c}
+    top = -(1 << 63)
+    if not torch.equal(got64.view(torch.int64), torch.sort(keys64_t ^ top).values ^ top):
+        fail("u64 AUTO sort: keys differ from torch.sort's")
+    if not torch.equal(x64.view(torch.int64), keys64_t):
+        fail("u64 AUTO sort: the input changed")
+    del got64
+    ops, dev_ms = device_trace(lambda: rt.sort(x64))
+    print(f"[6 k0] u64 AUTO sort of {n} keys: launches {counts}; {ops:.0f} device ops, "
+          f"device {dev_ms:.3f} ms a call", flush=True)
     del x64
     # the sweeps behind the gates: K0 against torch.sort by n, one plane and two
     for planes in (1, 2):

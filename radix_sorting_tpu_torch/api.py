@@ -74,14 +74,20 @@ def _as_input(x, device) -> Tuple[torch.Tensor, object, bool]:
     return kdf.as_tensor(a, kdf.input_device(device)), a.dtype, True
 
 
-def _as_words(x, descending: bool, device) -> Tuple[tuple, object, bool]:
-    """KDF-encode a 1-D key array into int32 word planes.
+def _as_words(x, descending: bool, device, to_sorter: bool = False) -> Tuple[tuple, object, bool]:
+    """KDF-encode a 1-D key array into int32 word planes. ``to_sorter``: the
+    strategy hands the planes straight to the sorter; where that sorter is
+    K0 (:func:`.ops.hw_engine.sorter_route`), an ascending u64 key comes as
+    the two halves of its own tensor, with no copy (a pair,
+    :func:`.ops.kdf.encode`). No other route sees a pair.
 
     Returns (words, key dtype, from_numpy), as :func:`_as_input` gives them.
     """
     t, dtype, from_numpy = _as_input(x, device)
+    pair = to_sorter and t.element_size() == 8 \
+        and hw_engine.sorter_route(t.device.type, 2, t.numel()) == "k0"
     with span(ENCODE):
-        return kdf.encode(t, descending, dtype), dtype, from_numpy
+        return kdf.encode(t, descending, dtype, pair), dtype, from_numpy
 
 
 def _decode(words, dtype, descending: bool, from_numpy: bool):
@@ -287,7 +293,9 @@ def sort(x, *, config: SortConfig = DEFAULT_CONFIG,
     """
     with span(SORT):
         cfg = config
-        words, dtype, from_numpy = _as_words(x, cfg.descending, device)
+        to_sorter = value_mask is None and (cfg.strategy == Strategy.HW_SORT or (
+            cfg.strategy == Strategy.AUTO and not cfg.dynamic_probe and not cfg.device_probe))
+        words, dtype, from_numpy = _as_words(x, cfg.descending, device, to_sorter)
         _reject_bytes_mask(dtype, value_mask)
         n = int(words[0].shape[0])
         if n <= 1:
@@ -381,7 +389,8 @@ def argsort(x, *, config: SortConfig = DEFAULT_CONFIG, index_dtype=torch.uint32,
     """
     with span(ARGSORT):
         cfg = config
-        words, dtype, from_numpy = _as_words(x, cfg.descending, device)
+        to_sorter = value_mask is None and cfg.strategy in (Strategy.AUTO, Strategy.HW_SORT)
+        words, dtype, from_numpy = _as_words(x, cfg.descending, device, to_sorter)
         _reject_bytes_mask(dtype, value_mask)
         n = int(words[0].shape[0])
         idt = _index_dtype(index_dtype)

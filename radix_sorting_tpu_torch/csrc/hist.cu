@@ -36,6 +36,12 @@
 //     flag's shuffles and compares cost 3 to 4%; r = 8 compiled in
 //     (constant digit shifts, no offset) took 7% off the run-time width's
 //     0.0847 wall ms (run DO).
+//     Two planes may be a pair (`pair`, K0's ascending u64 keys): the
+//     halves of one dense 64-bit buffer, read where they lie, two 16-byte
+//     loads for a group of four keys, their words split in registers; the
+//     same histograms, order and flag as the dense planes' read. At 40M
+//     keys with the flag, 0.1632 ms against the dense planes' 0.1592 (CUDA
+//     events, in turns, run DX).
 //
 // Bound on the H100: one 4-byte read per key and live plane and no write per
 // key, so the floor is n * 4 bytes per live plane (8 for two) over
@@ -130,6 +136,7 @@ template <bool kTwo>
 struct PextCount {
   static constexpr bool two = kTwo;
   static constexpr bool order = false;  // no descent check (hist_kernel)
+  static constexpr bool pair = false;   // two dense planes (hist_kernel)
   static constexpr int cands = 1;     // candidate counters a warp keeps (one a pass)
   static constexpr int unroll = kTwo ? 2 : 4;   // 16-byte loads a thread and plane a step
   rst::BitRuns hi;  // runs of mask_hi (kTwo only)
@@ -150,11 +157,15 @@ struct PextCount {
 // drops keys. kOrder: the launch also looks for a descent (hist_kernel's
 // order check). kR > 0: r = kR known at compile time, the digits from bit 0
 // of the keys as they are (no offset): every digit at r = 8, whose digit
-// extracts then compile to constant shifts and masks.
-template <int kP, bool kDrop, bool kTwo = false, bool kOrder = false, int kR = 0>
+// extracts then compile to constant shifts and masks. kPair: the two planes
+// are one 64-bit buffer's halves (hist_kernel's pair read).
+template <int kP, bool kDrop, bool kTwo = false, bool kOrder = false, int kR = 0,
+          bool kPair = false>
 struct DigitCount {
   static constexpr bool two = kTwo;
   static constexpr bool order = kOrder;
+  static constexpr bool pair = kPair;
+  static_assert(kTwo || !kPair, "a pair is two planes");
   static constexpr int cands = kP > 0 ? (kTwo ? 2 : 1) * kP : 1;  // candidate counters a warp keeps
   static constexpr int unroll = kTwo ? 2 : 4;   // 16-byte loads a thread and plane a step
   static_assert(!(kTwo && kDrop), "two planes drop no key");
@@ -234,7 +245,9 @@ struct Shape {
 // row y counts range y, in rounds, and a warp whose chunk repeats a key adds
 // that key's counters once for the warp. Count::order: grid row 0 also
 // compares every key with the one before it and sets out[total] to 1 where
-// one is below it.
+// one is below it. Count::pair: lo is the even words of one dense 64-bit
+// buffer and hi (lo + 1) its odd ones, key i's words at lo[2i] and hi[2i]:
+// the read takes a 16-byte load for two keys and splits the words.
 template <class Count, bool kHalf>
 __global__ void __launch_bounds__(kMaxThreads)
 hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, long long n,
@@ -281,17 +294,29 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
     if (p == 0) probe = c;
   };
 
-  // the keys: a head of `lead` words to the 16-byte grid, `quads` 16-byte
-  // groups in chunks of unroll * threads dealt to the row's blocks in turn,
-  // a tail of up to 3 words; the lo plane sets the grid, and hi is read in
-  // 16-byte groups only when it lies the same way
+  // the keys: a head of `lead` keys to the 16-byte grid, `quads` groups of
+  // 4 keys in chunks of unroll * threads dealt to the row's blocks in turn,
+  // a tail of up to 3 keys; the lo plane sets the grid, and hi is read in
+  // 16-byte groups only when it lies the same way. A pair's plane steps S = 2
+  // words from key to key; its group is two 16-byte loads of both planes.
+  constexpr long long S = Count::pair ? 2 : 1;
   const uint32_t lo_words = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(lo) >> 2) & 3u;
-  const long long lead = min(static_cast<long long>((4u - lo_words) & 3u), n);
+  const long long lead = min(static_cast<long long>(((4u - lo_words) & 3u) / S), n);
   const long long quads = (n - lead) >> 2;
-  const bool hi_vec =
-      Count::two && ((static_cast<uint32_t>(reinterpret_cast<uintptr_t>(hi) >> 2) & 3u) == lo_words);
-  const uint4* lo4 = reinterpret_cast<const uint4*>(lo + lead);
+  const bool hi_vec = Count::two && !Count::pair &&
+      ((static_cast<uint32_t>(reinterpret_cast<uintptr_t>(hi) >> 2) & 3u) == lo_words);
+  const uint4* lo4 = reinterpret_cast<const uint4*>(lo + S * lead);
   const uint4* hi4 = reinterpret_cast<const uint4*>(hi + lead);
+  auto group = [&](long long q, uint4& l, uint4& h) {   // group q's keys, each plane's
+    if (Count::pair) {
+      const uint4 a = __ldg(lo4 + 2 * q), b = __ldg(lo4 + 2 * q + 1);
+      l = make_uint4(a.x, a.z, b.x, b.z);
+      h = make_uint4(a.y, a.w, b.y, b.w);
+    } else {
+      l = __ldg(lo4 + q);
+      h = !Count::two ? l : hi_vec ? __ldg(hi4 + q) : load4(hi + lead + 4 * q);
+    }
+  };
   constexpr int kUnroll = Count::unroll;
   // 16-bit counters count in rounds (half_counter.cuh) of kRound chunks
   // (two for one plane, one for two: the faster on the H100, BS), and a last
@@ -307,9 +332,7 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
     const long long q0 = j * chunk + threadIdx.x;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const long long q = q0 + static_cast<long long>(u) * blockDim.x;
-      l[u] = __ldg(lo4 + q);
-      h[u] = !Count::two ? l[u] : hi_vec ? __ldg(hi4 + q) : load4(hi + lead + 4 * q);
+      group(q0 + static_cast<long long>(u) * blockDim.x, l[u], h[u]);
     }
   };
   // the order check (Count::order, row 0): a thread compares the keys of each
@@ -321,8 +344,8 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
   const bool check = Count::order && blockIdx.y == 0;
   bool descent = false;
   auto key_before = [&](long long i, uint32_t& ph, uint32_t& pl) {   // key i - 1, or the least
-    pl = i > 0 ? __ldg(lo + i - 1) : 0u;
-    ph = Count::two && i > 0 ? __ldg(hi + i - 1) : pl;
+    pl = i > 0 ? __ldg(lo + S * (i - 1)) : 0u;
+    ph = Count::two && i > 0 ? __ldg(hi + S * (i - 1)) : pl;
   };
   uint4 l[kUnroll], h[kUnroll];
   if (kHalf && blockIdx.x < whole) load(blockIdx.x, l, h);
@@ -340,12 +363,12 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
       const long long q0 = j * chunk + threadIdx.x;
       const bool lane0 = (threadIdx.x & 31) == 0;
       uint32_t pl[kUnroll], ph[kUnroll];
-      const uint32_t* lp = lo + lead + 4 * q0 - 1;
-      const uint32_t* hp = hi + lead + 4 * q0 - 1;
+      const uint32_t* lp = lo + S * (lead + 4 * q0 - 1);
+      const uint32_t* hp = hi + S * (lead + 4 * q0 - 1);
       const bool first = lead + 4 * q0 == 0;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const long long off = 4LL * u * blockDim.x;
+        const long long off = S * 4LL * u * blockDim.x;
         pl[u] = lane0 && !(first && u == 0) ? __ldg(lp + off) : 0u;
         ph[u] = Count::two && lane0 && !(first && u == 0) ? __ldg(hp + off) : pl[u];
       }
@@ -413,8 +436,8 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
   if (kHalf && chunks != 0) __syncthreads();   // the last round: short chunk, head and tail
   if (static_cast<long long>(blockIdx.x) == whole % gridDim.x) {   // the last, short chunk
     for (long long q = whole * chunk + threadIdx.x; q < quads; q += blockDim.x) {
-      const uint4 l = __ldg(lo4 + q);
-      const uint4 h = Count::two ? (hi_vec ? __ldg(hi4 + q) : load4(hi + lead + 4 * q)) : l;
+      uint4 l, h;
+      group(q, l, h);
       count(h.x, l.x, add);
       count(h.y, l.y, add);
       count(h.z, l.z, add);
@@ -429,7 +452,7 @@ hist_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo, lo
   if (blockIdx.x == 0) {                                           // head and tail
     const long long tail = lead + 4 * quads;
     auto one = [&](long long i) {
-      const uint32_t kh = Count::two ? __ldg(hi + i) : 0u, kl = __ldg(lo + i);
+      const uint32_t kh = Count::two ? __ldg(hi + S * i) : 0u, kl = __ldg(lo + S * i);
       count(kh, kl, add);
       if (check) {
         uint32_t ph, pl;
@@ -518,8 +541,9 @@ int launch_digit(const void* keys, long long n, uint32_t offset, int shift, int 
 // digit's histogram, lo's first, and the slot after them (kOrder: 1 where a
 // key is below the one before it). The passes are compiled in for 2 to 4
 // digits a plane (r = 8 to 18), and at r = 8, K0's digits, r too; the
-// run-time digit loop takes the rest (r < 8).
-template <bool kTwo, bool kOrder>
+// run-time digit loop takes the rest (r < 8). kPair: the two planes are a
+// pair, at r = 8 only.
+template <bool kTwo, bool kOrder, bool kPair = false>
 int launch_live(const void* hi, const void* lo, long long n, int bits, int passes,
                 const Shape& sh, void* out, void* stream) {
   const int total = (kTwo ? 2 * passes : passes) << bits;
@@ -527,7 +551,8 @@ int launch_live(const void* hi, const void* lo, long long n, int bits, int passe
   auto go = [&](const auto& count) {
     return launch_hist(hi, lo, n, count, total, sh, out, stream, total + 1);
   };
-  if (bits == 8) return go(DigitCount<4, false, kTwo, kOrder, 8>{0u, 0u, 0, 8, 4, dm});
+  if (bits == 8) return go(DigitCount<4, false, kTwo, kOrder, 8, kPair>{0u, 0u, 0, 8, 4, dm});
+  if constexpr (kPair) return static_cast<int>(cudaErrorInvalidValue);
   switch (passes) {
     case 2: return go(DigitCount<2, false, kTwo, kOrder>{0u, 0u, 0, bits, 2, dm});
     case 3: return go(DigitCount<3, false, kTwo, kOrder>{0u, 0u, 0, bits, 3, dm});
@@ -562,12 +587,24 @@ extern "C" int rst_hist(const void* keys, long long n, unsigned int offset, int 
 // digit first across the planes, and one int32 slot after them: with
 // `order`, 1 where some key is below the one before it in unsigned (hi, lo)
 // order, else 0. `out` holds planes * passes * 2^bits + 1 words, zeroed by
-// the launch's memset.
+// the launch's memset. `pair`: two planes at r = 8 that are one dense 64-bit
+// buffer's halves, lo 8-byte aligned and hi the word after it (key i at
+// lo[2i], hi[2i]); nothing else is taken for it.
 extern "C" int rst_live_digits(const void* hi, const void* lo, long long n, int planes,
-                               int bits, int order, void* out, RST_HIST_SHAPE_PARAMS,
-                               void* stream) {
+                               int bits, int order, int pair, void* out,
+                               RST_HIST_SHAPE_PARAMS, void* stream) {
   if (planes < 1 || planes > 2 || bits < 1 || bits > 18) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pair) {
+    if (planes != 2 || bits != 8 || reinterpret_cast<uintptr_t>(lo) % 8 != 0 ||
+        static_cast<const uint32_t*>(hi) != static_cast<const uint32_t*>(lo) + 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const Shape sh = RST_HIST_SHAPE;
+    const int passes = 4;
+    return order ? launch_live<true, true, true>(hi, lo, n, bits, passes, sh, out, stream)
+                 : launch_live<true, false, true>(hi, lo, n, bits, passes, sh, out, stream);
   }
   const int passes = (32 + bits - 1) / bits;
   if ((static_cast<long long>(planes * passes) << bits) > (1 << 19)) {

@@ -46,9 +46,9 @@ _SIGNATURES = {
     # keys, n, offset, shift, bits, drop_ge, hist, shape, stream
     "rst_hist": (_P, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                  ctypes.c_ulonglong, _P, *_HIST_SHAPE, _P),
-    # hi, lo, n, planes, bits, order, out, shape, stream
+    # hi, lo, n, planes, bits, order, pair, out, shape, stream
     "rst_live_digits": (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        _P, *_HIST_SHAPE, _P),
+                        ctypes.c_int, _P, *_HIST_SHAPE, _P),
     # cum, bins, n, offset, out, stream
     "rst_regen": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_uint, _P, _P),
     # keys, n, mask, hist, shape, stream
@@ -76,9 +76,10 @@ _SIGNATURES = {
                         ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _P),
     # keys, in planes (a null: the position), out planes, planes, wide mask, n, shift,
-    # bits, tile, starts, status, epoch, stream
+    # bits, tile, starts, status, epoch, pair (1 in, 2 out), stream
     "rst_k0_sweep": (_P, _PP, _PP, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int, _P),
+                     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                     ctypes.c_int, _P),
     # (planes, n) in, (planes, n) out, planes, keys, n, blocks, trip words, words, stream
     "rst_bitonic": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                     _P, ctypes.c_int, _P),

@@ -19,6 +19,7 @@ hist                    csrc/hist.cu    K1 ``_hist_kernel`` (one digit)
 hist_multi              csrc/hist.cu    K1 ``_hist_kernel`` (every digit)
 live_digits             csrc/hist.cu    K1 ``_hist_kernel`` (every digit of one
                                         or two planes, with an order flag)
+(live_digits_pair)      csrc/hist.cu    the same, two planes read as a pair
 hist_pext               csrc/hist.cu    K2 ``_hist_pext_kernel``
 hist_pext2              csrc/hist.cu    K3 ``_hist_pext2_kernel``
 regen                   csrc/regen.cu   K4 ``_regen_kernel``
@@ -34,6 +35,8 @@ bitonic                 csrc/bitonic.cu K12 ``vmem_sort._bitonic_kernel``
 lsd_hist                csrc/lsd.cu     L1, no Pallas kernel (LSD pass)
 lsd_scatter             csrc/lsd.cu     L2, no Pallas kernel (LSD pass)
 k0_sweep                csrc/lsd.cu     K0's pass, no Pallas kernel (``lax.sort``)
+(k0_sweep_pair_in)      csrc/lsd.cu     the same, its key planes read as a pair
+(k0_sweep_pair_out)     csrc/lsd.cu     the same, its key planes written as one
 lsd_sort                csrc/lsd.cu,    K0, no Pallas kernel: ``lax.sort`` of one
                         csrc/hist.cu    plane (``hw_engine``: K1 + sweeps)
 dma_copy                csrc/sol.cu     E1 ``scripts/exp_sol_probe.py``
@@ -55,9 +58,15 @@ counts the calls of K0, the port's sorter of one or two planes on the card
 digit histograms and the presorted guard's flag in one read) and
 ``k0_sweep`` (L2's staged form with a decoupled look-back in place of L1
 and the scan) once a live digit; it replaces ``lax.sort``, which is no
-Pallas kernel either. E1 and E2 are
-the kernels of the speed-of-light scripts (:mod:`..scripts`): a staged
-device-memory copy and the spread step of the two-level MSD sort. K13 is the
+Pallas kernel either. K0's two key planes may be a *pair*, the two halves
+of one dense 64-bit buffer (:func:`.kdf.halves`): ``live_digits`` and the
+first live ``k0_sweep`` read an ascending u64 key where it lies, and the
+last live ``k0_sweep`` writes both halves into one fresh buffer; the
+parenthesized counters count those launches among their kernel's. Every
+other wrapper refuses a pair, as it refuses any plane that is not dense.
+E1 and E2 are the kernels of the speed-of-light scripts (:mod:`..scripts`):
+a staged device-memory copy and the spread step of the two-level MSD sort.
+K13 is the
 all-to-all of the distributed tier (:mod:`..parallel.rdma`), one launch a
 rank of the mesh, each writing its rows into every rank's output. The source
 notes in ``csrc/`` say what bounds each kernel on the card.
@@ -73,7 +82,7 @@ import torch
 
 from ..utils.timing import LAUNCH, span
 from . import probes
-from .kdf import INT32_MIN, i32
+from .kdf import INT32_MIN, halves, i32, pair_of
 
 __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts",
            "use_gpu_routes", "pick_window", "MAX_BITS", "HIST_MAX_BITS",
@@ -105,7 +114,8 @@ LAUNCHES = {"hist": 0, "hist_multi": 0, "live_digits": 0, "regen": 0, "regen_win
             "hist_pext2": 0, "regen_pdep2": 0, "regen_pdep2_windowed": 0,
             "whist": 0, "whist_f32": 0, "whist_f32_counts": 0,
             "bitonic": 0, "lsd_hist": 0, "lsd_scatter": 0, "k0_sweep": 0, "lsd_sort": 0,
-            "dma_copy": 0, "msd_spread": 0, "rdma_exchange": 0}
+            "dma_copy": 0, "msd_spread": 0, "rdma_exchange": 0, "live_digits_pair": 0,
+            "k0_sweep_pair_in": 0, "k0_sweep_pair_out": 0}
 
 MAX_BITS = 17            # widest counting domain the kernels take (2^17 bins)
 HIST_MAX_BITS = 18       # widest K1 digit: extras.bincount sends up to 2^18 bins
@@ -384,8 +394,15 @@ def live_digits_fit(planes: int, radix_bits: int) -> bool:
             and planes * _num_passes(radix_bits) << radix_bits <= _HIST_MAX_COUNTERS)
 
 
-def _check_live(words: Sequence[torch.Tensor], radix_bits: int) -> None:
-    if len(words) == 2:
+def _check_live(words: Sequence[torch.Tensor], radix_bits: int) -> bool:
+    """Raise on what ``rst_live_digits`` refuses; True where the two planes
+    are a pair (:func:`.kdf.pair_of`), taken at K0's 8-bit digits only."""
+    pair = len(words) == 2 and pair_of(*words) is not None
+    if pair:
+        if radix_bits != K0_SWEEP_BITS or words[0].shape[0] >= 1 << 31:
+            raise ValueError(f"live_digits: a pair is read at {K0_SWEEP_BITS}-bit digits, "
+                             "of at most 2^31 - 1 keys")
+    elif len(words) == 2:
         _check_pair("live_digits", *words)
     elif len(words) == 1:
         _check_plane("live_digits", words[0])
@@ -393,6 +410,7 @@ def _check_live(words: Sequence[torch.Tensor], radix_bits: int) -> None:
         raise ValueError(f"live_digits: {len(words)} planes of {radix_bits}-bit digits; "
                          f"one or two planes of at most {_HIST_MAX_COUNTERS} counters "
                          "are taken")
+    return pair
 
 
 def live_digits_plain(words: Sequence[torch.Tensor], radix_bits: int,
@@ -418,26 +436,29 @@ def live_digits(words: Sequence[torch.Tensor], radix_bits: int, order: bool = Tr
     ``order`` the presorted guard's flag from the same read:
     ((digits, 2^radix_bits) int32, 0-d int32 that is 1 where some key is
     below the one before it, else 0; None without ``order``). On the card
-    both are views of one buffer that the launch zeroes with one memset."""
+    both are views of one buffer that the launch zeroes with one memset.
+    Two planes may be a pair (:func:`.kdf.halves`) at 8-bit digits: the
+    launch reads the 64-bit words where they lie, 16 bytes for two keys."""
     words = tuple(words)
-    _check_live(words, radix_bits)
+    pair = _check_live(words, radix_bits)
     if not use_gpu_routes(words[0]):
         return live_digits_plain(words, radix_bits, order)
-    out = _live_launch(words, radix_bits, order)
+    out = _live_launch(words, radix_bits, order, pair=pair)
     LAUNCHES["live_digits"] += 1
+    LAUNCHES["live_digits_pair"] += pair
     return out
 
 
-def _live_launch(words: tuple, radix_bits: int, order: bool, shape=None):
+def _live_launch(words: tuple, radix_bits: int, order: bool, shape=None, pair=False):
     """One ``rst_live_digits`` launch (``hist_multi``'s and
     :func:`live_digits`'), in ``shape`` or the rule's: the (digits,
     2^radix_bits) view and the 0-d flag (None without ``order``), views of
-    one buffer."""
+    one buffer; ``pair``: the two planes read as a pair."""
     total = len(words) * _num_passes(radix_bits) << radix_bits
     out = torch.empty(total + 1, dtype=torch.int32, device=words[0].device)
     _launch("rst_live_digits", words[0].device, words[0].data_ptr(), words[-1].data_ptr(),
-            words[0].shape[0], len(words), radix_bits, int(bool(order)), out.data_ptr(),
-            *(shape or hist_shape(total)))
+            words[0].shape[0], len(words), radix_bits, int(bool(order)), int(pair),
+            out.data_ptr(), *(shape or hist_shape(total)))
     return out[:total].view(-1, 1 << radix_bits), out[total] if order else None
 
 
@@ -894,6 +915,10 @@ def lsd_scatter_shape(radix_bits: int, tile: int):
 
 def _check_lsd(name: str, w: torch.Tensor, shift: int, radix_bits: int, tile: int) -> None:
     _check_plane(name, w)
+    _check_lsd_digit(name, shift, radix_bits, tile)
+
+
+def _check_lsd_digit(name: str, shift: int, radix_bits: int, tile: int) -> None:
     if not 1 <= radix_bits <= LSD_MAX_BITS:
         raise ValueError(f"{name}: radix_bits must be in [1, {LSD_MAX_BITS}]")
     if not 0 <= shift < 32:
@@ -1042,9 +1067,24 @@ def k0_sweep_status(n: int, device) -> torch.Tensor:
 
 def _check_sweep(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
                  radix_bits: int, tile: int, starts: torch.Tensor, position: bool,
-                 index_dtype) -> None:
-    _check_lsd("k0_sweep", w, shift, radix_bits, tile)
-    _check_planes("k0_sweep", planes, w.shape[0], w.device)
+                 index_dtype, pair_out: bool) -> bool:
+    """Raise on what the sweep refuses; True where ``planes[0]`` and
+    ``planes[1]`` are a pair (:func:`.kdf.pair_of`), read as one."""
+    planes = tuple(planes)
+    pair_in = len(planes) >= 2 and pair_of(planes[0], planes[1]) is not None
+    if pair_in or pair_out:
+        if len(planes) < 2 or not any(w is p for p in planes[:2]):
+            raise ValueError("k0_sweep: a pass that reads or writes a pair takes its digit "
+                             "from one of the pair's planes, planes 0 and 1")
+        if pair_out and index_dtype == torch.int64 and not position and len(planes) == 2:
+            raise ValueError("k0_sweep: planes 0 and 1 written as a pair, not the index")
+    if pair_in:             # the pair's planes, as pair_of took them
+        if w.shape[0] >= 1 << 31:
+            raise ValueError("k0_sweep: at most 2^31 - 1 elements")
+    else:
+        _check_plane("k0_sweep", w)
+    _check_lsd_digit("k0_sweep", shift, radix_bits, tile)
+    _check_planes("k0_sweep", planes[2:] if pair_in else planes, w.shape[0], w.device)
     if not 1 <= len(planes) + bool(position) <= K0_SWEEP_MAX_PLANES:
         raise ValueError(f"k0_sweep: 1 to {K0_SWEEP_MAX_PLANES} planes a launch, "
                          "the position among them")
@@ -1058,19 +1098,33 @@ def _check_sweep(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
     if index_dtype == torch.int64 and not position and planes[-1] is w:
         raise ValueError("k0_sweep: the last plane, written as int64, is the index, "
                          "not the digit plane")
+    return pair_in
+
+
+def _sweep_out(n: int, dtypes, pair_out: bool, device) -> list:
+    """The pass's output planes; ``pair_out``: the first two the halves of
+    one fresh 64-bit buffer (:func:`.kdf.halves`)."""
+    out = [torch.empty(n, dtype=dt, device=device) for dt in dtypes[2 * pair_out:]]
+    if pair_out:
+        out[:0] = halves(torch.empty(n, dtype=torch.int64, device=device))
+    return out
 
 
 def k0_sweep_plain(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
                    radix_bits: int, tile: int, starts: torch.Tensor,
-                   position: bool = False, index_dtype=torch.int32) -> tuple:
+                   position: bool = False, index_dtype=torch.int32,
+                   pair_out: bool = False) -> tuple:
     """One stable pass: key i with digit d of ``w`` (the ``radix_bits``
     bits at ``shift``) in tile t goes to ``starts[d]`` + (keys of digit d
     in the tiles before t) + (its rank among the keys of d in tile t, from a
     stable sort, as :func:`lsd_scatter_plain`), and every plane with it.
     ``position``: one more plane, the index as each key's position.
     ``index_dtype`` int64: the last plane (the index) comes out as int64,
-    its words zero-extended."""
-    _check_sweep(w, planes, shift, radix_bits, tile, starts, position, index_dtype)
+    its words zero-extended. ``planes[0]`` and ``planes[1]`` may be a pair
+    (:func:`.kdf.halves`), read where they lie; ``pair_out``: they come out
+    as the halves of one fresh 64-bit buffer (so :func:`.kdf.join64` of
+    them is that buffer)."""
+    _check_sweep(w, planes, shift, radix_bits, tile, starts, position, index_dtype, pair_out)
     n, bins = w.shape[0], 1 << radix_bits
     tiles = -(-n // tile)
     g = _tile_ids(n, tile, bins, probes.shift_right(w, shift) & (bins - 1))
@@ -1085,26 +1139,27 @@ def k0_sweep_plain(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
     planes = list(planes)
     if position:
         planes.append(torch.arange(n, dtype=torch.int32, device=w.device))
-    out = []
-    for i, p in enumerate(planes):
-        if index_dtype == torch.int64 and i == len(planes) - 1:
-            p = p.long() & 0xFFFFFFFF
-        o = torch.empty_like(p)
-        o[dest] = p
-        out.append(o)
+    wide = index_dtype == torch.int64
+    out = _sweep_out(n, [torch.int32] * (len(planes) - 1) + [index_dtype], pair_out, w.device)
+    for i, (p, o) in enumerate(zip(planes, out)):
+        o[dest] = p.long() & 0xFFFFFFFF if wide and i == len(planes) - 1 else p
     return tuple(out)
 
 
 def k0_sweep(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
              radix_bits: int, tile: int, starts: torch.Tensor, status: torch.Tensor,
-             epoch: int, position: bool = False, index_dtype=torch.int32) -> tuple:
+             epoch: int, position: bool = False, index_dtype=torch.int32,
+             pair_out: bool = False) -> tuple:
     """The contract of :func:`k0_sweep_plain` in one launch: all planes of
     the pass, the look-back over ``status`` (:func:`k0_sweep_status`, the
     call's buffer; ``epoch`` the pass's number in the call, from 1) in
     place of per-tile histograms and their scan. Built for 8-bit digits and
     tiles of 8,192 keys only: anything else raises, as does a launch that
-    fails; nothing falls back."""
-    _check_sweep(w, planes, shift, radix_bits, tile, starts, position, index_dtype)
+    fails; nothing falls back. A pair in (``planes[0]``, ``planes[1]``)
+    and ``pair_out`` each take their own instance of the kernel (one
+    8-byte access a key), chosen at the launch from what the planes are."""
+    pair_in = _check_sweep(w, planes, shift, radix_bits, tile, starts, position, index_dtype,
+                           pair_out)
     if radix_bits != K0_SWEEP_BITS or tile != K0_SWEEP_TILE:
         raise ValueError(f"k0_sweep: built for {K0_SWEEP_BITS}-bit digits and tiles of "
                          f"{K0_SWEEP_TILE} keys")
@@ -1118,27 +1173,31 @@ def k0_sweep(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
         raise ValueError("k0_sweep: epoch counts the call's passes from 1")
     if not use_gpu_routes(w):
         return k0_sweep_plain(w, planes, shift, radix_bits, tile, starts, position,
-                              index_dtype)
+                              index_dtype, pair_out)
     return _k0_sweep_launch(w, planes, shift, radix_bits, tile, starts, status, epoch,
-                            position, index_dtype)
+                            position, index_dtype, pair_in, pair_out)
 
 
 def _k0_sweep_launch(w: torch.Tensor, planes: Sequence[torch.Tensor], shift: int,
                      radix_bits: int, tile: int, starts: torch.Tensor, status: torch.Tensor,
-                     epoch: int, position: bool, index_dtype) -> tuple:
+                     epoch: int, position: bool, index_dtype, pair_in: bool = False,
+                     pair_out: bool = False) -> tuple:
     """The sweep's launch: a null input pointer for the position, the last
-    output int64 where ``index_dtype`` asks for it."""
+    output int64 where ``index_dtype`` asks for it, the pair's forms."""
     n = w.shape[0]
     ins = list(planes) + ([None] if position else [])
     dtypes = [torch.int32] * (len(ins) - 1) + [index_dtype]
-    out = [torch.empty(n, dtype=dt, device=w.device) for dt in dtypes]
+    out = _sweep_out(n, dtypes, pair_out, w.device)
     wide = 1 << (len(out) - 1) if index_dtype == torch.int64 else 0
     if n == 0:
         return tuple(out)
     in_ptrs = (ctypes.c_void_p * len(ins))(*(None if p is None else p.data_ptr() for p in ins))
     _launch("rst_k0_sweep", w.device, w.data_ptr(), in_ptrs, _pointers(out), len(out), wide,
-            n, shift, radix_bits, tile, starts.data_ptr(), status.data_ptr(), int(epoch))
+            n, shift, radix_bits, tile, starts.data_ptr(), status.data_ptr(), int(epoch),
+            int(pair_in) | 2 * int(pair_out))
     LAUNCHES["k0_sweep"] += 1
+    LAUNCHES["k0_sweep_pair_in"] += pair_in
+    LAUNCHES["k0_sweep_pair_out"] += pair_out
     return tuple(out)
 
 

@@ -15,7 +15,10 @@ packed into two words) take up to eight passes, each moving both planes.
 ``LSD_MIN_KEYS`` keys for one plane and ``K0_TWO_PLANE_MIN_KEYS`` for two; a
 kernel that fails to build or launch raises, and the call never falls back.
 Every 1-D sorter call of the port comes through this module, so each sort
-and argsort of one or two planes past its gate takes K0.
+and argsort of one or two planes past its gate takes K0. The planes that
+``api.sort`` and ``api.argsort`` hand to K0 may be a pair (the two halves of
+one 64-bit buffer, :func:`.kdf.halves`), which they make only where
+:func:`sorter_route` picks K0.
 
 ``torch.sort`` sorts the rest (ROADMAP.md, port queue item 2): keys of
 three or more planes, shorter planes, and CPU tensors, where it is K0's

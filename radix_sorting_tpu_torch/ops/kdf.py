@@ -40,7 +40,7 @@ turns a carrier back into numpy, bit for bit. Little-endian hosts only (the
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,8 @@ __all__ = [
     "raw_bits",
     "split64",
     "join64",
+    "halves",
+    "pair_of",
     "gather",
     "SIGNED_VIEW",
     "encode64_np",
@@ -210,13 +212,46 @@ def split64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def join64(hi: torch.Tensor, lo: torch.Tensor, dtype) -> torch.Tensor:
     """Inverse of :func:`split64`: a 64-bit tensor of ``dtype``.
 
-    Stacked as rows, then one transposing copy: 0.49 ms at 40M keys, where
-    ``torch.stack(dim=1)`` takes 0.93 (H100 80GB HBM3, 700 W). The copy is
-    flattened before the 64-bit view: ``contiguous()`` of one (1, 2) pair
-    keeps the transposed strides, which the view refuses (F2).
+    Where ``hi`` and ``lo`` are the two halves of one dense buffer (a pair,
+    :func:`pair_of`, as K0's last pass writes them), that buffer as a view,
+    with no copy. Other planes are stacked as rows, then one transposing
+    copy: 0.49 ms at 40M keys, where ``torch.stack(dim=1)`` takes 0.93
+    (H100 80GB HBM3, 700 W). The copy is flattened before the 64-bit view:
+    ``contiguous()`` of one (1, 2) pair keeps the transposed strides, which
+    the view refuses (F2).
     """
+    base = pair_of(hi, lo)
+    if base is not None:
+        return base.view(dtype)
     pairs = torch.stack([lo, hi]).t().reshape(-1)
     return pairs.view(torch.int64).view(dtype)
+
+
+def halves(buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pair layout: the ``(hi, lo)`` int32 halves of a dense 1-D 64-bit
+    tensor, as views with a stride of 2 (no copy). lo is the buffer's even
+    words and hi its odd ones, so element i's low word is column 0, as
+    :func:`split64` reads it. K0 reads and writes such a pair in place of
+    two dense planes (:func:`pair_of`); every other wrapper refuses it."""
+    v = buf.view(torch.int32)
+    return v[1::2], v[0::2]
+
+
+def pair_of(hi: torch.Tensor, lo: torch.Tensor) -> Optional[torch.Tensor]:
+    """The dense int64 buffer whose :func:`halves` ``hi`` and ``lo`` are,
+    as a view, or None. Exactly the pair: 1-D int32 views of one storage
+    and length, a stride of 2 words, lo on an 8-byte boundary and hi the
+    word after it; no other stride, order or offset."""
+    # the stride first: dense planes, K0's every other pass, fail at once
+    if not torch.is_tensor(hi) or hi.stride() != (2,) or not torch.is_tensor(lo) \
+            or lo.stride() != (2,):
+        return None
+    if hi.dtype != torch.int32 or lo.dtype != torch.int32 or hi.shape != lo.shape \
+            or hi.device != lo.device or lo.numel() == 0 or lo.data_ptr() % 8 \
+            or hi.data_ptr() != lo.data_ptr() + 4 \
+            or hi.untyped_storage().data_ptr() != lo.untyped_storage().data_ptr():
+        return None
+    return torch.as_strided(lo, (2 * lo.shape[0],), (1,)).view(torch.int64)
 
 
 # same-width signed views: torch indexes few of its unsigned dtypes
@@ -326,7 +361,7 @@ def unpack_bytes_be(planes: Sequence[torch.Tensor], W: int) -> torch.Tensor:
 
 
 def encode(x: torch.Tensor, descending: bool = False,
-           dtype=None) -> Tuple[torch.Tensor, ...]:
+           dtype=None, pair: bool = False) -> Tuple[torch.Tensor, ...]:
     """Encode keys into order-preserving int32 word planes, most significant
     first: ``(w,)`` up to 32 bits, ``(hi, lo)`` for 64-bit keys,
     ``ceil(W/4)`` planes for byte strings.
@@ -334,7 +369,10 @@ def encode(x: torch.Tensor, descending: bool = False,
     ``dtype`` names the key dtype when ``x`` is a carrier (byte strings,
     int4/uint4); it defaults to ``x.dtype``. Narrow keys are zero-extended,
     so only the low ``key_bits`` of ``w`` are live. ``descending=True``
-    complements the live bits (`README.md:566-574`).
+    complements the live bits (`README.md:566-574`). ``pair``: ascending
+    unsigned 64-bit keys, whose KDF is the identity, come as the
+    :func:`halves` of ``x`` itself, with no copy, for K0 to read in place
+    (``api`` asks for it only where the sorter is K0).
     """
     dtype = _canonical_dtype(x.dtype if dtype is None else dtype)
     bits, k = _info(dtype)
@@ -343,6 +381,8 @@ def encode(x: torch.Tensor, descending: bool = False,
         words = pack_bytes_be(x)
         return complement(words) if descending else words
     if bits == 64:
+        if pair and k == "u" and not descending and x.numel():
+            return halves(x.contiguous())
         hi, lo = split64(x)
         if k == "i":
             hi = hi ^ INT32_MIN

@@ -31,6 +31,15 @@ read, and the flag leads the same host read, so an ordered input launches
 no pass and costs one read of the keys. Three or more planes take one
 ``hist_multi`` a plane.
 
+K0's two planes may come as a pair, the two halves of one dense 64-bit
+buffer (:func:`.kdf.halves`: ``api.sort`` and ``api.argsort`` encode an
+ascending u64 key so, with no copy). The live-digit read and the first live
+pass then read the caller's words where they lie, the last live pass
+writes the sorted keys as the halves of one fresh buffer, which
+:func:`.kdf.join64` returns as it is, and the passes between take dense
+planes; where no pass runs, the pair is copied once, so no result is a view
+of the input.
+
 The JAX engine pads n to a multiple of its chunk with all-ones sentinels;
 the kernels here take a short last tile instead. The output of a stable sort
 is unique, so neither the padding nor the tile changes a bit of it.
@@ -45,7 +54,7 @@ import torch
 from ..utils.timing import K0, K0_PASS, LIVE_DIGITS, READ, span
 from . import cuda_kernels
 from .histogram import chunked_digit_histogram
-from .kdf import gather
+from .kdf import gather, halves, pair_of
 from .scan import exclusive_scan, scatter_bases
 
 __all__ = ["sort_words_lsd", "sort_words_k0", "lsd_tile", "live_digit_flags"]
@@ -116,7 +125,9 @@ def sort_words_k0(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor
     ``guard``: the presorted early exit (`radix_sort.hpp:60-62`), its flag
     found by the live digits' launch and read with them in one host read.
     With no live digit, or an ordered input under ``guard``, no pass runs
-    and the index is one ``torch.arange``.
+    and the index is one ``torch.arange``. ``words`` may be a pair
+    (:func:`.kdf.halves`), read where it lies; the sorted words are then a
+    pair of a fresh buffer.
     """
     if index_dtype not in (None, torch.int32, torch.int64):
         raise ValueError("sort_words_k0: the index is int32 or int64")
@@ -136,9 +147,14 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
     n, device = int(words[0].shape[0]), words[0].device
     identity = lambda: None if index_dtype is None else torch.arange(
         n, dtype=index_dtype, device=device)
+    # K0 reads a pair (two halves of one 64-bit buffer) where it lies and
+    # writes its last pass's keys as one; every other read takes dense planes
+    pair = sweep and len(words) == 2 and pair_of(*words) is not None
+    unsorted = lambda: halves(pair_of(*words).clone()) if pair else words  # noqa: E731
     if n <= 1:
-        return words, payloads, identity()
-    words = tuple(w.contiguous() for w in words)      # the kernels read dense planes
+        return unsorted(), payloads, identity()
+    if not pair:
+        words = tuple(w.contiguous() for w in words)      # the kernels read dense planes
     digits_per_word = -(-32 // radix_bits)
     live = [True] * (digits_per_word * len(words))
     if skip_trivial:
@@ -153,7 +169,7 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
         with span(READ):
             read = flags.tolist()                 # the call's one host read
         if guard and not read.pop(0):
-            return words, payloads, identity()
+            return unsorted(), payloads, identity()
         live = read
     rides = [p.ndim == 1 and p.element_size() == 4 for p in payloads]
     indexed = index_dtype is not None or not all(rides)
@@ -165,6 +181,8 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
     if indexed and not sweep:
         planes.append(torch.arange(n, dtype=torch.int32, device=device))
     passes = [p for p in range(digits_per_word * len(words)) if live[p]]
+    if not passes:
+        planes[:len(words)] = unsorted()
     for e, p in enumerate(passes, 1):
         w = planes[len(words) - 1 - p // digits_per_word]
         shift = (p % digits_per_word) * radix_bits
@@ -173,7 +191,8 @@ def _sort(words, payloads, radix_bits: int, tile: int, skip_trivial: bool, guard
                 planes = list(cuda_kernels.k0_sweep(
                     w, planes, shift, radix_bits, tile, starts[p], status, e,
                     position=indexed and e == 1,
-                    index_dtype=wide if indexed and e == len(passes) else torch.int32))
+                    index_dtype=wide if indexed and e == len(passes) else torch.int32,
+                    pair_out=pair and e == len(passes)))
         else:
             bases = scatter_bases(chunked_digit_histogram(w, shift, radix_bits, tile))
             planes = list(cuda_kernels.lsd_scatter(w, planes, shift, radix_bits, tile, bases))

@@ -20,6 +20,7 @@ import torch
 
 import radix_sorting_tpu_torch as rt
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
+from radix_sorting_tpu_torch.ops import kdf
 from radix_sorting_tpu_torch.ops.kdf import i32
 
 pytestmark = pytest.mark.cuda
@@ -599,6 +600,28 @@ def test_live_digits_finds_a_descent_at_every_edge_of_the_read(cuda, planes, off
     assert words[-1].data_ptr() % 16 == 4 * offsets[1]
     assert _live_matches_plain(words, bits) == (at is not None)
     _live_matches_plain(words, bits, order=False)
+
+
+@pytest.mark.parametrize("where", ["in order", "key 1", "head to the groups", "warp edge",
+                                   "a thread's next group", "chunk edge", "short chunk",
+                                   "inside the short chunk", "tail", "last key"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one key in"])
+def test_live_digits_pair_finds_a_descent_at_every_edge_of_the_read(cuda, offset, where):
+    """The pair read (two planes as the halves of one 64-bit buffer, r = 8)
+    with one descent at each edge of the read, the buffer on the 16-byte
+    grid or one key off it (a head of one key): the plain version's flag
+    and histograms, and the dense planes' read of the same keys."""
+    at = _live_descent_at(where, 2, offset)
+    hi, lo = _live_planes(2, at, (0, 0), cuda)
+    words = torch.zeros(2 * (LIVE_N + 1), dtype=torch.int32, device=cuda)
+    keys = words[2 * offset:2 * (offset + LIVE_N)]
+    keys[0::2], keys[1::2] = lo, hi
+    pair = kdf.halves(keys.view(torch.int64))
+    assert pair[1].data_ptr() % 16 == 8 * offset
+    assert _live_matches_plain(pair, 8) == (at is not None)
+    _live_matches_plain(pair, 8, order=False)
+    got, dense = ck.live_digits(pair, 8), ck.live_digits((hi, lo), 8)
+    assert torch.equal(got[0], dense[0]) and int(got[1]) == int(dense[1])
 
 
 @pytest.mark.parametrize("case", ORDER_CASES)
@@ -1347,21 +1370,34 @@ def _u64_keys(n, seed, dtype, device, ties=0):
     return b.view(dtype), reference.stable_order(order.view(torch.uint64))
 
 
+@pytest.mark.parametrize("descending", [False, True], ids=["ascending", "descending"])
 @pytest.mark.parametrize("dtype", [torch.uint64, torch.int64, torch.float64], ids=str)
-def test_40m_64_bit_sort_runs_k0_alone(cuda, sort_spy, dtype):
+def test_40m_64_bit_sort_runs_k0_alone(cuda, sort_spy, dtype, descending):
     """A default sort of 40M 64-bit keys: K0 over two planes, eight passes,
-    no torch.sort; bit for bit the plain reference's."""
+    no torch.sort; bit for bit the plain reference's, the input unchanged.
+    An ascending u64 key enters K0 as a pair and leaves it as one (the
+    live-digit read and the first pass read the input where it lies, the
+    last pass writes the output): one launch of each pair form; the signed,
+    float and descending keys none."""
     x, order = _u64_keys(40_000_000, 41, dtype, cuda)
+    if descending:
+        order = order.flip(0)       # keys alone: ties are equal words
     want = x.view(torch.int64)[order]
+    kept = x.clone()
     before = sort_spy[0]
     rt.reset_launch_counts()
-    got = rt.sort(x)
+    got = rt.sort(x, config=rt.SortConfig(descending=descending))
     counts = rt.launch_counts()
     assert sort_spy[0] == before
     assert counts["lsd_sort"] == 1 and counts["k0_sweep"] == 8 and counts["live_digits"] == 1
     assert counts["hist_multi"] == 0
     assert counts["lsd_hist"] == counts["lsd_scatter"] == 0
+    pair = int(dtype == torch.uint64 and not descending)
+    assert [counts[k] for k in ("live_digits_pair", "k0_sweep_pair_in",
+                                "k0_sweep_pair_out")] == [pair] * 3
     assert got.dtype == dtype and torch.equal(got.view(torch.int64), want)
+    assert torch.equal(x.view(torch.int64), kept.view(torch.int64))
+    assert got.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
 
 
 @pytest.mark.parametrize("where", ["below the gate", "at the gate", "above the gate"])
@@ -1385,6 +1421,148 @@ def test_u64_argsort_and_sort_pairs_around_the_two_plane_gate(cuda, sort_spy, wh
     assert torch.equal(perm32.view(torch.int32).long(), order) and torch.equal(perm64, order)
     assert torch.equal(sk.view(torch.int64), x.view(torch.int64)[order])
     assert torch.equal(sv.view(torch.int32), pay.view(torch.int32)[order])
+
+
+# K0's pair layout (kdf.halves): the two key planes as the halves of one
+# 64-bit buffer, read where they lie by live_digits and a first pass,
+# written as one by a last pass; each form against its plain version
+
+PAIR_N = [(1 << 23) + 7, 40_000_000]
+
+
+def _pair_keys(n, seed, device, ties=7, offset=0):
+    """``n`` uniform u64 keys as an int64 tensor, every ``ties``-th equal
+    to key 3, and their (hi, lo) halves (a pair); ``offset``: the keys a
+    slice that many keys into a fresh buffer (one: 8 bytes off the 16-byte
+    grid)."""
+    buf = torch.randint(-(1 << 31), 1 << 31, (2 * (n + offset),), dtype=torch.int32,
+                        device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed))
+    buf = buf.view(torch.int64)[offset:]
+    assert buf.data_ptr() % 16 == 8 * (offset % 2)
+    buf[::ties] = buf[3]
+    return buf, kdf.halves(buf)
+
+
+PAIR_AT = pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one key in"])
+
+
+@PAIR_AT
+@pytest.mark.parametrize("order", [True, False], ids=["flag", "no flag"])
+@pytest.mark.parametrize("keys", ["uniform", "ordered"])
+@pytest.mark.parametrize("n", PAIR_N)
+def test_live_digits_reads_a_pair_as_the_dense_planes(cuda, n, keys, order, offset):
+    """K1's pair read: 16 bytes for two keys, the same histograms, digit
+    order and descent flag as its plain version and as the dense two-plane
+    read of the same keys; one key in, the read's head takes the first key
+    alone."""
+    buf, pair = _pair_keys(n, n, cuda, offset=offset)
+    if keys == "ordered":                       # ascending as unsigned words
+        buf.copy_(torch.sort(buf ^ (-(1 << 63))).values ^ (-(1 << 63)))
+    before = ck.launch_counts()
+    got = _live_matches_plain(pair, 8, order)
+    after = ck.launch_counts()
+    assert after["live_digits_pair"] == before["live_digits_pair"] + 1
+    dense = kdf.split64(buf)
+    hists, flag = ck.live_digits(dense, 8, order)
+    assert torch.equal(hists, ck.live_digits(pair, 8, order)[0])
+    if order:
+        assert int(flag) == got
+
+
+@PAIR_AT
+@pytest.mark.parametrize("form", ["pair in", "pair out", "pair in and out",
+                                  "pair in, index int64", "pair out, index born"])
+@pytest.mark.parametrize("shift", [0, 24])
+@pytest.mark.parametrize("n", PAIR_N)
+def test_k0_sweep_pair_forms_match_plain(cuda, n, shift, form, offset):
+    """Each pair form of the sweep against its plain version, bit for bit:
+    the digit in lo (shift 0) and in hi (shift 24 of hi), with an argsort's
+    index, the pair in at and one key off the 16-byte grid; a pair out is
+    the halves of one fresh buffer, the input left as it was."""
+    buf, pair = _pair_keys(n, n + shift, cuda, offset=offset)
+    kept = buf.clone()
+    hi, lo = pair if "pair in" in form else kdf.split64(buf)
+    planes = [hi, lo]
+    w = lo if shift == 0 else hi
+    kw = {"pair_out": "pair out" in form}
+    if form == "pair in, index int64":
+        planes.append(torch.randperm(n, device=cuda).to(torch.int32))
+        kw["index_dtype"] = torch.int64
+    elif form == "pair out, index born":
+        kw["position"] = True
+    starts = _sweep_starts(w, shift)
+    status = ck.k0_sweep_status(n, cuda)
+    before = ck.launch_counts()
+    got = ck.k0_sweep(w, planes, shift, 8, ck.K0_SWEEP_TILE, starts, status, 1, **kw)
+    torch.cuda.synchronize()
+    after = ck.launch_counts()
+    want = ck.k0_sweep_plain(w, planes, shift, 8, ck.K0_SWEEP_TILE, starts, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [g.dtype for g in got] == [x.dtype for x in want]
+    assert after["k0_sweep_pair_in"] - before["k0_sweep_pair_in"] == ("pair in" in form)
+    assert after["k0_sweep_pair_out"] - before["k0_sweep_pair_out"] == kw["pair_out"]
+    if kw["pair_out"]:
+        out = kdf.pair_of(got[0], got[1])
+        assert out is not None and out.untyped_storage().data_ptr() != buf.untyped_storage().data_ptr()
+    assert torch.equal(buf, kept)
+
+
+def test_k0_sweep_refuses_what_is_not_a_pair(cuda):
+    """A stride of 3, swapped halves and halves one word off the 8-byte
+    grid are no pair: the wrapper refuses them as planes that are not dense."""
+    n = 100_003
+    _, (hi, lo) = _pair_keys(n, 5, cuda)
+    third = torch.zeros(3 * n, dtype=torch.int32, device=cuda)
+    off = torch.zeros(2 * n + 2, dtype=torch.int32, device=cuda)[1:]
+    status = ck.k0_sweep_status(n, cuda)
+    for bad in ((third[1::3], third[0::3]), (lo, hi), (off[1::2][:n], off[0::2][:n])):
+        starts = _sweep_starts(bad[1], 0)
+        with pytest.raises((TypeError, ValueError)):
+            ck.k0_sweep(bad[1], bad, 0, 8, ck.K0_SWEEP_TILE, starts, status, 1)
+        with pytest.raises((TypeError, ValueError)):
+            ck.live_digits(bad, 8)
+
+
+@pytest.mark.parametrize("entry", ["sort", "argsort", "argsort int64", "sort_pairs",
+                                   "int64", "float64", "descending", "sort, one key in"])
+def test_40m_64_bit_entry_points_match_torch_sort(cuda, entry):
+    """The u64 sort, argsort (uint32 and int64 indices) and sort_pairs, and
+    the int64, float64 and descending u64 sorts at 40M keys, bit for bit
+    against torch.sort of the keys' order (stable), the input unchanged;
+    the u64 sort of a slice one key in (a pair 8 bytes off the 16-byte
+    grid) too."""
+    from sortbench import reference
+    n = 40_000_000
+    dtype = {"int64": torch.int64, "float64": torch.float64}.get(entry, torch.uint64)
+    one_in = entry == "sort, one key in"
+    x, order = _u64_keys(n + one_in, 47, dtype, cuda, ties=9)
+    if one_in:
+        x = x[1:]
+        assert x.data_ptr() % 16 == 8
+        order = reference.stable_order(x)
+    kept = x.clone()
+    rt.reset_launch_counts()
+    key = x.view(torch.int64)
+    if entry == "descending":                    # keys alone: ties are equal words
+        got = rt.sort(x, config=rt.SortConfig(descending=True))
+        assert torch.equal(got.view(torch.int64), key[order.flip(0)])
+    elif entry.startswith("argsort"):
+        idt = torch.int64 if entry == "argsort int64" else torch.uint32
+        perm = rt.argsort(x, index_dtype=idt)
+        assert perm.dtype == idt and torch.equal(perm.view(torch.int32).long()
+                                                 if idt == torch.uint32 else perm, order)
+    elif entry == "sort_pairs":
+        pay = torch.arange(n, device=cuda, dtype=torch.int32)
+        sk, sv = rt.sort_pairs(x, pay)
+        assert torch.equal(sk.view(torch.int64), key[order]) and torch.equal(sv.long(), order)
+    else:
+        got = rt.sort(x)
+        assert got.dtype == dtype and torch.equal(got.view(torch.int64), key[order])
+        pair = int(dtype == torch.uint64)
+        assert [rt.launch_counts()[k] for k in ("live_digits_pair", "k0_sweep_pair_in",
+                                                "k0_sweep_pair_out")] == [pair] * 3
+    assert torch.equal(x.view(torch.int64), kept.view(torch.int64))
 
 
 def _sweep_starts(w, shift):

@@ -15,7 +15,9 @@ the live-bit folds, the sweep's plain version against L1 + scan + L2's
 (``scan.scatter_bases(lsd_hist_plain)`` and ``lsd_scatter_plain``), and
 the live-digit read with the presorted guard's flag (``live_digits_plain``
 against ``hist_multi_plain`` of each plane and ``probes.is_sorted_words``;
-no guarded K0 call runs the guard's torch passes).
+no guarded K0 call runs the guard's torch passes); and the pair, an
+ascending u64 key's two halves read and written where they lie
+(``kdf.halves``), against the dense planes of the same keys.
 """
 
 import dataclasses
@@ -27,7 +29,7 @@ import torch
 import radix_sorting_tpu as rst
 import radix_sorting_tpu_torch as rt
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
-from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine, probes, scan
+from radix_sorting_tpu_torch.ops import hw_engine, kdf, lsd_engine, probes, scan
 
 from test_torch_api import assert_trees_equal, dup_keys, keys
 from test_torch_cuda import ORDER_CASES, RANK_PATTERNS, order_keys, rank_keys
@@ -305,9 +307,10 @@ def test_sweep_bears_the_index_first_and_writes_its_dtype_last(monkeypatch, live
     calls = []
     real = ck.k0_sweep
 
-    def spy(w, planes, *a, position=False, index_dtype=torch.int32):
-        calls.append((len(planes), position, index_dtype))
-        return real(w, planes, *a, position=position, index_dtype=index_dtype)
+    def spy(w, planes, *a, position=False, index_dtype=torch.int32, pair_out=False):
+        calls.append((len(planes), position, index_dtype, pair_out))
+        return real(w, planes, *a, position=position, index_dtype=index_dtype,
+                    pair_out=pair_out)
     monkeypatch.setattr(ck, "k0_sweep", spy)
     x = _sweep_keys("random", 31).numpy().view(np.uint32)
     x = {"four digits": x, "one digit": x & np.uint32(0x0000FF00),
@@ -318,8 +321,8 @@ def test_sweep_bears_the_index_first_and_writes_its_dtype_last(monkeypatch, live
     assert perm.dtype == index_dtype and np.array_equal(perm.numpy(), order)
     assert np.array_equal(sw.numpy().view(np.uint32), x[order])
     passes = {"four digits": 4, "one digit": 1, "no digit": 0}[live]
-    want = [(1 if e == 0 else 2, e == 0, index_dtype if e == passes - 1 else torch.int32)
-            for e in range(passes)]
+    want = [(1 if e == 0 else 2, e == 0, index_dtype if e == passes - 1 else torch.int32,
+             False) for e in range(passes)]
     assert calls == want
 
 
@@ -458,3 +461,126 @@ def test_live_digits_fit_one_launch_at_every_config_width():
     for bad in ((w[::2],), (w, w[:8]), (w.long(),)):
         with pytest.raises((TypeError, ValueError)):
             ck.live_digits(bad, 8)
+
+
+# ---------------------------------------------------------------------------
+# (f) the pair: the halves of one 64-bit buffer, read by the live-digit read
+# and the first live pass where they lie, written as one by the last
+
+
+def _pair_keys(case, seed):
+    """N u64 keys (three tiles, the last short) for a pair case."""
+    x = np.random.Generator(np.random.PCG64(seed)).integers(0, 1 << 64, size=N,
+                                                           dtype=np.uint64)
+    x[::7] = x[3]                                      # ties: stability shows
+    if case == "one live digit":
+        x = np.uint64(0x0123456789AB00EF) | (x & np.uint64(0xFF00))
+    elif case == "no live digit":
+        x[:] = 0xFEEDFACE_DEADBEEF
+    elif case == "presorted under the guard":
+        x = np.sort(x)
+    return x
+
+
+@pytest.fixture
+def pair_passes(monkeypatch):
+    """Every ``k0_sweep``: (planes 0 and 1 in as a pair, out as one)."""
+    seen = []
+    real = ck.k0_sweep
+
+    def spy(w, planes, *a, pair_out=False, **k):
+        seen.append((kdf.pair_of(planes[0], planes[1]) is not None, pair_out))
+        return real(w, planes, *a, pair_out=pair_out, **k)
+    monkeypatch.setattr(ck, "k0_sweep", spy)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["short last tile", "one live digit", "no live digit",
+                                  "presorted under the guard", "argsort int32",
+                                  "argsort int64", "a slice at an odd offset"])
+def test_pair_through_k0_matches_the_dense_planes(pair_passes, case):
+    """K0 over the halves of a u64 tensor: the first live pass reads them,
+    the last writes the sorted keys as the halves of one fresh buffer (one
+    live digit: one pass does both; none, or an ordered input under the
+    guard: one copy of the input). Equal to K0 over the dense planes and to
+    numpy's stable sort; the input left bit for bit, no storage shared. A
+    slice one key in reads its halves off the 16-byte grid."""
+    x = _pair_keys(case, 80 + len(case))
+    t = torch.from_numpy(x.view(np.int64).copy())
+    if case == "a slice at an odd offset":
+        t = torch.cat([t[:1], t])[1:]
+        assert t.data_ptr() % 16 == 8
+    kept = t.clone()
+    pair = kdf.halves(t)
+    assert kdf.pair_of(*pair) is not None
+    index = {"argsort int32": torch.int32, "argsort int64": torch.int64}.get(case)
+    guard = case == "presorted under the guard"
+    sw, _, perm = lsd_engine.sort_words_k0(pair, guard=guard, index_dtype=index)
+    seen = list(pair_passes)
+    dw, _, dperm = lsd_engine.sort_words_k0(kdf.split64(t), guard=guard, index_dtype=index)
+    order = np.argsort(x, kind="stable")
+    out = kdf.pair_of(*sw)
+    assert out is not None and kdf.join64(*sw, torch.uint64).data_ptr() == out.data_ptr()
+    assert np.array_equal(out.numpy().view(np.uint64), x[order])
+    assert all(torch.equal(a, b) for a, b in zip(sw, dw))
+    if index is not None:
+        assert perm.dtype == index and np.array_equal(perm.numpy(), order)
+        assert torch.equal(perm, dperm)
+    assert torch.equal(t, kept)
+    assert out.untyped_storage().data_ptr() != t.untyped_storage().data_ptr()
+    live = {"one live digit": 1, "no live digit": 0, "presorted under the guard": 0}.get(case, 8)
+    assert seen == [(e == 0, e == live - 1) for e in range(live)]
+    assert pair_passes[live:] == [(False, False)] * live       # the dense planes'
+
+
+def _not_a_pair(bad):
+    """(planes 0 and 1, the key plane) that look like a pair and are not."""
+    t = torch.from_numpy(_pair_keys("short last tile", 90).view(np.int64).copy())
+    words = t.view(torch.int32)
+    if bad == "a stride of 3":
+        third = torch.cat([words, words[:N]])
+        return third[1::3], third[0::3]
+    if bad == "swapped halves":
+        hi, lo = kdf.halves(t)
+        return lo, hi
+    off = words[1:-1]                        # one word off the 8-byte grid
+    return off[1::2], off[0::2][:N - 1]
+
+
+@pytest.mark.parametrize("bad", ["a stride of 3", "swapped halves", "offset halves"])
+def test_pair_wrappers_refuse_what_is_not_a_pair(bad):
+    """Exactly the two halves of one dense 64-bit buffer, hi after lo, are
+    a pair: a stride of 3, swapped halves and halves one word off the
+    8-byte grid are refused by every wrapper as planes that are not dense,
+    and ``join64`` copies them."""
+    hi, lo = _not_a_pair(bad)
+    assert hi.shape == lo.shape and kdf.pair_of(hi, lo) is None
+    n = hi.shape[0]
+    starts = _starts(lo.contiguous(), 0, 8)
+    status = ck.k0_sweep_status(n, lo.device)
+    for call in (lambda: ck.k0_sweep(lo, (hi, lo), 0, 8, ck.K0_SWEEP_TILE, starts, status, 1),
+                 lambda: ck.k0_sweep_plain(lo, (hi, lo), 0, 8, ck.K0_SWEEP_TILE, starts),
+                 lambda: ck.live_digits((hi, lo), 8),
+                 lambda: ck.live_digits_plain((hi, lo), 8)):
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    joined = kdf.join64(hi, lo, torch.int64)
+    assert joined.untyped_storage().data_ptr() != hi.untyped_storage().data_ptr()
+    assert torch.equal(kdf.split64(joined)[0], hi) and torch.equal(kdf.split64(joined)[1], lo)
+
+
+def test_pair_sweep_refuses_a_digit_or_an_index_off_the_pair():
+    """A pass that reads or writes a pair takes its digit from plane 0 or 1,
+    and a pair out is never the index written as int64."""
+    t = torch.from_numpy(_pair_keys("short last tile", 91).view(np.int64).copy())
+    hi, lo = kdf.halves(t)
+    other = lo.contiguous()
+    starts = _starts(other, 0, 8)
+    with pytest.raises(ValueError):
+        ck.k0_sweep_plain(other, (hi, lo, other), 0, 8, ck.K0_SWEEP_TILE, starts)
+    dhi, dlo = kdf.split64(t)
+    with pytest.raises(ValueError):
+        ck.k0_sweep_plain(dhi, (dhi, dlo), 0, 8, ck.K0_SWEEP_TILE, starts,
+                          index_dtype=torch.int64, pair_out=True)
+    with pytest.raises(ValueError):
+        ck.live_digits((hi, lo), 11)            # a pair at K0's 8-bit digits only

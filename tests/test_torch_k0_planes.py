@@ -24,7 +24,7 @@ import torch
 import radix_sorting_tpu as rst
 import radix_sorting_tpu_torch as rt
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
-from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine
+from radix_sorting_tpu_torch.ops import hw_engine, kdf, lsd_engine
 from sortbench import reference
 
 from test_torch_api import assert_trees_equal, keys
@@ -61,16 +61,19 @@ def k0(monkeypatch):
 @pytest.fixture
 def passes(monkeypatch):
     """Every ``k0_sweep``: (shift, planes, epoch, status, position,
-    index_dtype, the digit plane's index among the planes)."""
+    index_dtype, the digit plane's index among the planes, whether planes 0
+    and 1 come in as a pair, whether they go out as one)."""
     seen = []
     real = ck.k0_sweep
 
     def spy(w, planes, shift, radix_bits, tile, starts, status, epoch, position=False,
-            index_dtype=torch.int32):
+            index_dtype=torch.int32, pair_out=False):
         digit = next(i for i, p in enumerate(planes) if p is w)
-        seen.append((shift, len(planes), epoch, status, position, index_dtype, digit))
+        pair_in = kdf.pair_of(planes[0], planes[1]) is not None
+        seen.append((shift, len(planes), epoch, status, position, index_dtype, digit,
+                     pair_in, pair_out))
         return real(w, planes, shift, radix_bits, tile, starts, status, epoch,
-                    position=position, index_dtype=index_dtype)
+                    position=position, index_dtype=index_dtype, pair_out=pair_out)
     monkeypatch.setattr(ck, "k0_sweep", spy)
     return seen
 
@@ -130,6 +133,8 @@ def test_sort_of_64_bit_keys_through_k0(k0, passes, name, descending):
     assert np.array_equal(raw(got), raw(x)[want_order(x, descending)])
     assert k0 == [(2, 0, dict(index_dtype=None, guard=True))]     # AUTO: the guarded sorter
     eight_passes(passes)
+    pair = name == "uint64" and not descending      # the identity KDF: the input's halves
+    assert [s[7:] for s in passes] == [(pair, False)] + [(False, False)] * 6 + [(False, pair)]
 
 
 @pytest.mark.parametrize("index_dtype", [np.uint32, np.int64])
@@ -144,6 +149,7 @@ def test_argsort_of_u64_through_k0(k0, passes, index_dtype):
     eight_passes(passes, index=True)
     assert [(s[4], s[5]) for s in passes] == [(True, torch.int32)] + \
         [(False, torch.int32)] * 6 + [(False, born)]
+    assert [s[7:] for s in passes] == [(True, False)] + [(False, False)] * 6 + [(False, True)]
 
 
 def test_sort_pairs_of_u64_keys_and_f32_payload_through_k0(k0, passes):
@@ -157,6 +163,7 @@ def test_sort_pairs_of_u64_keys_and_f32_payload_through_k0(k0, passes):
     assert np.array_equal(raw(gv), raw(v[order]))
     assert k0 == [(2, 1, dict(index_dtype=None, guard=True))]
     eight_passes(passes, payload_planes=1)        # hi, lo and the payload: 3 planes a launch
+    assert all(s[7:] == (False, False) for s in passes)    # a payload sort: dense planes
 
 
 # ---------------------------------------------------------------------------
@@ -228,3 +235,82 @@ def test_uniform_u64_takes_eight_passes_on_one_status_buffer(passes, monkeypatch
         assert np.array_equal(got.numpy(), np.cumsum(h) - h)
     status = passes[0][3]
     assert status.dtype == torch.int64 and status.numel() == -(-N // ck.K0_SWEEP_TILE) * 256 + 1
+
+
+# ---------------------------------------------------------------------------
+# the routes of a u64 key that take no pair
+
+
+@pytest.mark.parametrize("route", ["COUNTING with a value_mask", "Strategy.LSD sort",
+                                   "Strategy.LSD argsort", "torch.sort", "torch.sort argsort",
+                                   "torch.sort presorted under the guard"])
+def test_u64_routes_off_k0_take_dense_planes_and_match_jax(monkeypatch, route):
+    """An ascending u64 key encodes to a pair for K0 alone: the counting
+    tier, ``Strategy.LSD`` and ``torch.sort`` (a CPU tensor's route) take
+    dense planes, match the JAX package, leave the input as it was and
+    return fresh tensors; no pass sees a pair."""
+    seen = []
+    real = ck.k0_sweep
+    monkeypatch.setattr(ck, "k0_sweep", lambda w, planes, *a, **k: seen.append(
+        kdf.pair_of(planes[0], planes[1]) is not None) or real(w, planes, *a, **k))
+    x = tied_u64(33)
+    mask = None
+    if route.startswith("COUNTING"):
+        mask = 0x000F00000000F0F0                 # 12 live bits: the counting tier
+        x = x & np.uint64(mask)
+    elif route.endswith("guard"):
+        x = np.sort(x)
+    t = torch.from_numpy(x.view(np.int64).copy()).view(torch.uint64)
+    kept = t.clone()
+    lsd = route.startswith("Strategy.LSD")
+    jcfg, tcfg = cfgs(strategy=rst.Strategy.LSD) if lsd else cfgs()
+    if route.endswith("argsort"):
+        got = rt.argsort(t, config=tcfg)
+        want = np.asarray(rst.argsort(jax_in(x), config=jcfg))
+        assert np.array_equal(got.numpy(), want) and np.array_equal(got.numpy(), want_order(x))
+    else:
+        got = rt.sort(t, config=tcfg, value_mask=mask)
+        want = np.asarray(rst.sort(jax_in(x), config=jcfg, value_mask=mask))
+        assert np.array_equal(got.view(torch.int64).numpy().view(np.uint64), want)
+        assert np.array_equal(want, x[want_order(x)])
+    assert got.untyped_storage().data_ptr() != t.untyped_storage().data_ptr()
+    assert torch.equal(t.view(torch.int64), kept.view(torch.int64))
+    assert not any(seen)
+
+
+PAIR_ROUTES = {   # case: (entry, config, value_mask, whether the encode makes a pair)
+    "AUTO sort": ("sort", {}, None, True),
+    "HW_SORT sort": ("sort", {"strategy": rt.Strategy.HW_SORT}, None, True),
+    "AUTO argsort": ("argsort", {}, None, True),
+    "sort with a wide value_mask": ("sort", {}, 0xFFFFFFFFFFFF0FFF, False),
+    "argsort with a wide value_mask": ("argsort", {}, 0xFFFFFFFFFFFF0FFF, False),
+    "sort with dynamic_probe": ("sort", {"dynamic_probe": True}, None, False),
+    "sort with device_probe": ("sort", {"device_probe": True}, None, False),
+    "Strategy.LSD sort": ("sort", {"strategy": rt.Strategy.LSD}, None, False),
+    "Strategy.LSD argsort": ("argsort", {"strategy": rt.Strategy.LSD}, None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(PAIR_ROUTES))
+def test_api_makes_a_pair_only_where_the_sorter_takes_k0(k0, monkeypatch, case):
+    """With K0 the sorter of two planes, ``sort`` and ``argsort`` encode an
+    ascending u64 key as a pair only where the strategy hands it straight
+    to that sorter: a ``value_mask``, a probe or ``Strategy.LSD`` takes
+    dense planes. Each result is numpy's stable order of the keys."""
+    entry, kw, mask, pair = PAIR_ROUTES[case]
+    made = []
+    real = kdf.encode
+    monkeypatch.setattr(kdf, "encode", lambda *a, **k: made.append(
+        real(*a, **k)) or made[-1])
+    x = tied_u64(35)
+    if mask is not None:
+        x = x & np.uint64(mask)
+    t = torch.from_numpy(x.view(np.int64).copy()).view(torch.uint64)
+    cfg = rt.SortConfig(**kw)
+    if entry == "argsort":
+        got = rt.argsort(t, config=cfg, value_mask=mask)
+        assert np.array_equal(got.numpy(), want_order(x))
+    else:
+        got = rt.sort(t, config=cfg, value_mask=mask)
+        assert np.array_equal(got.view(torch.int64).numpy().view(np.uint64), x[want_order(x)])
+    assert [kdf.pair_of(*w) is not None for w in made] == [pair]

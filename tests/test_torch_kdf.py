@@ -263,6 +263,55 @@ def test_join64_of_few_keys(n):
                           np.asarray(rst.sort_u64_multipass(x)))
 
 
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("name", ["uint64", "int64", "float64"])
+def test_encode_hands_only_an_ascending_u64_key_as_a_pair(name, descending):
+    """``encode(pair=True)``: an ascending u64 key (the identity KDF) comes
+    as the two halves of the tensor itself, a view with no copy; every
+    other 64-bit key as the dense planes it always was. The words match
+    the JAX package's either way, and decode back to the keys."""
+    x = make_keys(name, 4099, np.random.default_rng(4))
+    t = tkdf.as_tensor(x, "cpu")
+    words = tkdf.encode(t, descending, pair=True)
+    pair = tkdf.pair_of(*words)
+    if name == "uint64" and not descending:
+        assert pair is not None and pair.data_ptr() == t.data_ptr()
+    else:
+        assert pair is None and all(w.is_contiguous() for w in words)
+    jhi, jlo = jax_words(x, descending)
+    assert np.array_equal(words[0].numpy().view(np.uint32), np.asarray(jhi))
+    assert np.array_equal(words[1].numpy().view(np.uint32), np.asarray(jlo))
+    assert all(torch.equal(a, b) for a, b in zip(words, tkdf.encode(t, descending)))
+    assert raw(tkdf.to_numpy(tkdf.decode(words, t.dtype, descending))).tobytes() == \
+        raw(x).tobytes()
+
+
+@pytest.mark.parametrize("planes", ["a pair", "a pair in a slice", "dense planes",
+                                    "a pair's copy"])
+def test_join64_of_a_pair_is_a_view_and_of_dense_planes_a_copy(planes):
+    """``join64`` of the halves of one dense buffer (also of a contiguous
+    slice, on its 8-byte grid) is that buffer; of anything else, a copy.
+    ``split64`` of that buffer makes the pair two dense planes, a copy."""
+    x = make_keys("uint64", 4099, np.random.default_rng(5))
+    t = tkdf.as_tensor(x, "cpu")
+    base = t[7:4000] if planes == "a pair in a slice" else t
+    hi, lo = tkdf.halves(base)
+    if planes == "dense planes":
+        hi, lo = tkdf.split64(base)
+    elif planes == "a pair's copy":
+        hi, lo = hi.clone(), lo.clone()
+    joined = tkdf.join64(hi, lo, torch.uint64)
+    assert raw(tkdf.to_numpy(joined)).tobytes() == raw(x[7:4000] if base is not t
+                                                       else x).tobytes()
+    view = planes.startswith("a pair") and planes != "a pair's copy"
+    assert (joined.data_ptr() == base.data_ptr()) == view
+    if view:
+        dhi, dlo = tkdf.split64(joined)
+        assert dhi.is_contiguous() and dlo.is_contiguous()
+        assert torch.equal(dhi, hi) and torch.equal(dlo, lo)
+        assert dhi.untyped_storage().data_ptr() != t.untyped_storage().data_ptr()
+
+
 @pytest.mark.parametrize("W", [1, 2, 4, 6, 9, 256])
 def test_pack_bytes_be_matches_jax(W):
     u8 = np.random.default_rng(W).integers(0, 256, size=(1001, W), dtype=np.uint8)
