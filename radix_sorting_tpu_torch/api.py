@@ -41,7 +41,7 @@ from torch.utils import _pytree as pytree
 
 from .config import DEFAULT_CONFIG, SortConfig, Strategy
 from .ops import counting_engine, hw_engine, kdf, lsd_engine, probes
-from .utils.timing import ARGSORT, DECODE, ENCODE, READ, SORT, SORT_PAIRS, span
+from .utils.timing import ARGSORT, DECODE, ENCODE, PAYLOAD, READ, SORT, SORT_PAIRS, span
 
 __all__ = ["sort", "argsort", "rank_sort", "sort_pairs", "counting_sort",
            "sort_u64_multipass", "sort_batched", "argsort_batched",
@@ -438,7 +438,8 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
         cfg = config
         words, dtype, from_numpy = _as_words(keys, cfg.descending, device)
         _reject_bytes_mask(dtype, value_mask)
-        leaves, pmeta = _flatten_payload(values, words[0].device)
+        with span(PAYLOAD):
+            leaves, pmeta = _flatten_payload(values, words[0].device)
         n = int(words[0].shape[0])
         if n != (leaves[0].shape[0] if leaves else n):
             raise ValueError("keys and payload lengths differ")
@@ -461,7 +462,9 @@ def sort_pairs(keys, values, *, config: SortConfig = DEFAULT_CONFIG,
         if cmasks is not None:
             sw = probes.expand_word_planes(sw[0], words, cmasks)
         sorted_keys = _decode(sw, dtype, cfg.descending, from_numpy)
-        return sorted_keys, _unflatten_payload(sp, pmeta)
+        with span(PAYLOAD):
+            sorted_values = _unflatten_payload(sp, pmeta)
+        return sorted_keys, sorted_values
 
 
 def counting_sort(keys, values=None, *, config: SortConfig = DEFAULT_CONFIG,

@@ -224,10 +224,11 @@ K0, TORCH_SORT = "rst.k0", "rst.torch_sort"     # the sorter a call took
 GUARD = "rst.guard"                # the presorted guard's torch passes, enqueued (off K0)
 LIVE_DIGITS = "rst.live_digits"    # the engines' live digits (and guard flag), enqueued
 K0_PASS = "rst.k0_pass"            # one K0 sweep's enqueue: a call shows its live passes
+PAYLOAD = "rst.payload"            # sort_pairs' host work on the payload tree, each way
 READ = "rst.read"                  # a read of device data on the host: it waits for the device
 LAUNCH = "rst.launch"              # a hand-written kernel's enqueue
 SPANS = (SORT, ARGSORT, SORT_PAIRS, ENCODE, DECODE, K0, TORCH_SORT, GUARD, LIVE_DIGITS,
-         K0_PASS, READ, LAUNCH)
+         K0_PASS, PAYLOAD, READ, LAUNCH)
 
 _OFF = contextlib.nullcontext()
 

@@ -1273,6 +1273,36 @@ def test_one_plane_sorts_above_the_gate_call_no_torch_sort(cuda, sort_spy, dtype
         assert np.array_equal(perm.cpu().numpy(), perm_want)
 
 
+def test_40m_sort_pairs_of_a_float32_payload_takes_k0_alone(cuda, sort_spy):
+    """The ``u32_sort_pairs`` cell's call at its size: 40M u32 keys (every
+    eleventh one value, so stability shows) carrying a bare float32 payload
+    through AUTO take one live-digit read and four sweeps, no torch.sort;
+    both outputs bit for bit the configuration's ``expected``, the inputs
+    left as they were."""
+    from sortbench import manifest
+    ref = manifest.load_module(manifest.HERE / "configs" / "u32_sort_pairs.py",
+                               "u32_sort_pairs_reference")
+    n = 40_000_000
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    keys = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32, device=cuda,
+                         generator=gen)
+    keys[::11] = keys[5]
+    inputs = {"keys": keys.view(torch.uint32),
+              "payload": torch.rand(n, device=cuda, generator=gen)}
+    kept = {k: v.clone() for k, v in inputs.items()}
+    rt.reset_launch_counts()
+    got = ref.call(rt.sort_pairs, inputs)
+    counts = rt.launch_counts()
+    assert sort_spy[0] == 0
+    assert counts["lsd_sort"] == counts["live_digits"] == 1 and counts["k0_sweep"] == 4
+    assert counts["hist_multi"] == counts["lsd_hist"] == counts["lsd_scatter"] == 0
+    assert isinstance(got, tuple) and [t.dtype for t in got] == [torch.uint32, torch.float32]
+    for g, w in zip(got, ref.expected(inputs)):
+        assert g.device == w.device and torch.equal(g.view(torch.int32), w.view(torch.int32))
+    for k, v in inputs.items():
+        assert torch.equal(v.view(torch.int32), kept[k].view(torch.int32))
+
+
 def test_presorted_one_plane_launches_no_pass(cuda):
     n = _gate_sizes()["above the gate"]
     x = (torch.sort(rand_plane(n, 4, cuda) ^ i32(1 << 31)).values ^ i32(1 << 31)

@@ -17,7 +17,10 @@ the live-digit read with the presorted guard's flag (``live_digits_plain``
 against ``hist_multi_plain`` of each plane and ``probes.is_sorted_words``;
 no guarded K0 call runs the guard's torch passes); and the pair, an
 ascending u64 key's two halves read and written where they lie
-(``kdf.halves``), against the dense planes of the same keys.
+(``kdf.halves``), against the dense planes of the same keys. The
+``u32_sort_pairs`` benchmark cell's call (a float32 payload riding K0's
+passes) against that configuration's plain reference
+(``sortbench/configs/u32_sort_pairs.py``) and its control.
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ import radix_sorting_tpu_torch as rt
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
 from radix_sorting_tpu_torch.ops import hw_engine, kdf, lsd_engine, probes, scan
 
+from sortbench import manifest
 from test_torch_api import assert_trees_equal, dup_keys, keys
 from test_torch_cuda import ORDER_CASES, RANK_PATTERNS, order_keys, rank_keys
 from test_torch_kdf import raw
@@ -139,6 +143,53 @@ def test_sort_pairs_through_k0_matches_jax(k0, which):
     assert np.array_equal(gk, np.asarray(wk))
     assert_trees_equal(gv, wv)
     assert k0 == [(1, len(vals), dict(K0_ARGS, guard=True))]
+
+
+PAIRS_REF = manifest.load_module(manifest.HERE / "configs" / "u32_sort_pairs.py",
+                                 "u32_sort_pairs_reference")
+
+
+def _pairs_inputs(kind, seed):
+    """The ``u32_sort_pairs`` cell's input at N keys: u32 keys with ties
+    (one live digit, or uniform words with every seventh key one value: four
+    live digits) and float32 values drawn from the seed."""
+    x = dup_keys("uint32", N, seed) if kind == "one live digit" else keys("uint32", N, seed)
+    if kind == "four live digits":
+        x[::7] = x[3]
+    v = np.random.Generator(np.random.PCG64(seed + 1)).random(N, dtype=np.float32)
+    return x, {"keys": torch.from_numpy(x.view(np.int32)).view(torch.uint32),
+               "payload": torch.from_numpy(v)}
+
+
+@pytest.mark.parametrize("kind", ["one live digit", "four live digits"])
+def test_sort_pairs_cell_through_k0_matches_its_reference(k0, monkeypatch, kind):
+    """The benchmark cell's call (a bare float32 payload) through K0's plain
+    passes: two tensors, both bit for bit the configuration's ``expected``
+    and numpy's stable argsort applied to the payload, the inputs left as
+    they were; the control differs, so the check can fail."""
+    passes = []
+    real = ck.k0_sweep
+    monkeypatch.setattr(ck, "k0_sweep", lambda *a, **k: passes.append(a[2]) or real(*a, **k))
+    x, inputs = _pairs_inputs(kind, 17)
+    kept = {k: v.clone() for k, v in inputs.items()}
+    got = PAIRS_REF.call(rt.sort_pairs, inputs)
+    assert isinstance(got, tuple) and len(got) == 2
+    assert all(torch.is_tensor(t) for t in got)
+    assert got[0].dtype == torch.uint32 and got[1].dtype == torch.float32
+    want = PAIRS_REF.expected(inputs)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    order = np.argsort(x, kind="stable")
+    assert np.array_equal(got[0].view(torch.int32).numpy().view(np.uint32), x[order])
+    assert np.array_equal(got[1].numpy().view(np.int32),
+                          inputs["payload"].numpy().view(np.int32)[order])
+    for k in inputs:
+        assert torch.equal(inputs[k].view(torch.int32), kept[k].view(torch.int32))
+    control = PAIRS_REF.control(inputs)
+    assert torch.equal(control[0].view(torch.int32), want[0].view(torch.int32))
+    assert not torch.equal(control[1].view(torch.int32), want[1].view(torch.int32))
+    assert k0 == [(1, 1, dict(K0_ARGS, guard=True))]
+    assert len(passes) == (1 if kind == "one live digit" else 4)
 
 
 def test_unique_with_counts_through_k0_matches_jax(k0):

@@ -2,12 +2,14 @@
 
 Under ``utils.timing.trace`` the sort path marks its steps with spans named
 in ``utils.timing.SPANS``: the public call, the key transform each way, the
-sorter it took, the presorted guard, K0's live digits, each read of device
-data on the host and each kernel's enqueue. Here: the spans' nesting and
-order on the ``torch.sort`` route of CPU tensors and through K0's plain
-passes, one read a K0 call, and that with no profiler a span is one shared
-null context (no ``record_function`` is built). The benchmark reads the
-spans by their prefix (``sortbench.spanfold.PREFIX``).
+sorter it took, the presorted guard, K0's live digits, ``sort_pairs``' work
+on the payload tree each way, each read of device data on the host and each
+kernel's enqueue. Here: the spans' nesting and order on the ``torch.sort``
+route of CPU tensors and through K0's plain passes, one read a K0 call, and
+that with no profiler a span is one shared null context (no
+``record_function`` is built). The benchmark reads the spans by their
+prefix (``sortbench.spanfold.PREFIX``); ``payload_host_ms`` reads the
+payload spans of a folded trace.
 """
 
 import ast
@@ -22,7 +24,7 @@ import radix_sorting_tpu_torch as rt
 from radix_sorting_tpu_torch.ops import cuda_kernels as ck
 from radix_sorting_tpu_torch.ops import hw_engine, lsd_engine
 from radix_sorting_tpu_torch.utils import timing
-from sortbench import spanfold
+from sortbench import manifest, spanfold, tracefold
 
 N = 5000
 PORT = Path(rt.__file__).resolve().parent
@@ -72,35 +74,37 @@ def k0(monkeypatch):
                         else real(device_type, planes, n))
 
 
+# entry point: (call, its outermost span, the spans between the encode and the
+# sorter, the spans after the sorter)
 ENTRIES = {
-    "sort": (lambda x: rt.sort(x), timing.SORT, [timing.DECODE]),
-    "argsort": (lambda x: rt.argsort(x), timing.ARGSORT, []),
+    "sort": (lambda x: rt.sort(x), timing.SORT, [], [timing.DECODE]),
+    "argsort": (lambda x: rt.argsort(x), timing.ARGSORT, [], []),
     "sort_pairs": (lambda x: rt.sort_pairs(x, torch.arange(N))[0], timing.SORT_PAIRS,
-                   [timing.DECODE]),
+                   [timing.PAYLOAD], [timing.DECODE, timing.PAYLOAD]),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_entry_points_nest_their_spans_on_the_torch_sort_route(tmp_path, entry):
-    fn, top, tail = ENTRIES[entry]
+    fn, top, head, tail = ENTRIES[entry]
     keys = u32()
     out, tree = traced(tmp_path, lambda: fn(torch.from_numpy(keys.view(np.int32))
                                             .view(torch.uint32)))
     want = np.argsort(keys, kind="stable") if entry == "argsort" else np.sort(keys)
     assert np.array_equal(out.view(torch.int32).numpy().view(np.uint32), want)
     assert names(tree) == [top]
-    assert names(tree[0][1]) == [timing.ENCODE, timing.GUARD, timing.READ,
-                                 timing.TORCH_SORT] + tail
+    assert names(tree[0][1]) == [timing.ENCODE] + head + [timing.GUARD, timing.READ,
+                                                          timing.TORCH_SORT] + tail
     assert flat(tree).count(timing.READ) == 1 and timing.K0 not in flat(tree)
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_entry_points_through_k0_read_once_inside_it(tmp_path, k0, entry):
-    fn, top, tail = ENTRIES[entry]
+    fn, top, head, tail = ENTRIES[entry]
     keys = torch.from_numpy(u32(seed=2).view(np.int32)).view(torch.uint32)
     _, tree = traced(tmp_path, lambda: fn(keys))
     assert names(tree) == [top]
-    assert names(tree[0][1]) == [timing.ENCODE, timing.K0] + tail
+    assert names(tree[0][1]) == [timing.ENCODE] + head + [timing.K0] + tail
     (k0_span,) = [kids for name, kids in tree[0][1] if name == timing.K0]
     assert names(k0_span) == [timing.LIVE_DIGITS, timing.READ] + [timing.K0_PASS] * 4
     assert flat(tree).count(timing.READ) == 1 and timing.TORCH_SORT not in flat(tree)
@@ -148,6 +152,36 @@ def test_span_records_while_a_profiler_runs(tmp_path):
     assert timing.span(timing.LAUNCH) is off
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert [e["cat"] for e in events if e.get("name") == timing.LAUNCH] == ["user_annotation"]
+
+
+@pytest.mark.parametrize("entry", ["sort_pairs", "argsort"])
+def test_payload_host_ms_reads_the_payload_spans_of_a_folded_trace(tmp_path, monkeypatch,
+                                                                    entry):
+    """Two calls in the benchmark's call spans, folded as a traced run's
+    record: ``sort_pairs`` gives ``payload_host_ms`` a positive reading,
+    inside its public span's time; ``argsort`` opens no payload span and
+    reads None, not 0."""
+    monkeypatch.setattr(spanfold, "TRACES", tmp_path)
+    read = manifest.load_module(manifest.reader_path(manifest.ROOT, "payload_host_ms"),
+                                "payload_host_ms_reader").read
+    keys = torch.from_numpy(u32(seed=5).view(np.int32)).view(torch.uint32)
+    values = torch.rand(N)
+    fn = {"sort_pairs": lambda: rt.sort_pairs(keys, values),
+          "argsort": lambda: rt.argsort(keys)}[entry]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            with torch.profiler.record_function(tracefold.SPAN):
+                fn()
+    path = tmp_path / "cell.trace.json"
+    prof.export_chrome_trace(str(path))
+    record = tracefold.fold(json.loads(path.read_text())["traceEvents"])
+    folded = spanfold.of(record)
+    assert folded["calls"] == 2
+    if entry == "argsort":
+        assert timing.PAYLOAD not in folded["counts"] and read(record) is None
+    else:
+        assert folded["counts"][timing.PAYLOAD] == 4           # each way, each call
+        assert 0 < read(record) < 1e3 * folded["seconds"][timing.SORT_PAIRS] / 2
 
 
 @pytest.mark.parametrize("name", timing.SPANS)
